@@ -1,0 +1,109 @@
+"""Binary-PLY, depth and camera exporters of the CLI (numpy only).
+
+A copy of the writers the CLI uses from hunyuanworld_mirror_tpu/io/ply.py
+(the port imports nothing of the JAX package): point clouds as x/y/z f4 +
+red/green/blue u1; 3DGS splats as x/y/z/nx/ny/nz/f_dc_0..2/opacity (logit)/
+scale_0..2 (log)/rot_0..3 (wxyz), all f4, after the 95th-percentile
+max-scale filter.
+"""
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+
+
+def _write_ply(path, arrays, names, types):
+    """Write a binary_little_endian PLY with one vertex element."""
+    n = arrays[0].shape[0]
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {n}"]
+    np_types = {"f4": "<f4", "u1": "u1"}
+    ply_types = {"f4": "float", "u1": "uchar"}
+    dtype = []
+    for name, t in zip(names, types):
+        header.append(f"property {ply_types[t]} {name}")
+        dtype.append((name, np_types[t]))
+    header.append("end_header\n")
+
+    rec = np.empty(n, dtype=dtype)
+    for arr, name in zip(arrays, names):
+        rec[name] = arr.astype(rec.dtype[name])
+    with open(str(path), "wb") as f:
+        f.write("\n".join(header).encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def save_points_ply(path, pts: np.ndarray, colors: np.ndarray,
+                    valid_mask: Optional[np.ndarray] = None) -> None:
+    """Point cloud -> PLY. pts (N, 3) float, colors (N, 3) uint8 or [0,1] float."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 3)
+    colors = np.asarray(colors).reshape(-1, 3)
+    if colors.dtype != np.uint8:
+        colors = (np.clip(colors, 0, 1) * 255).astype(np.uint8)
+
+    if valid_mask is None:
+        valid_mask = np.isfinite(pts).all(axis=1)
+    else:
+        valid_mask = np.asarray(valid_mask).reshape(-1) & np.isfinite(pts).all(axis=1)
+    pts, colors = pts[valid_mask], colors[valid_mask]
+    if len(pts) == 0:
+        pts = np.zeros((1, 3), np.float32)
+        colors = np.full((1, 3), 255, np.uint8)
+
+    _write_ply(path,
+               [pts[:, 0], pts[:, 1], pts[:, 2],
+                colors[:, 0], colors[:, 1], colors[:, 2]],
+               ["x", "y", "z", "red", "green", "blue"],
+               ["f4", "f4", "f4", "u1", "u1", "u1"])
+
+
+def save_gs_ply(path, means: np.ndarray, scales: np.ndarray,
+                rotations: np.ndarray, sh_dc: np.ndarray,
+                opacity_logits: np.ndarray,
+                scale_percentile: float = 0.95) -> None:
+    """3DGS splats -> standard PLY layout.
+
+    Args:
+      means (N,3); scales (N,3) LINEAR; rotations (N,4) wxyz; sh_dc (N,3) SH DC
+      coefficients; opacity_logits (N,) pre-sigmoid.
+    """
+    means = np.asarray(means, np.float32).reshape(-1, 3)
+    scales = np.asarray(scales, np.float32).reshape(-1, 3)
+    rotations = np.asarray(rotations, np.float32).reshape(-1, 4)
+    sh_dc = np.asarray(sh_dc, np.float32).reshape(-1, 3)
+    op = np.asarray(opacity_logits, np.float32).reshape(-1)
+
+    smax = scales.max(axis=-1)
+    thresh = np.quantile(smax, scale_percentile)
+    keep = (smax <= thresh) & np.isfinite(means).all(axis=1)
+    means, scales, rotations, sh_dc, op = (
+        means[keep], scales[keep], rotations[keep], sh_dc[keep], op[keep])
+
+    names = (["x", "y", "z", "nx", "ny", "nz"]
+             + [f"f_dc_{i}" for i in range(3)] + ["opacity"]
+             + [f"scale_{i}" for i in range(3)] + [f"rot_{i}" for i in range(4)])
+    zeros = np.zeros_like(means)
+    log_scales = np.log(np.maximum(scales, 1e-12))
+    cols = ([means[:, i] for i in range(3)] + [zeros[:, i] for i in range(3)]
+            + [sh_dc[:, i] for i in range(3)] + [op]
+            + [log_scales[:, i] for i in range(3)]
+            + [rotations[:, i] for i in range(4)])
+    _write_ply(path, cols, names, ["f4"] * len(names))
+
+
+def save_depth_npy(path, depth: np.ndarray) -> None:
+    np.save(str(path), np.asarray(depth))
+
+
+def save_camera_params(extrinsics: np.ndarray, intrinsics: np.ndarray,
+                       target_dir) -> str:
+    data = {"num_cameras": int(extrinsics.shape[0]), "extrinsics": [], "intrinsics": []}
+    for i in range(extrinsics.shape[0]):
+        data["extrinsics"].append({"camera_id": i, "matrix": extrinsics[i].tolist()})
+        data["intrinsics"].append({"camera_id": i, "matrix": intrinsics[i].tolist()})
+    path = os.path.join(str(target_dir), "camera_params.json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=2)
+    return path

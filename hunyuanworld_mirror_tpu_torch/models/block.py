@@ -1,0 +1,63 @@
+"""Transformer blocks: MHA (optional QK-norm + 2D RoPE) and the pre-LN block.
+
+Port of hunyuanworld_mirror_tpu/models/block.py. The softmax core goes
+through one seam, ops.attention.attention(q, k, v, scale), in the JAX
+package's (B, N, H, D) layout: kernel K1 on the card, its plain version on
+the CPU. The LayerNorm eps is the call site's: 1e-5 for the trunk and
+camera-head blocks, 1e-6 inside DINOv2.
+"""
+
+from typing import Optional
+
+from torch import nn
+
+from ..ops.attention import attention
+from .nn import LayerNorm, LayerScale, Linear, Mlp
+from .rope import RopeTables, apply_rope2d
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qk_norm: bool = False,
+                 norm_eps: float = 1e-5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
+        if qk_norm:
+            self.q_norm = LayerNorm(dim // num_heads, norm_eps)
+            self.k_norm = LayerNorm(dim // num_heads, norm_eps)
+        else:
+            self.q_norm = self.k_norm = None
+
+    def forward(self, x, rope: Optional[RopeTables] = None):
+        B, N, C = x.shape
+        head_dim = C // self.num_heads
+        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, head_dim)
+        q, k, v = qkv.unbind(2)                    # (B, N, H, D) views
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if rope is not None:
+            q, k = apply_rope2d(q, rope), apply_rope2d(k, rope)
+        out = attention(q, k, v, head_dim ** -0.5)
+        return self.proj(out.reshape(B, N, C))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block with optional LayerScale."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 init_values: Optional[float] = None, qk_norm: bool = False,
+                 norm_eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, norm_eps)
+        self.attn = Attention(dim, num_heads, qk_norm=qk_norm, norm_eps=norm_eps)
+        self.ls1 = LayerScale(dim, init_values) if init_values else None
+        self.norm2 = LayerNorm(dim, norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.ls2 = LayerScale(dim, init_values) if init_values else None
+
+    def forward(self, x, rope: Optional[RopeTables] = None):
+        h = self.attn(self.norm1(x), rope)
+        x = x + (self.ls1(h) if self.ls1 is not None else h)
+        h = self.mlp(self.norm2(x))
+        return x + (self.ls2(h) if self.ls2 is not None else h)

@@ -1,0 +1,222 @@
+"""Pixel-aligned 3D Gaussians: raw head params -> splats -> rendered views.
+
+Port of hunyuanworld_mirror_tpu/models/gaussians.py on the default path:
+the 2-conv gs_head (per-segment init: quats 0, scales -7, opacity -2, SH 0,
+weights -2), activations, means unprojected from gs_depth through the
+predicted cameras, residual SH over RGB2SH(image), voxel weighted merge,
+static compaction, and one rasterize per camera (RGB+ED).
+
+Splat dicts keep the JAX package's static shapes: (B, N, ...) with dead
+slots (weight 0, opacity 0, parked at 1e12). The voxel merge is plain torch
+(`torch.unique` + `index_add_`) instead of the TPU's sorted segmented scan;
+it yields the same merged set, in another slot order. Both JAX sorts are
+unstable, so splats compare as canonically re-sorted sets.
+"""
+
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..ops import rasterizer
+from ..utils import camera as cam_utils
+from ..utils import geometry, gs_act
+from ..utils import sh as sh_utils
+from .nn import Conv2d, uniform_
+
+SPLAT_KEYS = ("means", "quats", "scales", "opacities", "sh", "weights")
+
+
+@dataclass(frozen=True)
+class GSRendererConfig:
+    feature_dim: int = 256
+    sh_degree: int = 0
+    voxel_size: float = 0.002
+    max_gaussians: int = 5_000_000
+    compact_fraction: float = 0.5
+    enable_compact: bool = True
+    max_per_tile: int = 4096
+    max_tiles_per_gauss: int = 4
+    tile_size: int = 16
+    payload_f16: bool = True
+
+    @property
+    def nums_sh(self) -> int:
+        return (self.sh_degree + 1) ** 2
+
+    @property
+    def splits(self):
+        return [4, 3, 1, self.nums_sh * 3, 1]
+
+
+class GaussianSplatRenderer(nn.Module):
+    """gs_head: conv3x3 (f/2 -> f, no bias) + ReLU + conv1x1 (f -> raw)."""
+
+    def __init__(self, cfg: GSRendererConfig):
+        super().__init__()
+        self.cfg = cfg
+        f = cfg.feature_dim
+        self.gs_head = nn.Sequential(
+            Conv2d(f // 2, f, 3, padding=1, bias=False), nn.ReLU(),
+            Conv2d(f, sum(cfg.splits), 1))
+
+    def init_own(self, gen):
+        # final conv per parameter segment: xavier-uniform with a gain and a
+        # constant bias (quats 0, scales -7, opacity -2, SH 0, weights -2)
+        conv = self.gs_head[2]
+        f = self.cfg.feature_dim
+        start = 0
+        with torch.no_grad():
+            for n_out, gain, bias in ((4, 1.0, 0.0), (3, 3e-5, -7.0),
+                                      (1, 1.0, -2.0), (3 * self.cfg.nums_sh, 1.0, 0.0),
+                                      (1, 1.0, -2.0)):
+                uniform_(conv.weight[start:start + n_out],
+                         gain * (6.0 / (f + n_out)) ** 0.5, gen)
+                conv.bias[start:start + n_out] = bias
+                start += n_out
+
+    def head(self, feats: torch.Tensor) -> torch.Tensor:
+        """(B*S, H, W, f/2) fused features -> (B*S, H, W, raw) NHWC."""
+        return self.gs_head(feats.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def prepare_splats(cfg: GSRendererConfig, gs_params: torch.Tensor,
+                   images: torch.Tensor, gs_depth: torch.Tensor,
+                   camera_params: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Raw head output -> activated splats (B, N = S*H*W, ...); means are
+    gs_depth unprojected through the cameras ("gsdepth+predcamera")."""
+    B, S, H, W, _ = images.shape
+    N = S * H * W
+    quats, scales, opac, res_sh, weights = torch.split(
+        gs_params.reshape(B, N, -1), cfg.splits, dim=-1)
+    res_sh = gs_act.reg_dense_sh(res_sh)                      # (B, N, K, 3)
+    dc = sh_utils.rgb_to_sh(images.reshape(B, N, 3))
+    if cfg.nums_sh > 1:
+        sh = torch.cat([res_sh[..., :1, :] + dc[..., None, :], res_sh[..., 1:, :]], -2)
+    else:
+        sh = res_sh + dc[..., None, :]
+    ext, intr = cam_utils.vector_to_camera_matrices(
+        camera_params.reshape(B * S, 9), (H, W))
+    c2w = cam_utils.se3_inverse(cam_utils.to_homogeneous(ext))
+    pts, _, _ = geometry.depth_to_world_coords_points(
+        gs_depth.reshape(B * S, H, W), c2w, intr)
+    return {
+        "quats": gs_act.reg_dense_rotation(quats),
+        "scales": torch.clamp_max(gs_act.reg_dense_scales(scales), 0.3),
+        "opacities": gs_act.reg_dense_opacities(opac[..., 0]),
+        "weights": gs_act.reg_dense_weights(weights[..., 0]),
+        "sh": sh,
+        "residual_sh": res_sh,
+        "means": pts.reshape(B, N, 3),
+    }
+
+
+def voxel_prune(cfg: GSRendererConfig, splats: Dict) -> Dict:
+    """Merge splats sharing a voxel (weight-averaged), static shapes kept:
+    the merged splats fill the first slots in voxel order, the rest are
+    dead (opacity and weight 0, means parked at 1e12, scales 1e-8)."""
+    B, N = splats["means"].shape[:2]
+    outs = []
+    for b in range(B):
+        s = {k: splats[k][b] for k in SPLAT_KEYS}
+        vox = torch.floor(s["means"] / cfg.voxel_size)
+        vox = vox - vox.min(dim=0, keepdim=True).values
+        vox = torch.clamp(vox, 0, (1 << 20) - 1).to(torch.int64)
+        key = (vox[:, 0] << 40) | (vox[:, 1] << 20) | vox[:, 2]
+        _, inv = torch.unique(key, sorted=True, return_inverse=True)
+        U = int(inv.max()) + 1
+        w = s["weights"]
+        sh_flat = s["sh"].reshape(N, -1)
+        planes = torch.cat([w[:, None], (w * w)[:, None], w[:, None] * s["means"],
+                            w[:, None] * s["scales"], w[:, None] * s["quats"],
+                            w[:, None] * sh_flat], dim=1)
+        acc = torch.zeros(U, planes.shape[1], dtype=planes.dtype,
+                          device=planes.device).index_add_(0, inv, planes)
+        wsum = torch.clamp_min(acc[:, 0], 1e-8)
+        inv_w = 1.0 / wsum
+        alive = acc[:, 0] > 1e-6
+        qn = torch.sqrt(torch.clamp_min((acc[:, 8:12] ** 2).sum(-1), 1e-16))
+        merged = {
+            "means": torch.where(alive[:, None], acc[:, 2:5] * inv_w[:, None], 1e12),
+            "scales": torch.where(alive[:, None], acc[:, 5:8] * inv_w[:, None], 1e-8),
+            "quats": acc[:, 8:12] / qn[:, None],
+            "sh": (acc[:, 12:] * inv_w[:, None]).reshape(U, *s["sh"].shape[1:]),
+            "opacities": torch.where(alive, acc[:, 1] * inv_w, 0.0),
+            "weights": torch.where(alive, wsum, 0.0),
+        }
+        with torch.device(planes.device):
+            dead = {
+                "means": torch.full((N - U, 3), 1e12),
+                "scales": torch.full((N - U, 3), 1e-8),
+                "quats": torch.tensor([1.0, 0.0, 0.0, 0.0]).expand(N - U, 4),
+                "sh": torch.zeros(N - U, *s["sh"].shape[1:]),
+                "opacities": torch.zeros(N - U),
+                "weights": torch.zeros(N - U),
+            }
+        outs.append({k: torch.cat([merged[k], dead[k]]) for k in merged})
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def compact_splats(cfg: GSRendererConfig, splats: Dict) -> Dict:
+    """Sort live splats first (by merged weight, descending) and truncate to
+    the static cap min(max_gaussians, ceil_512(N * compact_fraction))."""
+    B, N = splats["means"].shape[:2]
+    cap = min(int(cfg.max_gaussians),
+              -(-int(N * cfg.compact_fraction) // 512) * 512)
+    if cap >= N:
+        return {**splats, "n_compact_dropped": torch.zeros(
+            B, dtype=torch.int32, device=splats["means"].device)}
+    outs = []
+    for b in range(B):
+        w = splats["weights"][b]
+        w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+        order = torch.sort(w, descending=True).indices[:cap]
+        outs.append({k: splats[k][b][order] for k in SPLAT_KEYS})
+    out = {k: torch.stack([o[k] for o in outs]) for k in SPLAT_KEYS}
+    n_live = (splats["weights"] > 0).sum(dim=1)
+    out["n_compact_dropped"] = torch.clamp_min(n_live - cap, 0).to(torch.int32)
+    return out
+
+
+def render(renderer: GaussianSplatRenderer, gs_feats: torch.Tensor,
+           images: torch.Tensor, predictions: Dict,
+           do_render: bool = True) -> Dict:
+    """Head conv -> splats -> voxel merge -> compaction -> per-camera
+    rasterize. Fills predictions["splats"] and, with `do_render`,
+    rendered_colors / rendered_depths / rendered_alphas / render_n_dropped."""
+    cfg = renderer.cfg
+    B, S, H, W, _ = images.shape
+    gs_params = renderer.head(gs_feats.reshape(B * S, H, W, -1))
+    splats = prepare_splats(cfg, gs_params, images, predictions["gs_depth"],
+                            predictions["camera_params"])
+    splats = {**splats, **voxel_prune(cfg, {k: splats[k] for k in SPLAT_KEYS})}
+    if cfg.enable_compact:
+        splats = compact_splats(cfg, {k: splats[k] for k in SPLAT_KEYS})
+    predictions["splats"] = splats
+    if not do_render:
+        return predictions
+
+    ext, intr = cam_utils.vector_to_camera_matrices(
+        predictions["camera_params"].reshape(B * S, 9), (H, W))
+    w2c = cam_utils.to_homogeneous(ext).reshape(B, S, 4, 4)
+    Ks = intr.reshape(B, S, 3, 3)
+    outs, alphas, drops, isects = [], [], [], []
+    for b in range(B):
+        colors, alpha, meta = rasterizer.rasterize(
+            splats["means"][b], splats["quats"][b], splats["scales"][b],
+            splats["opacities"][b], splats["sh"][b], w2c[b], Ks[b], W, H,
+            tile_size=cfg.tile_size, max_per_tile=cfg.max_per_tile,
+            max_tiles_per_gauss=cfg.max_tiles_per_gauss, quat_order="wxyz",
+            payload_f16=cfg.payload_f16, device=images.device)
+        outs.append(colors)
+        alphas.append(alpha)
+        drops.append(meta["n_dropped"])
+        isects.append(meta["n_isects"])
+    rendered = torch.stack(outs)
+    predictions["rendered_colors"] = rendered[..., :3]
+    predictions["rendered_depths"] = rendered[..., 3:]
+    predictions["rendered_alphas"] = torch.stack(alphas)
+    predictions["render_n_dropped"] = torch.stack(drops)
+    predictions["render_n_isects"] = torch.stack(isects)
+    return predictions

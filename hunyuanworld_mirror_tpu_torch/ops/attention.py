@@ -1,0 +1,98 @@
+"""Exact non-causal softmax attention: kernel K1 and its plain version.
+
+Replaces BOTH attention routes of the JAX package: the one-pass Pallas
+kernel hunyuanworld_mirror_tpu/ops/attn_onepass.py (`_kernel`, N <= 4095:
+encoder, frame layers, camera head, global layers at S <= 2) and the Pallas
+flash kernel that models/block.py `_flash_core` calls for N >= 4096 (global
+layers at S >= 3). Both compute softmax(q k^T * scale) v with f32 logits and
+an f32 row softmax; the CUDA kernel (csrc/attention_fwd.cu) streams K/V
+tiles with an online softmax, so one kernel serves every N.
+
+Layout is the JAX package's (B, N, H, D) for q, k, v and the output. The
+head dim must be contiguous; other strides are free, so the q/k/v views of
+a fused qkv projection go to the kernel without a copy.
+"""
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SIGNATURE_SET = False
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """einsum -> f32 softmax -> einsum (attn_onepass._einsum_ref's math with
+    the kernel's f32 logits): P is rounded to the input dtype before the PV
+    product, accumulation is f32, the output is in the input dtype."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", w.float(), v.float()).to(q.dtype)
+
+
+def _library():
+    global _SIGNATURE_SET
+    lib = _build.load("attention_fwd")
+    if not _SIGNATURE_SET:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.attention_fwd.argtypes = ([p, p, p, p, i, i, i, i] + [ll] * 9
+                                      + [ctypes.c_float, i, p])
+        lib.attention_fwd.restype = ctypes.c_int
+        _SIGNATURE_SET = True
+    return lib
+
+
+def _check(q, k, v):
+    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+        raise ValueError(f"q, k, v must share one (B, N, H, D) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise ValueError(f"attention takes bf16 or f32, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must lie on one device")
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(f"head dim must be 64 or 128, got {q.shape[-1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+        # the bf16 kernel loads 16-byte vectors
+        if q.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError(f"{name} must be 16-byte aligned with strides "
+                             "that are multiples of 8 elements")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, N, H, D); the model's one seam.
+
+    A CPU tensor takes attention_plain; a CUDA tensor launches the kernel
+    (and counts the launch in `attention.launches`) or raises.
+    """
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+    _check(q, k, v)
+    B, N, H, D = q.shape
+    o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, N, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), 1 if q.dtype == torch.bfloat16 else 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error {rc}")
+    attention.launches += 1
+    return o
+
+
+attention.launches = 0

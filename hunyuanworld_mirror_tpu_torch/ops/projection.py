@@ -1,0 +1,114 @@
+"""3D Gaussian EWA projection (world -> camera -> screen conics).
+
+Port of hunyuanworld_mirror_tpu/ops/projection.py (`quat_scale_to_covar_planes`
+and the pinhole `fully_fused_projection`): gsplat semantics with FOV-limit
+clamping, EPS2D = 0.3 low-pass dilation, conics = inverse 2D covariance,
+3.33-sigma integer radii, near/far and frustum culling by zeroing radii.
+Everything is a (C, N) plane; no (N, 3, 3) tensor is formed.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+EPS2D = 0.3          # low-pass dilation of the 2D covariance
+NEAR_PLANE = 0.01
+FAR_PLANE = 1e10
+
+
+class Projected(NamedTuple):
+    radii: torch.Tensor          # (C, N, 2) int32, 0 marks culled
+    means2d: torch.Tensor        # (C, N, 2)
+    depths: torch.Tensor         # (C, N)
+    conics: torch.Tensor         # (C, N, 3)
+
+
+def quat_scale_to_covar_planes(quats: torch.Tensor, scales: torch.Tensor):
+    """XYZW quats (N, 4) + scales (N, 3) -> covariance as six (N,) planes
+    (xx, xy, xz, yy, yz, zz) of R diag(s)^2 R^T."""
+    n = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+    x, y, z, w = n[..., 0], n[..., 1], n[..., 2], n[..., 3]
+    sx, sy, sz = scales[..., 0], scales[..., 1], scales[..., 2]
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - z * w)
+    r02 = 2 * (x * z + y * w)
+    r10 = 2 * (x * y + z * w)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - x * w)
+    r20 = 2 * (x * z - y * w)
+    r21 = 2 * (y * z + x * w)
+    r22 = 1 - 2 * (x * x + y * y)
+    m00, m01, m02 = r00 * sx, r01 * sy, r02 * sz
+    m10, m11, m12 = r10 * sx, r11 * sy, r12 * sz
+    m20, m21, m22 = r20 * sx, r21 * sy, r22 * sz
+    return (m00 * m00 + m01 * m01 + m02 * m02,
+            m00 * m10 + m01 * m11 + m02 * m12,
+            m00 * m20 + m01 * m21 + m02 * m22,
+            m10 * m10 + m11 * m11 + m12 * m12,
+            m10 * m20 + m11 * m21 + m12 * m22,
+            m20 * m20 + m21 * m21 + m22 * m22)
+
+
+def fully_fused_projection(means: torch.Tensor, covars, viewmats: torch.Tensor,
+                           Ks: torch.Tensor, width: int, height: int) -> Projected:
+    """Project N world-space splats (covars: the six planes) into C pinhole
+    cameras (viewmats (C, 4, 4) world->cam, Ks (C, 3, 3))."""
+    s_xx, s_xy, s_xz, s_yy, s_yz, s_zz = (c[None] for c in covars)
+    S = ((s_xx, s_xy, s_xz), (s_xy, s_yy, s_yz), (s_xz, s_yz, s_zz))
+    mw = (means[:, 0][None], means[:, 1][None], means[:, 2][None])
+    R = viewmats[:, :3, :3]
+    t = viewmats[:, :3, 3]
+    r = [[R[:, i, j, None] for j in range(3)] for i in range(3)]
+
+    tx, ty, tz = (r[i][0] * mw[0] + r[i][1] * mw[1] + r[i][2] * mw[2]
+                  + t[:, i, None] for i in range(3))
+    A = [[r[i][0] * S[0][k] + r[i][1] * S[1][k] + r[i][2] * S[2][k]
+          for k in range(3)] for i in range(3)]
+
+    def cc(i, j):
+        return A[i][0] * r[j][0] + A[i][1] * r[j][1] + A[i][2] * r[j][2]
+
+    c00, c01, c02 = cc(0, 0), cc(0, 1), cc(0, 2)
+    c11, c12, c22 = cc(1, 1), cc(1, 2), cc(2, 2)
+
+    fx, fy = Ks[:, 0, 0, None], Ks[:, 1, 1, None]
+    cx, cy = Ks[:, 0, 2, None], Ks[:, 1, 2, None]
+    tan_fovx = 0.5 * width / fx
+    tan_fovy = 0.5 * height / fy
+    lim_x_pos = (width - cx) / fx + 0.3 * tan_fovx
+    lim_x_neg = cx / fx + 0.3 * tan_fovx
+    lim_y_pos = (height - cy) / fy + 0.3 * tan_fovy
+    lim_y_neg = cy / fy + 0.3 * tan_fovy
+    txc = tz * torch.minimum(torch.maximum(tx / tz, -lim_x_neg), lim_x_pos)
+    tyc = tz * torch.minimum(torch.maximum(ty / tz, -lim_y_neg), lim_y_pos)
+
+    tz2 = tz * tz
+    j00 = fx / tz
+    j02 = -fx * txc / tz2
+    j11 = fy / tz
+    j12 = -fy * tyc / tz2
+    v00 = j00 * j00 * c00 + 2.0 * j00 * j02 * c02 + j02 * j02 * c22
+    v01 = j00 * j11 * c01 + j00 * j12 * c02 + j02 * j11 * c12 + j02 * j12 * c22
+    v11 = j11 * j11 * c11 + 2.0 * j11 * j12 * c12 + j12 * j12 * c22
+
+    u = (Ks[:, 0, 0, None] * tx + Ks[:, 0, 1, None] * ty
+         + Ks[:, 0, 2, None] * tz) / tz
+    v = (Ks[:, 1, 0, None] * tx + Ks[:, 1, 1, None] * ty
+         + Ks[:, 1, 2, None] * tz) / tz
+
+    d00 = v00 + EPS2D
+    d11 = v11 + EPS2D
+    det = torch.clamp_min(d00 * d11 - v01 * v01, 1e-10)
+    conics = torch.stack([d11 / det, -v01 / det, d00 / det], dim=-1)
+    radius_x = torch.ceil(3.33 * torch.sqrt(d00))
+    radius_y = torch.ceil(3.33 * torch.sqrt(d11))
+    valid = (det > 0) & (tz > NEAR_PLANE) & (tz < FAR_PLANE)
+    inside = ((u + radius_x > 0) & (u - radius_x < width)
+              & (v + radius_y > 0) & (v - radius_y < height))
+    keep = valid & inside
+    zero = torch.zeros_like(radius_x)
+    radii = torch.stack([torch.where(keep, radius_x, zero),
+                         torch.where(keep, radius_y, zero)], dim=-1)
+    # saturate before the cast (a float -> int cast out of range is undefined)
+    radii = torch.clamp_max(radii, 2.0 ** 30).to(torch.int32)
+    return Projected(radii, torch.stack([u, v], dim=-1), tz, conics)

@@ -39,33 +39,40 @@ PRESETS = {
 }
 
 
-def load_model(cfg: WorldMirrorConfig, params=None, device=None,
-               seed: int = 0) -> WorldMirror:
+def load_model(cfg: WorldMirrorConfig, params=None,
+               device=None) -> WorldMirror:
     """The model on `device` with bf16 parameters: `params` (a JAX pytree
-    of numpy arrays) if given, else random weights made from `seed`."""
-    model = WorldMirror(cfg, device=device, seed=seed)
+    of numpy arrays) if given, else random weights made from seed 0."""
+    model = WorldMirror(cfg, device=device)
     if params is not None:
         model.load_state_dict(from_jax_params(params))
     return model.to(torch.bfloat16).eval()
 
 
-def run(images: np.ndarray, cfg: WorldMirrorConfig, params=None, device=None,
-        camera_params: Optional[np.ndarray] = None, seed: int = 0,
-        marks: Optional[List] = None) -> Dict[str, torch.Tensor]:
-    """Reconstruct (1, S, H, W, 3) images in [0, 1]: returns the prediction
-    dict (tensors on the device). Runs on CUDA unless `device` names
-    another; without a GPU, device=None raises.
+def reconstruct(model: WorldMirror, images: np.ndarray,
+                camera_params: Optional[np.ndarray] = None,
+                marks: Optional[List] = None) -> Dict[str, torch.Tensor]:
+    """One forward of `model` with the render on (1, S, H, W, 3) images in
+    [0, 1], on the model's device -> the prediction dict.
 
     camera_params: optional (1, S, 9) camera vectors that replace the camera
     head's prediction for the splats and the render.
     marks: a list to receive a CUDA event before the forward ("start") and
     after each phase (see models/worldmirror.py).
     """
-    dev = resolve_device(device)
-    model = load_model(cfg, params, dev, seed)
+    dev = next(model.parameters()).device
     views = {"img": torch.as_tensor(images, dtype=torch.float32, device=dev)}
     mark(marks, "start")
     return model(views, render=True, camera_params=camera_params, marks=marks)
+
+
+def run(images: np.ndarray, cfg: WorldMirrorConfig, params=None, device=None,
+        camera_params: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+    """Build the model and reconstruct (1, S, H, W, 3) images in [0, 1]:
+    returns the prediction dict (tensors on the device). Runs on CUDA unless
+    `device` names another; without a GPU, device=None raises."""
+    model = load_model(cfg, params, resolve_device(device))
+    return reconstruct(model, images, camera_params)
 
 
 def export(preds: Dict[str, torch.Tensor], images: np.ndarray, out_dir: Path,

@@ -6,6 +6,11 @@ not minutes). The build happens at first use into `build/kernels/` at the
 repository root; the library's file name carries a hash of its source, so an
 edited kernel is never served from a stale build. Nothing here runs at
 import time: this module is imported on machines without nvcc or a card.
+
+`load` builds one source at a time. Building several at once, and keeping
+nvcc's -Xptxas -v report (register and spill counts), is there for
+chip_smoke.py, which starts every kernel's nvcc together and prints the
+report; the report also carries nvcc's errors when a build fails.
 """
 
 import ctypes

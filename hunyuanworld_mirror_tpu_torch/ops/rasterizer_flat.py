@@ -17,6 +17,9 @@ from . import _build
 
 ALPHA_THRESHOLD = 1.0 / 255.0
 T_EPS = 1e-4
+# the plain version blends groups of tiles whose (tiles, entries, pixels)
+# planes hold at most this many elements
+PLAIN_BUDGET = 1 << 24
 
 _SIGNATURE_SET = False
 
@@ -64,13 +67,14 @@ def decode_payload(packed: torch.Tensor, d_col: int, f16: bool):
 
 # --- plain version ----------------------------------------------------------
 
-def _blend_groups(packed, starts, counts, width, height, tile_size, d_col,
-                  f16, budget):
-    """Yield (tile ids, blend weights w (G, K, P), colours (D, G, K)) for
-    groups of tiles whose (tiles, entries, pixels) planes stay under
-    `budget` elements. w = alpha T for the entries a front-to-back blend
-    keeps (sigma >= 0, alpha >= 1/255, T after the entry > 1e-4), else 0;
-    transmittance is an exclusive cumprod."""
+def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
+                 f16):
+    """Yield (tile ids, blend weights w (G, K, P), colours (D, G, K),
+    transmittance before each entry (G, K, P), live entries (G, K)) for
+    groups of tiles of at most PLAIN_BUDGET plane elements. w = alpha T for
+    the entries a front-to-back blend keeps (sigma >= 0, alpha >= 1/255,
+    T after the entry > 1e-4), else 0; transmittance is an exclusive
+    cumprod."""
     dev = packed.device
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
@@ -104,7 +108,7 @@ def _blend_groups(packed, starts, counts, width, height, tile_size, d_col,
     group, kmax = [], 0
     for t in range(n_tiles):
         k = max(kmax, cnt[t])
-        if group and (len(group) + 1) * k * P > budget:
+        if group and (len(group) + 1) * k * P > PLAIN_BUDGET:
             if kmax:
                 yield blend(group)
             group, k = [], cnt[t]
@@ -116,8 +120,7 @@ def _blend_groups(packed, starts, counts, width, height, tile_size, d_col,
 
 def rasterize_flat_plain(packed: torch.Tensor, starts: torch.Tensor,
                          counts: torch.Tensor, width: int, height: int,
-                         tile_size: int, d_col: int, f16: bool,
-                         budget: int = 1 << 24):
+                         tile_size: int, d_col: int, f16: bool):
     """Per-tile vectorized front-to-back blend with the kernel's keep and
     stop rules -> (img (H, W, d_col), alpha (H, W, 1)), both f32."""
     tw = (width + tile_size - 1) // tile_size
@@ -125,8 +128,8 @@ def rasterize_flat_plain(packed: torch.Tensor, starts: torch.Tensor,
     P = tile_size * tile_size
     out = torch.zeros(tw * th, P, d_col, device=packed.device)
     asum = torch.zeros(tw * th, P, device=packed.device)
-    for g, w, col, _, _ in _blend_groups(packed, starts, counts, width, height,
-                                         tile_size, d_col, f16, budget):
+    for g, w, col, _, _ in blend_groups(packed, starts, counts, width, height,
+                                        tile_size, d_col, f16):
         out[g] = torch.einsum("gkp,dgk->gpd", w, col)
         asum[g] = w.sum(dim=1)
     img = out.reshape(th, tw, tile_size, tile_size, d_col).permute(0, 2, 1, 3, 4)
@@ -134,26 +137,6 @@ def rasterize_flat_plain(packed: torch.Tensor, starts: torch.Tensor,
     a = asum.reshape(th, tw, tile_size, tile_size).permute(0, 2, 1, 3)
     a = a.reshape(th * tile_size, tw * tile_size)[:height, :width, None]
     return img.contiguous(), a.contiguous()
-
-
-def blend_evaluations(packed, starts, counts, width: int, height: int,
-                      tile_size: int, d_col: int, f16: bool,
-                      budget: int = 1 << 24) -> int:
-    """The (pixel, entry) evaluations a front-to-back blend with early stop
-    needs on this list: per in-image pixel, its tile's entries up to and
-    including the one that takes T to <= 1e-4 (the work that bounds K2)."""
-    tw = (width + tile_size - 1) // tile_size
-    P = tile_size * tile_size
-    lin = torch.arange(P, device=packed.device)
-    total = 0
-    for g, _, _, t_before, live in _blend_groups(packed, starts, counts, width,
-                                                 height, tile_size, d_col, f16,
-                                                 budget):
-        inside = ((((g % tw) * tile_size)[:, None] + lin % tile_size < width)
-                  & (((g // tw) * tile_size)[:, None] + lin // tile_size < height))
-        needed = (t_before > T_EPS) & live[..., None] & inside[:, None, :]
-        total += int(needed.sum())
-    return total
 
 
 # --- kernel wrapper ---------------------------------------------------------

@@ -4,8 +4,8 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: both CUDA kernels (csrc/*.cu) compiled from this checkout, the
-     nvcc processes started together;
+  2. build: the three CUDA kernels (csrc/*.cu) compiled from this checkout,
+     the nvcc processes started together;
   3. K1 (attention_fwd) against its plain version at the shapes of the main
      path, plus a ragged N;
   4. K2 (rasterize_flat_fwd) against its plain version on a synthetic 518 px
@@ -20,16 +20,37 @@ Phases (any failure exits non-zero before the last line is printed):
      intersection lists;
   6. the port on the card against the same port on the CPU (plain versions)
      for a small configuration whose heads are 64 wide;
+  7. K3 (rasterize_flat_bwd) against its plain version, with cotangents
+     drawn from a seeded generator, on the synthetic scene of phase 4 (f32
+     payload, 9 tiles per splat) and on the training lists of the main
+     path's 4 cameras (its splats, f32 payload, 9 tiles per splat, 4096 per
+     tile); K2's two training planes (final T, last kept entry) are held
+     against the plain version there too;
+  8. the training path at full size: phase 5's predictions written by
+     `infer.export`, the trainer twin's `run()` for 2 iterations on that
+     directory, then `optimize_splats` on the same splats, images and
+     cameras for 30 iterations with refines at steps 19 and 29: every loss
+     finite, the last below the first, 4 K2 and 4 K3 launches per step, the
+     slot count unchanged across the refines; the median step time split by
+     CUDA events into render forward, backward, optimizer and refine, the
+     peak memory, the live splats after each refine and n_dropped per camera;
 then a `kernels` JSON line, the card line, and as the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Each phase prints its wall time.
 
 Times are CUDA-event times after a warm-up. `bound_ms` is the larger of the
 bytes the function must move over 3.35 TB/s and its operations over the
 card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32; the
-H100 SXM data sheet). In the `kernels` line every number is per forward
-of the main path: `launches` is the count from the one `run`, and `ms`,
-`plain_ms`, `library_ms` and `bound_ms` are totals over that forward's
-launches of the kernel, at its shapes.
+H100 SXM data sheet). K3's operations are K3_FLOPS_PER_EVAL times the
+(pixel, entry) evaluations its backward walk needs (per in-image pixel, the
+entries up to its last kept one); its bytes are the list's entries read
+once (payload and id), the per-entry and per-splat grads written once, the
+cotangents and the T/last planes read once. In the `kernels` line every
+number of an inference kernel (K1, K2) is per forward of the main path:
+`launches` is the count from the one `run`, and `ms`, `plain_ms`,
+`library_ms` and `bound_ms` are totals over that forward's launches of the
+kernel, at its shapes. For the training kernel K3 they are per training
+step: `launches` is the count of one step of phase 8, and the times are
+totals over the 4 cameras' lists of phase 7.
 """
 
 import json
@@ -45,6 +66,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 K2_FLOPS_PER_EVAL = 25      # dx, dy, sigma, exp, alpha, T, 4 colour FMAs, sum
+# dx, dy, sigma, exp, alpha, T / (1 - alpha), g (4 colour FMAs), w, d alpha,
+# S, d sigma, d op, two mean grads, three conic grads, 4 colour grads, two
+# |.|, and the 12 rows' share of the sums over pixels
+K3_FLOPS_PER_EVAL = 60
 
 
 def log(*a):
@@ -77,7 +102,8 @@ def phase_device():
 def phase_build():
     from hunyuanworld_mirror_tpu_torch.ops import _build
     t0 = time.time()
-    seconds = _build.build(["attention_fwd", "rasterize_flat_fwd"])
+    seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
+                            "rasterize_flat_bwd"])
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -159,11 +185,12 @@ def blend_evaluations(packed, starts, counts, width, height, tile_size,
     tw = (width + tile_size - 1) // tile_size
     lin = torch.arange(tile_size * tile_size, device=packed.device)
     total = 0
-    for g, _, _, t_before, live in R.blend_groups(packed, starts, counts, width,
-                                                  height, tile_size, d_col, f16):
+    for b in R.blend_groups(packed, starts, counts, width, height, tile_size,
+                            d_col, f16):
+        g = b.g
         inside = ((((g % tw) * tile_size)[:, None] + lin % tile_size < width)
                   & (((g // tw) * tile_size)[:, None] + lin // tile_size < height))
-        needed = (t_before > R.T_EPS) & live[..., None] & inside[:, None, :]
+        needed = (b.t_before > R.T_EPS) & b.live[..., None] & inside[:, None, :]
         total += int(needed.sum())
     return total
 
@@ -194,8 +221,10 @@ def k2_check(label, bins, W, H, d_col, f16):
     return err, ms, plain_ms, bound, by
 
 
-def phase_k2_synthetic():
-    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, tiles
+def synthetic_scene():
+    """~500k random splats in front of a 518 px camera, projected: (means2d,
+    conics, colours + depth, opacities, tight radii, depths)."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection, tiles
     W = H = 518
     n = 500_000
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -212,10 +241,16 @@ def phase_k2_synthetic():
     pj = projection.fully_fused_projection(means, cov, viewmat[None], K[None], W, H)
     rad = tiles.opacity_tight_radii(pj.radii[0], opac)
     col = torch.cat([rgb, pj.depths[0][:, None]], -1)
+    return pj.means2d[0], pj.conics[0], col, opac, rad, pj.depths[0]
+
+
+def phase_k2_synthetic():
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    m2d, con, col, opac, rad, dep = synthetic_scene()
     for f16 in (False, True):
-        bins = rasterizer.bin_splats(pj.means2d[0], pj.conics[0], col, opac, rad,
-                                     pj.depths[0], 16, 33, 33, 4, 4096, f16)
-        k2_check(f"synthetic 500k splats", bins, W, H, 4, f16)
+        bins = rasterizer.bin_splats(m2d, con, col, opac, rad, dep, 16, 33, 33,
+                                     4, 4096, f16)
+        k2_check(f"synthetic 500k splats", bins, 518, 518, 4, f16)
 
 
 # --- main path --------------------------------------------------------------
@@ -316,7 +351,210 @@ def phase_main_path():
         k2["plain_ms"] += plain_ms
         k2["bound_ms"] += bound
         k2["by"].add(by)
-    return launches, k2
+    return launches, k2, preds, imgs
+
+
+# --- K3 -----------------------------------------------------------------------
+
+# max|kernel - plain| of every output row (the 8 + D per-entry rows and the
+# per-splat rows they scatter to) <= this share of that row's max|plain|.
+# The sums run in another order than the plain version's: warp trees, then
+# shared-memory atomics whose order changes from run to run, and T is
+# recovered by division walking back instead of a cumulative product.
+K3_REL_BAND = 1e-3
+# K2's final T against the plain replay (absolute), and the share of pixels
+# whose last kept entry may differ (an entry at the 1e-4 stop, decided in
+# another rounding)
+K2_STATE_BAND = 2e-3
+K2_LAST_MISMATCH = 1e-3
+
+
+def k3_check(label, bins, W, H, d_col, n_gauss, gen):
+    """K3 vs its plain version on one sorted f32 list -> (err, ms, plain_ms,
+    bound_ms, bound_by)."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    fwd = (bins.packed, bins.starts, bins.counts, W, H, 16, d_col, False)
+    _, _, t_fin, last = R.rasterize_flat(*fwd, with_state=True)
+    _, _, t_fin_p, last_p = R.rasterize_flat_plain(*fwd, with_state=True)
+    t_err = float((t_fin - t_fin_p).abs().max())
+    last_bad = float((last != last_p).float().mean())
+    if not (t_err <= K2_STATE_BAND and last_bad <= K2_LAST_MISMATCH):
+        raise AssertionError(f"K2 state {label}: max|dT| {t_err}, last differs "
+                             f"at {last_bad} of pixels")
+    dev = bins.packed.device
+    v_img = torch.randn(H, W, d_col, generator=gen, device=dev)
+    v_alpha = torch.randn(H, W, 1, generator=gen, device=dev)
+    list_args = (bins.packed, bins.starts, bins.counts, bins.gauss_ids, n_gauss)
+    kern = lambda: R.rasterize_flat_bwd(*list_args, v_img, v_alpha, t_fin, last,
+                                        W, H, 16, d_col)
+    plain = lambda: R.rasterize_flat_bwd_plain(*list_args, v_img, v_alpha, W, H,
+                                               16, d_col)
+    entry, splat = kern()
+    torch.cuda.synchronize()
+    entry_p, splat_p = plain()
+    err = 0.0
+    for name, a, b in (("entry", entry, entry_p), ("splat", splat, splat_p)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"K3 {label}: {name} grads not finite")
+        d = (a - b).abs().amax(dim=1)
+        band = K3_REL_BAND * b.abs().amax(dim=1)
+        if not bool((d <= band).all()):
+            raise AssertionError(f"K3 {label}: {name} rows max|d| {d.tolist()} > "
+                                 f"band {band.tolist()}")
+        err = max(err, float(d.max()))
+    ms = cuda_ms(kern, reps=5, warmup=1)
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    k2_state_ms = cuda_ms(lambda: R.rasterize_flat(*fwd, with_state=True))
+    n_entries = int(bins.counts.sum())
+    rows = R.grad_rows(d_col)
+    inside = last >= 0
+    evals = int((last.long() + 1)[inside].sum())
+    byts = (n_entries * (bins.packed.shape[0] + 1 + rows) * 4 + n_gauss * rows * 4
+            + W * H * ((d_col + 1) * 4 + 8) + 2 * bins.counts.numel() * 4)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, evals * K3_FLOPS_PER_EVAL / F32_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes > t_ops else "operations"
+    log(f"K3 {label:24s} entries {n_entries}  evaluations {evals}  max|d| "
+        f"{err:.3e} (rows within {K3_REL_BAND:.0e} of max|plain|)  K2 state "
+        f"max|dT| {t_err:.1e} last differs {last_bad:.1e}  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by})  K2 with the "
+        f"training planes {k2_state_ms:.4f} ms")
+    return err, ms, plain_ms, bound, by
+
+
+def phase_k3_synthetic(gen):
+    """K3 (and K2's training planes) on the synthetic scene of phase 4."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    scene = synthetic_scene()
+    bins = rasterizer.bin_splats(*scene, 16, 33, 33, 9, 4096, False,
+                                 with_ids=True)
+    k3_check("synthetic 500k splats", bins, 518, 518, 4, scene[0].shape[0], gen)
+
+
+def phase_k3(preds):
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    phase_k3_synthetic(gen)
+
+    HW = preds["depth"].shape[2]
+    sp = preds["splats"]
+    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
+    w2c = cam_utils.to_homogeneous(ext)
+    quats_xyzw = sp["quats"][0][:, [1, 2, 3, 0]]
+    k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, by=set())
+    for c in range(w2c.shape[0]):
+        bins = rasterizer.bin_camera(sp["means"][0], quats_xyzw, sp["scales"][0],
+                                     sp["opacities"][0], sp["sh"][0], w2c[c],
+                                     intr[c], HW, HW, 16, 4096, 9, False,
+                                     with_ids=True)
+        err, ms, plain_ms, bound, by = k3_check(
+            f"main path camera {c}", bins, HW, HW, 4, sp["means"].shape[1], gen)
+        k3["err"] = max(k3["err"], err)
+        k3["ms"] += ms
+        k3["plain_ms"] += plain_ms
+        k3["bound_ms"] += bound
+        k3["by"].add(by)
+        del bins
+        torch.cuda.empty_cache()
+    return k3
+
+
+# --- the training path ----------------------------------------------------------
+
+def phase_train(preds, imgs):
+    import tempfile
+    from pathlib import Path
+
+    from hunyuanworld_mirror_tpu_torch import splat_trainer
+    from hunyuanworld_mirror_tpu_torch.infer import export
+    from hunyuanworld_mirror_tpu_torch.io import ply as io_ply
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp) / "infer"
+        export(preds, imgs, out_dir)
+        images = Path(tmp) / "images.npy"
+        np.save(images, imgs[0])
+        HW = imgs.shape[2]
+
+        t0 = time.time()
+        out = splat_trainer.run(str(out_dir), str(images), iters=2, size=HW,
+                                device="cuda", log_fn=log)
+        torch.cuda.synchronize()
+        n_ply = len(io_ply.read_ply(out_dir / "gaussians_opt.ply")["x"])
+        log(f"trainer twin run(): 2 iterations in {time.time() - t0:.2f} s wall, "
+            f"loading the directory and the training path's first use "
+            f"included; wrote gaussians_opt.ply with {n_ply} splats")
+        if n_ply != len(out["means"]) or not np.isfinite(out["means"]).all():
+            raise AssertionError("trainer twin: bad gaussians_opt.ply")
+
+        splats, gt, c2w, Ks, depths = splat_trainer.load_infer_dir(
+            str(out_dir), str(images), HW)
+    n = len(splats["means"])
+    cfg = splat_opt.SplatOptConfig(iters=30, refine_start=10, refine_every=10,
+                                   refine_stop=30)
+    capacity = int(n * cfg.capacity_factor)
+    log(f"training: {n} splats from gaussians.ply in {capacity} slots, "
+        f"{len(gt)} cameras at {HW}x{HW}, RGB+ED, max_per_tile "
+        f"{cfg.max_per_tile}, 9 tiles per splat, f32 payload, SH degree 0")
+
+    steps = []
+    prev = {"k2": 0, "k3": 0}
+
+    def on_step(info):
+        k2, k3 = R.rasterize_flat.launches, R.rasterize_flat_bwd.launches
+        steps.append(dict(info, loss=float(info["loss"]), k2=k2 - prev["k2"],
+                          k3=k3 - prev["k3"],
+                          alive=int((info["raw"]["alive"] > 0.5).sum()),
+                          slots=tuple(info["raw"]["means"].shape),
+                          n_dropped=info["meta"]["n_dropped"].tolist(), raw=None,
+                          meta=None))
+        prev.update(k2=k2, k3=k3)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    R.rasterize_flat.launches = R.rasterize_flat_bwd.launches = 0
+    t0 = time.time()
+    splat_opt.optimize_splats(splats, gt, c2w, Ks, cfg, depths=depths,
+                              device="cuda", log_fn=log, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [s["loss"] for s in steps]
+    phases = []
+    for s in steps:
+        m = s["marks"]
+        phases.append({name: m[j - 1][1].elapsed_time(ev)
+                       for j, (name, ev) in enumerate(m) if j})
+    plain_steps = [p for p, s in zip(phases, steps) if not s["refined"]]
+    names = ("render_forward", "backward", "optimizer")
+    med = {k: float(np.median([p[k] for p in plain_steps])) for k in names}
+    med_total = float(np.median([sum(p.values()) for p in plain_steps]))
+    refines = [(s["it"], s["alive"], phases[i]["refine"])
+               for i, s in enumerate(steps) if s["refined"]]
+    log(f"training: {len(steps)} steps in {wall:.2f} s wall; losses first "
+        f"{losses[0]:.5f} last {losses[-1]:.5f}; peak memory {peak_gb:.2f} GB")
+    log(f"training step (median of {len(plain_steps)} steps without a refine): "
+        + "  ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+        + f"  total {med_total:.2f} ms")
+    for it, alive, ms in refines:
+        log(f"training refine at step {it}: {ms:.2f} ms, {alive} live splats after")
+    log(f"training n_dropped per camera: first step {steps[0]['n_dropped']}, "
+        f"last step {steps[-1]['n_dropped']}; launches per step (K2, K3) "
+        f"{sorted({(s['k2'], s['k3']) for s in steps})}")
+
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"training: losses {losses}")
+    if any((s["k2"], s["k3"]) != (4, 4) for s in steps):
+        raise AssertionError("training: expected 4 K2 and 4 K3 launches per step")
+    if any(s["slots"] != (capacity, 3) for s in steps):
+        raise AssertionError("training: the slot count changed")
+    if [it for it, _, _ in refines] != [19, 29]:
+        raise AssertionError(f"training: refines at {refines}")
+    return steps[0]["k3"]
 
 
 # --- the card against the CPU ------------------------------------------------
@@ -355,16 +593,25 @@ def phase_cpu_reference():
     log(f"card vs CPU (plain versions), small config: {json.dumps(worst)}")
 
 
+def timed(name, fn, *args):
+    t0 = time.time()
+    out = fn(*args)
+    log(f"phase {name}: {time.time() - t0:.1f} s wall")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    name, smi = phase_device()
-    phase_build()
-    k1 = phase_k1()
-    phase_k2_synthetic()
-    launches, k2 = phase_main_path()
-    phase_cpu_reference()
+    name, smi = timed("device", phase_device)
+    timed("build", phase_build)
+    k1 = timed("K1", phase_k1)
+    timed("K2 synthetic", phase_k2_synthetic)
+    launches, k2, preds, imgs = timed("main path", phase_main_path)
+    timed("card vs CPU", phase_cpu_reference)
+    k3 = timed("K3", phase_k3, preds)
+    k3_launches = timed("training", phase_train, preds, imgs)
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -379,6 +626,13 @@ def main():
          "launches": launches["rasterize_flat_fwd"], "max_abs_err": k2["err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "operations" if "operations" in k2["by"] else "bytes",
+         "library_ms": None},
+        {"name": "rasterize_flat_bwd", "route": "cuda",
+         "source": "hunyuanworld_mirror_tpu_torch/csrc/rasterize_flat_bwd.cu",
+         "replaces": "hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py:865",
+         "launches": k3_launches, "max_abs_err": k3["err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": "operations" if "operations" in k3["by"] else "bytes",
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,10 +7,11 @@ which stays the reference). The layout mirrors it module for module
 `tools/convert_weights.convert_worldmirror` maps this package's state dict
 onto the JAX pytree.
 
-The softmax attention core and the flat tile-rasterizer forward are CUDA
-kernels written by hand for sm_90a (`csrc/`), built with nvcc at first use
-into `build/kernels/` at the repository root (`ops/_build.py`). Each kernel
-wrapper takes its plain PyTorch version only for a tensor on the CPU.
+The softmax attention core and the flat tile-rasterizer's forward and
+backward are CUDA kernels written by hand for sm_90a (`csrc/`), built with
+nvcc at first use into `build/kernels/` at the repository root
+(`ops/_build.py`). Each kernel wrapper takes its plain PyTorch version only
+for a tensor on the CPU.
 
 Float32 precision is set HERE, once, for the whole package: TF32 is off for
 both matmuls and cuDNN convolutions, so the f32 heads compute what the JAX

@@ -29,6 +29,11 @@
 // two f16 values as (hi << 16) | lo. The f16 decode keeps the JAX decode's
 // flush-to-zero of subnormals (rasterizer_pallas._f16_bits_to_f32).
 //
+// Training adds two per-pixel planes for the backward (kernel K3,
+// rasterize_flat_bwd.cu): the final transmittance and the tile-local index
+// of the last kept entry (-1 if none). Their pointers are null on the
+// inference path, which then writes nothing more.
+//
 // C interface: rasterize_flat_fwd(...) returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -52,6 +57,7 @@ __global__ void raster_flat_kernel(const float* __restrict__ packed,
                                    const int* __restrict__ starts,
                                    const int* __restrict__ counts,
                                    float* __restrict__ out, float* __restrict__ alpha_out,
+                                   float* __restrict__ t_final, int* __restrict__ last_out,
                                    int width, int height, int tile_size, int tiles_x,
                                    int d_col, long long M, int f16) {
   extern __shared__ float sm[];
@@ -76,6 +82,7 @@ __global__ void raster_flat_kernel(const float* __restrict__ packed,
 
   bool done = !inside;
   float T = 1.f, asum = 0.f;
+  int last = -1;
   float acc[MAX_D];
 #pragma unroll
   for (int c = 0; c < MAX_D; ++c) acc[c] = 0.f;
@@ -129,6 +136,7 @@ __global__ void raster_flat_kernel(const float* __restrict__ packed,
         if (c < d_col) acc[c] += w * s_col[c * nthr + i];
       asum += w;
       T = next_T;
+      last = b0 + i;
     }
   }
 
@@ -138,13 +146,18 @@ __global__ void raster_flat_kernel(const float* __restrict__ packed,
     for (int c = 0; c < MAX_D; ++c)
       if (c < d_col) out[p * d_col + c] = acc[c];
     alpha_out[p] = asum;
+    if (t_final != nullptr) {
+      t_final[p] = T;
+      last_out[p] = last;
+    }
   }
 }
 
 }  // namespace
 
 extern "C" int rasterize_flat_fwd(const void* packed, const void* starts, const void* counts,
-                                  void* out, void* alpha_out, int width, int height,
+                                  void* out, void* alpha_out, void* t_final,
+                                  void* last_out, int width, int height,
                                   int tile_size, int tiles_x, int n_tiles, int d_col,
                                   long long M, int f16, void* stream) {
   const int nthr = tile_size * tile_size;
@@ -154,6 +167,7 @@ extern "C" int rasterize_flat_fwd(const void* packed, const void* starts, const 
   raster_flat_kernel<<<n_tiles, nthr, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(packed), static_cast<const int*>(starts),
       static_cast<const int*>(counts), static_cast<float*>(out),
-      static_cast<float*>(alpha_out), width, height, tile_size, tiles_x, d_col, M, f16);
+      static_cast<float*>(alpha_out), static_cast<float*>(t_final),
+      static_cast<int*>(last_out), width, height, tile_size, tiles_x, d_col, M, f16);
   return int(cudaGetLastError());
 }

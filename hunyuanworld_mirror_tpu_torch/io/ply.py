@@ -1,6 +1,8 @@
-"""Binary-PLY, depth and camera exporters of the CLI (numpy only).
+"""Binary-PLY, depth and camera exporters of the CLI, and the PLY reader of
+the splat trainer (numpy only).
 
-A copy of the writers the CLI uses from hunyuanworld_mirror_tpu/io/ply.py
+A copy of the writers the CLI uses, and of `read_ply`, from
+hunyuanworld_mirror_tpu/io/ply.py
 (the port imports nothing of the JAX package): point clouds as x/y/z f4 +
 red/green/blue u1; 3DGS splats as x/y/z/nx/ny/nz/f_dc_0..2/opacity (logit)/
 scale_0..2 (log)/rot_0..3 (wxyz), all f4, after the 95th-percentile
@@ -107,3 +109,25 @@ def save_camera_params(extrinsics: np.ndarray, intrinsics: np.ndarray,
     with open(path, "w") as f:
         json.dump(data, f, indent=2)
     return path
+
+
+def read_ply(path):
+    """Minimal binary-little-endian PLY reader -> dict of property arrays."""
+    with open(str(path), "rb") as f:
+        line = f.readline().strip()
+        if line != b"ply":
+            raise ValueError(f"{path} is not a PLY file")
+        n = 0
+        props = []
+        tmap = {b"float": "<f4", b"uchar": "u1", b"double": "<f8", b"int": "<i4"}
+        while True:
+            line = f.readline().strip()
+            if line.startswith(b"element vertex"):
+                n = int(line.split()[-1])
+            elif line.startswith(b"property"):
+                _, t, name = line.split()
+                props.append((name.decode(), tmap[t]))
+            elif line == b"end_header":
+                break
+        rec = np.frombuffer(f.read(), dtype=props, count=n)
+    return {name: rec[name] for name, _ in props}

@@ -6,6 +6,11 @@ Port of hunyuanworld_mirror_tpu/ops/rasterizer.py `rasterize` on its
 binning with the exact ellipse-tile test (ops/tiles.py, f32 or f16-pair
 payload) -> the flat blend (ops/rasterizer_flat.py, kernel K2) -> expected
 depth normalized by alpha.
+
+Differentiable in means, quats, scales, opacities and colours: autograd runs
+through the projection and the SH evaluation, and `RasterizeFlat` (the port
+of the custom VJP of rasterizer_pallas.rasterize_flat_pallas) takes the
+blend's gradient with kernel K3.
 """
 
 from typing import Dict
@@ -15,7 +20,8 @@ import torch
 from .. import resolve_device
 from ..utils import sh as sh_utils
 from . import projection, tiles
-from .rasterizer_flat import pack_f16_pairs, rasterize_flat
+from .rasterizer_flat import (pack_f16_pairs, rasterize_flat,
+                              rasterize_flat_bwd)
 
 
 def _colors(colors, means, viewmat):
@@ -33,7 +39,7 @@ def _colors(colors, means, viewmat):
 def bin_splats(means2d, conics, colors, opacities, radii, depths,
                tile_size: int, tile_width: int, tile_height: int,
                max_tiles_per_gauss: int, max_per_tile: int,
-               payload_f16: bool) -> tiles.FlatBins:
+               payload_f16: bool, with_ids: bool = False) -> tiles.FlatBins:
     """One camera's projected splats -> the sorted flat list kernel K2
     blends: payload [mx, my, ca, cb, cc, op, colours...] in f32, or with
     `payload_f16` [mx, my, ca|cb, cc|op, colour pairs...] as f16 pairs."""
@@ -53,46 +59,116 @@ def bin_splats(means2d, conics, colors, opacities, radii, depths,
     return tiles.bin_gaussians_packed(
         means2d, radii, depths, values, tile_size, tile_width, tile_height,
         max_tiles_per_gauss, max_per_tile,
-        conic_test=tiles.conic_test_planes(conics, opacities))
+        conic_test=tiles.conic_test_planes(conics, opacities), with_ids=with_ids)
 
 
-def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
-               width: int, height: int, tile_size: int, max_per_tile: int,
-               max_tiles_per_gauss: int, payload_f16: bool) -> tiles.FlatBins:
-    """Project, colour (RGB + depth) and bin one camera (viewmat (4, 4)
-    world->cam, K (3, 3)); the list's colour width is colors.shape[-1] + 1."""
-    tw = (width + tile_size - 1) // tile_size
-    th = (height + tile_size - 1) // tile_size
-    # a tile never holds more than every (splat, tile) pair: small scenes do
-    # not pay the full static cap (rounded up to 512 as the JAX package does)
-    n_pairs = means.shape[0] * max_tiles_per_gauss
-    max_per_tile = min(max_per_tile, -(-n_pairs // 512) * 512)
+def _capped(max_per_tile: int, n_splats: int, max_tiles_per_gauss: int) -> int:
+    """A tile never holds more than every (splat, tile) pair: small scenes do
+    not pay the full static cap (rounded up to 512 as the JAX package does)."""
+    n_pairs = n_splats * max_tiles_per_gauss
+    return min(max_per_tile, -(-n_pairs // 512) * 512)
 
-    covars = projection.quat_scale_to_covar_planes(quats_xyzw, scales)
+
+def project_camera(means, covars, opacities, colors, viewmat, K, width: int,
+                   height: int):
+    """One camera's (means2d, conics, colours + depth, tight radii, depths)
+    for the binning, differentiable in everything but the radii."""
     proj = projection.fully_fused_projection(means, covars, viewmat[None],
                                              K[None], width, height)
     m2d, con, dep = proj.means2d[0], proj.conics[0], proj.depths[0]
     rad = tiles.opacity_tight_radii(proj.radii[0], opacities)
     col = torch.cat([_colors(colors, means, viewmat), dep[:, None]], dim=-1)
+    return m2d, con, col, rad, dep
+
+
+def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
+               width: int, height: int, tile_size: int, max_per_tile: int,
+               max_tiles_per_gauss: int, payload_f16: bool,
+               with_ids: bool = False) -> tiles.FlatBins:
+    """Project, colour (RGB + depth) and bin one camera (viewmat (4, 4)
+    world->cam, K (3, 3)); the list's colour width is colors.shape[-1] + 1."""
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    covars = projection.quat_scale_to_covar_planes(quats_xyzw, scales)
+    m2d, con, col, rad, dep = project_camera(means, covars, opacities, colors,
+                                             viewmat, K, width, height)
     return bin_splats(m2d, con, col, opacities, rad, dep, tile_size, tw, th,
-                      max_tiles_per_gauss, max_per_tile, payload_f16)
+                      max_tiles_per_gauss,
+                      _capped(max_per_tile, means.shape[0], max_tiles_per_gauss),
+                      payload_f16, with_ids)
+
+
+class RasterizeFlat(torch.autograd.Function):
+    """Bin + blend one camera with a hand-written backward (kernel K3).
+
+    Port of rasterizer_pallas.rasterize_flat_pallas's custom VJP with the
+    f32 payload. Differentiable inputs: means2d (N, 2), conics (N, 3),
+    colours (N, D), opacities (N,) and abs_tap (N, 2), whose gradient is the
+    per-splat AbsGS absgrad, sum over pixels of |d means2d|; radii and depths
+    are not. Binning and the exact ellipse test run inside forward, as in
+    the JAX VJP.
+
+    forward SAVES its sorted list and entry -> splat ids for backward
+    instead of re-binning as the JAX VJP does: it spends memory (about
+    (6 + D) f32 rows plus one int32 id per entry, 0.39 GB per camera at 9.67M
+    entries) to save backward a second sort of the whole list.
+
+    Returns (img (H, W, D), alpha (H, W, 1), n_dropped (), n_isects ()).
+    """
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, abs_tap, radii,
+                depths, width, height, tile_size, max_tiles_per_gauss,
+                max_per_tile):
+        tw = (width + tile_size - 1) // tile_size
+        th = (height + tile_size - 1) // tile_size
+        bins = bin_splats(means2d, conics, colors, opacities, radii, depths,
+                          tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
+                          False, with_ids=True)
+        d = colors.shape[-1]
+        img, alpha, t_fin, last = rasterize_flat(
+            bins.packed, bins.starts, bins.counts, width, height, tile_size, d,
+            False, with_state=True)
+        ctx.save_for_backward(bins.packed, bins.starts, bins.counts,
+                              bins.gauss_ids, t_fin, last)
+        ctx.dims = (width, height, tile_size, d, means2d.shape[0])
+        n_isects = bins.counts.sum()
+        ctx.mark_non_differentiable(bins.n_dropped, n_isects)
+        return img, alpha, bins.n_dropped, n_isects
+
+    @staticmethod
+    def backward(ctx, v_img, v_alpha, _drop, _isect):
+        packed, starts, counts, ids, t_fin, last = ctx.saved_tensors
+        width, height, tile_size, d, n = ctx.dims
+        _, g = rasterize_flat_bwd(packed, starts, counts, ids, n, v_img,
+                                  v_alpha, t_fin, last, width, height,
+                                  tile_size, d)
+        absgrad = g[6 + d:8 + d].T if ctx.needs_input_grad[4] else None
+        return (g[0:2].T, g[2:5].T, g[6:6 + d].T, g[5], absgrad,
+                None, None, None, None, None, None, None)
 
 
 def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
               opacities: torch.Tensor, colors: torch.Tensor,
               viewmats: torch.Tensor, Ks: torch.Tensor, width: int, height: int,
-              tile_size: int = 16, max_per_tile: int = 4096,
-              max_tiles_per_gauss: int = 4, quat_order: str = "xyzw",
-              payload_f16: bool = False, device=None):
+              tile_size: int = 16, max_per_tile: int = 1024,
+              max_tiles_per_gauss: int = 9, quat_order: str = "xyzw",
+              payload_f16: bool = False, abs_tap=None, device=None):
     """Render N splats into C pinhole cameras in RGB+ED (gsplat.rasterization's
     dense single-batch form). colors: (N, D) or SH (N, K, 3); viewmats
     (C, 4, 4) world->cam; Ks (C, 3, 3).
 
+    Differentiable (autograd) in means, quats, scales, opacities and colors
+    when grad is enabled and one of them requires it; `abs_tap`, an (N, 2)
+    tensor that requires grad and is shared by all cameras, then receives
+    the summed AbsGS absgrad. The backward takes only the f32 payload.
+
     Runs on `device`: CUDA unless the caller passes one (on a machine
     without a GPU, device=None raises). Returns (colors (C, H, W, D + 1)
     with the alpha-normalized expected depth last, alphas (C, H, W, 1),
-    meta) with meta["n_dropped"] (C,) intersections lost to the static caps
-    and meta["n_isects"] (C,) sorted entries.
+    meta) with meta["radii"] (C, N, 2) tight radii, meta["means2d"]
+    (C, N, 2), meta["depths"] (C, N), meta["n_dropped"] (C,) intersections
+    lost to the static caps and meta["n_isects"] (C,) sorted entries.
     """
     dev = resolve_device(device)
     means, quats, scales, opacities, colors, viewmats, Ks = (
@@ -102,24 +178,39 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         quats = quats[..., [1, 2, 3, 0]]
     elif quat_order != "xyzw":
         raise ValueError(f"unknown quat_order {quat_order!r}")
+    train = torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad
+        for x in (means, quats, scales, opacities, colors, abs_tap))
+    if train and payload_f16:
+        raise ValueError("the rasterizer's backward takes only the f32 payload")
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    max_per_tile = _capped(max_per_tile, means.shape[0], max_tiles_per_gauss)
+    covars = projection.quat_scale_to_covar_planes(quats, scales)
 
-    imgs, alphas, drops, isects = [], [], [], []
+    outs = []
     for c in range(viewmats.shape[0]):
-        bins = bin_camera(means, quats, scales, opacities, colors, viewmats[c],
-                          Ks[c], width, height, tile_size, max_per_tile,
-                          max_tiles_per_gauss, payload_f16)
-        img, alpha = rasterize_flat(bins.packed, bins.starts, bins.counts,
-                                    width, height, tile_size,
-                                    colors.shape[-1] + 1, payload_f16)
-        imgs.append(img)
-        alphas.append(alpha)
-        drops.append(bins.n_dropped)
-        isects.append(bins.counts.sum())
-    render_colors = torch.stack(imgs)
-    render_alphas = torch.stack(alphas)
+        m2d, con, col, rad, dep = project_camera(
+            means, covars, opacities, colors, viewmats[c], Ks[c], width, height)
+        if train:
+            img, alpha, n_drop, n_isect = RasterizeFlat.apply(
+                m2d, con, col, opacities, abs_tap, rad, dep, width, height,
+                tile_size, max_tiles_per_gauss, max_per_tile)
+        else:
+            bins = bin_splats(m2d, con, col, opacities, rad, dep, tile_size,
+                              tw, th, max_tiles_per_gauss, max_per_tile,
+                              payload_f16)
+            img, alpha = rasterize_flat(bins.packed, bins.starts, bins.counts,
+                                        width, height, tile_size,
+                                        col.shape[-1], payload_f16)
+            n_drop, n_isect = bins.n_dropped, bins.counts.sum()
+        outs.append((img, alpha, n_drop, n_isect, rad, m2d, dep))
+    (render_colors, render_alphas, drops, isects, radii, means2d,
+     depths) = (torch.stack([o[i] for o in outs]) for i in range(7))
     render_colors = torch.cat([
         render_colors[..., :-1],
         render_colors[..., -1:] / torch.clamp_min(render_alphas, 1e-10)], dim=-1)
     meta: Dict[str, torch.Tensor] = {
-        "n_dropped": torch.stack(drops), "n_isects": torch.stack(isects)}
+        "radii": radii, "means2d": means2d, "depths": depths,
+        "n_dropped": drops, "n_isects": isects}
     return render_colors, render_alphas, meta

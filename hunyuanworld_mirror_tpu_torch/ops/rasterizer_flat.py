@@ -1,15 +1,17 @@
-"""Flat tile-rasterizer forward: kernel K2, its plain version, f16 packing.
+"""Flat tile-rasterizer: forward kernel K2, backward kernel K3, their plain
+versions, f16 packing.
 
-Replaces hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py `_kernel_flat`
-(via `_forward_flat` / `rasterize_flat_pallas`, flat forward only). Input is
-the globally sorted, component-major intersection list of
+K2 replaces hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py `_kernel_flat`
+(via `_forward_flat` / `rasterize_flat_pallas`, flat forward); K3 replaces
+`_kernel_flat_bwd` (via `_backward_flat`, the custom VJP's backward). Input
+is the globally sorted, component-major intersection list of
 ops/tiles.bin_gaussians_packed: tile t blends entries
 [starts[t], starts[t] + counts[t]) of `packed` (V, M) front to back.
-The CUDA kernel is csrc/rasterize_flat_fwd.cu.
+The CUDA kernels are csrc/rasterize_flat_fwd.cu and csrc/rasterize_flat_bwd.cu.
 """
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -21,7 +23,7 @@ T_EPS = 1e-4
 # planes hold at most this many elements
 PLAIN_BUDGET = 1 << 24
 
-_SIGNATURE_SET = False
+_SIGNATURES_SET = set()
 
 
 # --- f16-pair payload ------------------------------------------------------
@@ -67,14 +69,28 @@ def decode_payload(packed: torch.Tensor, d_col: int, f16: bool):
 
 # --- plain version ----------------------------------------------------------
 
+class Blend(NamedTuple):
+    """One group of tiles as blend_groups yields it. Planes are (G, K, P):
+    G tiles, K entries (the group's longest list), P pixels per tile."""
+    g: torch.Tensor         # (G,) tile ids
+    idx: torch.Tensor       # (G, K) entry index into the list (clamped)
+    live: torch.Tensor      # (G, K) entry lies inside its tile's segment
+    params: Tuple           # (ca, cb, cc, op), each (G, K, 1)
+    col: torch.Tensor       # (D, G, K) colours
+    dx: torch.Tensor        # pixel centre - mean, x
+    dy: torch.Tensor
+    sigma: torch.Tensor
+    alpha: torch.Tensor     # min(0.999, op e^-sigma), 0 where not kept
+    t_before: torch.Tensor  # transmittance before each entry
+    w: torch.Tensor         # alpha T for the entries the blend keeps, else 0
+
+
 def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
                  f16):
-    """Yield (tile ids, blend weights w (G, K, P), colours (D, G, K),
-    transmittance before each entry (G, K, P), live entries (G, K)) for
-    groups of tiles of at most PLAIN_BUDGET plane elements. w = alpha T for
-    the entries a front-to-back blend keeps (sigma >= 0, alpha >= 1/255,
-    T after the entry > 1e-4), else 0; transmittance is an exclusive
-    cumprod."""
+    """Yield a Blend for each group of tiles of at most PLAIN_BUDGET plane
+    elements. w = alpha T for the entries a front-to-back blend keeps
+    (sigma >= 0, alpha >= 1/255, T after the entry > 1e-4), else 0;
+    transmittance is an exclusive cumprod."""
     dev = packed.device
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
@@ -95,15 +111,17 @@ def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
         py = ((g // tw) * tile_size).float()[:, None] + ly[None, :]
         dx = px[:, None, :] - mx[idx][:, :, None]                      # (G, K, P)
         dy = py[:, None, :] - my[idx][:, :, None]
-        sigma = (0.5 * (ca[idx][..., None] * dx * dx + cc[idx][..., None] * dy * dy)
-                 + cb[idx][..., None] * dx * dy)
-        alpha = torch.clamp_max(op[idx][..., None] * torch.exp(-sigma), 0.999)
+        params = tuple(v[idx][..., None] for v in (ca, cb, cc, op))
+        pa, pb, pc, po = params
+        sigma = 0.5 * (pa * dx * dx + pc * dy * dy) + pb * dx * dy
+        alpha = torch.clamp_max(po * torch.exp(-sigma), 0.999)
         keep = (sigma >= 0) & (alpha >= ALPHA_THRESHOLD) & live[..., None]
         alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
         t_after = torch.cumprod(1.0 - alpha, dim=1)
         t_before = torch.cat([torch.ones_like(t_after[:, :1]), t_after[:, :-1]], 1)
         w = alpha * t_before * (t_after > T_EPS)
-        return g, w, col[:, idx], t_before, live
+        return Blend(g, idx, live, params, col[:, idx], dx, dy, sigma, alpha,
+                     t_before, w)
 
     group, kmax = [], 0
     for t in range(n_tiles):
@@ -118,58 +136,132 @@ def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
         yield blend(group)
 
 
-def rasterize_flat_plain(packed: torch.Tensor, starts: torch.Tensor,
-                         counts: torch.Tensor, width: int, height: int,
-                         tile_size: int, d_col: int, f16: bool):
-    """Per-tile vectorized front-to-back blend with the kernel's keep and
-    stop rules -> (img (H, W, d_col), alpha (H, W, 1)), both f32."""
+def _from_tiles(x: torch.Tensor, width: int, height: int, tile_size: int):
+    """(n_tiles, P, ...) tile-major planes -> (H, W, ...) image."""
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
-    P = tile_size * tile_size
-    out = torch.zeros(tw * th, P, d_col, device=packed.device)
-    asum = torch.zeros(tw * th, P, device=packed.device)
-    for g, w, col, _, _ in blend_groups(packed, starts, counts, width, height,
-                                        tile_size, d_col, f16):
-        out[g] = torch.einsum("gkp,dgk->gpd", w, col)
-        asum[g] = w.sum(dim=1)
-    img = out.reshape(th, tw, tile_size, tile_size, d_col).permute(0, 2, 1, 3, 4)
-    img = img.reshape(th * tile_size, tw * tile_size, d_col)[:height, :width]
-    a = asum.reshape(th, tw, tile_size, tile_size).permute(0, 2, 1, 3)
-    a = a.reshape(th * tile_size, tw * tile_size)[:height, :width, None]
-    return img.contiguous(), a.contiguous()
+    rest = x.shape[2:]
+    img = x.reshape(th, tw, tile_size, tile_size, *rest).transpose(1, 2)
+    return img.reshape(th * tile_size, tw * tile_size, *rest)[:height, :width]
+
+
+def _to_tiles(img: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(H, W, D) image -> (n_tiles, P, D) tile-major, zero on the pad."""
+    height, width, d = img.shape
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    img = torch.nn.functional.pad(img.float(), (0, 0, 0, tw * tile_size - width,
+                                                0, th * tile_size - height))
+    img = img.reshape(th, tile_size, tw, tile_size, d).transpose(1, 2)
+    return img.reshape(tw * th, tile_size * tile_size, d)
+
+
+def rasterize_flat_plain(packed: torch.Tensor, starts: torch.Tensor,
+                         counts: torch.Tensor, width: int, height: int,
+                         tile_size: int, d_col: int, f16: bool,
+                         with_state: bool = False):
+    """Per-tile vectorized front-to-back blend with the kernel's keep and
+    stop rules -> (img (H, W, d_col), alpha (H, W, 1)), both f32; with
+    `with_state` also the final transmittance (H, W) f32 and the tile-local
+    index of the last kept entry (H, W) int32, -1 where none."""
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    n_tiles, P, dev = tw * th, tile_size * tile_size, packed.device
+    out = torch.zeros(n_tiles, P, d_col, device=dev)
+    asum = torch.zeros(n_tiles, P, device=dev)
+    t_fin = torch.ones(n_tiles, P, device=dev)
+    last = torch.full((n_tiles, P), -1, dtype=torch.int32, device=dev)
+    for b in blend_groups(packed, starts, counts, width, height, tile_size,
+                          d_col, f16):
+        out[b.g] = torch.einsum("gkp,dgk->gpd", b.w, b.col)
+        asum[b.g] = b.w.sum(dim=1)
+        if with_state:
+            kept = b.w > 0
+            t_fin[b.g] = torch.where(kept, 1.0 - b.alpha, 1.0).prod(dim=1)
+            k = torch.arange(kept.shape[1], device=dev)[None, :, None]
+            last[b.g] = torch.where(kept, k, -1).amax(dim=1).to(torch.int32)
+    img = _from_tiles(out, width, height, tile_size).contiguous()
+    alpha = _from_tiles(asum, width, height, tile_size)[..., None].contiguous()
+    if not with_state:
+        return img, alpha
+    return (img, alpha, _from_tiles(t_fin, width, height, tile_size).contiguous(),
+            _from_tiles(last, width, height, tile_size).contiguous())
+
+
+def grad_rows(d_col: int) -> int:
+    """Rows of K3's per-entry output: mx, my, ca, cb, cc, op, d_col colours,
+    |mx|, |my|."""
+    return 8 + d_col
+
+
+def rasterize_flat_bwd_plain(packed: torch.Tensor, starts: torch.Tensor,
+                             counts: torch.Tensor, gauss_ids: torch.Tensor,
+                             n_gauss: int, v_img: torch.Tensor,
+                             v_alpha: torch.Tensor, width: int, height: int,
+                             tile_size: int, d_col: int):
+    """Gradient of rasterize_flat (f32 payload) for the cotangents v_img
+    (H, W, d_col) and v_alpha (H, W, 1) -> (per-entry rows (8 + d_col, M),
+    per-splat rows (8 + d_col, n_gauss)), rows as grad_rows names them;
+    the last two are the AbsGS absgrad, sum over pixels of |d means2d|.
+
+    The blend is replayed per tile group; S_i = sum_{j>i} w_j g_j is a
+    reversed exclusive cumulative sum over each tile's entries."""
+    dev = packed.device
+    M = packed.shape[1]
+    entry = torch.zeros(grad_rows(d_col), M, device=dev)
+    vout_t = _to_tiles(v_img, tile_size)                    # (T, P, D)
+    va_t = _to_tiles(v_alpha, tile_size)[..., 0]            # (T, P)
+    for b in blend_groups(packed, starts, counts, width, height, tile_size,
+                          d_col, False):
+        vo, va = vout_t[b.g], va_t[b.g]
+        g = torch.einsum("dgk,gpd->gkp", b.col, vo) + va[:, None, :]
+        wg = b.w * g
+        rev = torch.flip(wg, [1])
+        S = torch.flip(torch.cumsum(torch.cat(
+            [torch.zeros_like(rev[:, :1]), rev[:, :-1]], 1), 1), [1])
+        kept = b.w > 0
+        zero = torch.zeros_like(g)
+        dalpha = torch.where(
+            kept, b.t_before * g - S / torch.clamp_min(1.0 - b.alpha, 1e-3), zero)
+        not_cl = b.alpha < 0.999
+        dsig = torch.where(not_cl, -dalpha * b.alpha, zero)
+        dop = torch.where(not_cl & kept,
+                          dalpha * torch.exp(-torch.clamp_min(b.sigma, 0.0)), zero)
+        ca, cb, cc, _ = b.params
+        dmx = -dsig * (ca * b.dx + cb * b.dy)
+        dmy = -dsig * (cc * b.dy + cb * b.dx)
+        rows = torch.stack(
+            [dmx.sum(-1), dmy.sum(-1), (dsig * 0.5 * b.dx * b.dx).sum(-1),
+             (dsig * b.dx * b.dy).sum(-1), (dsig * 0.5 * b.dy * b.dy).sum(-1),
+             dop.sum(-1)]
+            + list(torch.einsum("gkp,gpd->dgk", b.w, vo))
+            + [dmx.abs().sum(-1), dmy.abs().sum(-1)])       # (rows, G, K)
+        entry[:, b.idx[b.live]] = rows[:, b.live]
+    splat = torch.zeros(grad_rows(d_col), n_gauss, device=dev)
+    splat.index_add_(1, gauss_ids.long(), entry)
+    return entry, splat
 
 
 # --- kernel wrapper ---------------------------------------------------------
 
-def _library():
-    global _SIGNATURE_SET
-    lib = _build.load("rasterize_flat_fwd")
-    if not _SIGNATURE_SET:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_flat_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                           ctypes.c_longlong, i, p]
-        lib.rasterize_flat_fwd.restype = ctypes.c_int
-        _SIGNATURE_SET = True
+def _library(name: str, argtypes):
+    lib = _build.load(name)
+    if name not in _SIGNATURES_SET:
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _SIGNATURES_SET.add(name)
     return lib
 
 
-def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
-                   counts: torch.Tensor, width: int, height: int,
-                   tile_size: int, d_col: int, f16: bool):
-    """Blend one camera's sorted intersection list -> (img (H, W, d_col),
-    alpha (H, W, 1)), both f32.
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL, _I, _P]
+_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL, _P]
 
-    A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches the
-    kernel (counted in `rasterize_flat.launches`) or raises.
-    """
-    if packed.device.type == "cpu":
-        return rasterize_flat_plain(packed, starts, counts, width, height,
-                                    tile_size, d_col, f16)
-    if packed.device.type != "cuda":
-        raise ValueError(f"rasterize_flat runs on cuda or cpu, not {packed.device}")
+
+def _check_list(packed, starts, counts, width, height, tile_size, d_col, V):
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
-    V = payload_rows(d_col, f16)
     if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != V:
         raise ValueError(f"packed must be f32 ({V}, M), got {packed.dtype} "
                          f"{tuple(packed.shape)}")
@@ -181,21 +273,104 @@ def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
             raise ValueError(f"{name} must lie on {packed.device}")
     if not (1 <= d_col <= 8) or tile_size * tile_size > 1024:
         raise ValueError(f"unsupported d_col={d_col} / tile_size={tile_size}")
+    return tw, th
+
+
+def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor, width: int, height: int,
+                   tile_size: int, d_col: int, f16: bool,
+                   with_state: bool = False):
+    """Blend one camera's sorted intersection list -> (img (H, W, d_col),
+    alpha (H, W, 1)), both f32; `with_state` adds the final transmittance
+    (H, W) and last kept entry (H, W) int32 that the backward reads.
+
+    A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches the
+    kernel (counted in `rasterize_flat.launches`) or raises.
+    """
+    if packed.device.type == "cpu":
+        return rasterize_flat_plain(packed, starts, counts, width, height,
+                                    tile_size, d_col, f16, with_state)
+    if packed.device.type != "cuda":
+        raise ValueError(f"rasterize_flat runs on cuda or cpu, not {packed.device}")
+    tw, th = _check_list(packed, starts, counts, width, height, tile_size,
+                         d_col, payload_rows(d_col, f16))
     packed, starts, counts = (packed.contiguous(), starts.contiguous(),
                               counts.contiguous())
-    img = torch.empty(height, width, d_col, dtype=torch.float32, device=packed.device)
-    alpha = torch.empty(height, width, 1, dtype=torch.float32, device=packed.device)
-    lib = _library()
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
+    dev = packed.device
+    img = torch.empty(height, width, d_col, dtype=torch.float32, device=dev)
+    alpha = torch.empty(height, width, 1, dtype=torch.float32, device=dev)
+    t_fin = last = None
+    if with_state:
+        t_fin = torch.empty(height, width, dtype=torch.float32, device=dev)
+        last = torch.empty(height, width, dtype=torch.int32, device=dev)
+    lib = _library("rasterize_flat_fwd", _FWD_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rasterize_flat_fwd(
             packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            img.data_ptr(), alpha.data_ptr(), width, height, tile_size, tw,
-            tw * th, d_col, packed.shape[1], int(f16), stream)
+            img.data_ptr(), alpha.data_ptr(),
+            t_fin.data_ptr() if with_state else None,
+            last.data_ptr() if with_state else None, width, height, tile_size,
+            tw, tw * th, d_col, packed.shape[1], int(f16), stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_flat_fwd kernel launch failed: CUDA error {rc}")
     rasterize_flat.launches += 1
-    return img, alpha
+    return (img, alpha, t_fin, last) if with_state else (img, alpha)
 
 
 rasterize_flat.launches = 0
+
+
+def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
+                       counts: torch.Tensor, gauss_ids: torch.Tensor,
+                       n_gauss: int, v_img: torch.Tensor, v_alpha: torch.Tensor,
+                       t_final: torch.Tensor, last: torch.Tensor, width: int,
+                       height: int, tile_size: int, d_col: int):
+    """Gradient of rasterize_flat on an f32 list -> (per-entry rows
+    (8 + d_col, M), per-splat rows (8 + d_col, n_gauss)); see
+    rasterize_flat_bwd_plain. t_final and last are the forward's
+    `with_state` planes.
+
+    A CPU tensor takes rasterize_flat_bwd_plain (which replays the blend and
+    needs neither plane); a CUDA tensor launches the kernel (counted in
+    `rasterize_flat_bwd.launches`), then scatters the entry rows to splats
+    with index_add_, or raises. f16-pair payloads are refused.
+    """
+    if packed.device.type == "cpu":
+        return rasterize_flat_bwd_plain(packed, starts, counts, gauss_ids,
+                                        n_gauss, v_img, v_alpha, width, height,
+                                        tile_size, d_col)
+    if packed.device.type != "cuda":
+        raise ValueError(f"rasterize_flat_bwd runs on cuda or cpu, not {packed.device}")
+    tw, th = _check_list(packed, starts, counts, width, height, tile_size,
+                         d_col, payload_rows(d_col, False))
+    M, dev = packed.shape[1], packed.device
+    planes = (("gauss_ids", gauss_ids, torch.int32, (M,)),
+              ("v_img", v_img, torch.float32, (height, width, d_col)),
+              ("v_alpha", v_alpha, torch.float32, (height, width, 1)),
+              ("t_final", t_final, torch.float32, (height, width)),
+              ("last", last, torch.int32, (height, width)))
+    for name, x, dtype, shape in planes:
+        if x is None or x.dtype != dtype or tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name} must be {dtype} {shape} on {dev}")
+    packed, starts, counts, v_img, v_alpha, t_final, last = (
+        x.contiguous() for x in (packed, starts, counts, v_img, v_alpha,
+                                 t_final, last))
+    entry = torch.zeros(grad_rows(d_col), M, dtype=torch.float32, device=dev)
+    lib = _library("rasterize_flat_bwd", _BWD_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rasterize_flat_bwd(
+            packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            v_img.data_ptr(), v_alpha.data_ptr(), t_final.data_ptr(),
+            last.data_ptr(), entry.data_ptr(), width, height, tile_size, tw,
+            tw * th, d_col, M, stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_flat_bwd kernel launch failed: CUDA error {rc}")
+    rasterize_flat_bwd.launches += 1
+    splat = torch.zeros(grad_rows(d_col), n_gauss, dtype=torch.float32, device=dev)
+    splat.index_add_(1, gauss_ids, entry)
+    return entry, splat
+
+
+rasterize_flat_bwd.launches = 0

@@ -11,7 +11,7 @@ sorted index instead of riding the sort.
 """
 
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -24,6 +24,7 @@ class FlatBins(NamedTuple):
     starts: torch.Tensor     # (n_tiles,) int32
     counts: torch.Tensor     # (n_tiles,) int32, clamped to max_per_tile
     n_dropped: torch.Tensor  # () int64 - intersections beyond the caps
+    gauss_ids: Optional[torch.Tensor] = None  # (N*TPG,) int32 entry -> splat
 
 
 def opacity_tight_radii(radii: torch.Tensor, opacities: torch.Tensor,
@@ -126,10 +127,11 @@ def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
                          tile_size: int, tile_width: int, tile_height: int,
                          max_tiles_per_gauss: int = 9,
                          max_per_tile: int = 1024,
-                         conic_test=None) -> FlatBins:
+                         conic_test=None, with_ids: bool = False) -> FlatBins:
     """Bin one camera's N projected splats into the sorted flat list; the V
     payload planes `values` (each (N,), f32 or f16-pair bit patterns) come
-    out gathered in blend order as packed (V, N*TPG)."""
+    out gathered in blend order as packed (V, N*TPG). `with_ids` also
+    returns the entry -> splat map the backward scatters by."""
     N = means2d.shape[0]
     n_tiles = tile_width * tile_height
     TPG = max_tiles_per_gauss
@@ -154,4 +156,4 @@ def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
     planes = torch.stack(list(values)).contiguous().view(torch.int32)
     packed = planes[:, gauss].view(torch.float32)
     return FlatBins(packed, starts.to(torch.int32), counts.to(torch.int32),
-                    n_dropped)
+                    n_dropped, gauss.to(torch.int32) if with_ids else None)

@@ -1,0 +1,1 @@
+"""training of the PyTorch/CUDA port (see the package docstring)."""

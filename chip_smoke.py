@@ -22,10 +22,10 @@ Phases (any failure exits non-zero before the last line is printed):
      for a small configuration whose heads are 64 wide;
   7. K3 (rasterize_flat_bwd) against its plain version, with cotangents
      drawn from a seeded generator, on the synthetic scene of phase 4 (f32
-     payload, 9 tiles per splat) and on the training lists of the main
-     path's 4 cameras (its splats, f32 payload, 9 tiles per splat, 4096 per
-     tile); K2's two training planes (final T, last kept entry) are held
-     against the plain version there too;
+     payload, 9 tiles per splat) and on the lists of the main path's splats
+     for its 4 cameras (f32 payload, 9 tiles per splat, 4096 per tile); K2's
+     two training planes (final T, last kept entry) are held against the
+     plain version there too;
   8. the training path at full size: phase 5's predictions written by
      `infer.export`, the trainer twin's `run()` for 2 iterations on that
      directory, then `optimize_splats` on the same splats, images and
@@ -34,23 +34,29 @@ Phases (any failure exits non-zero before the last line is printed):
      slot count unchanged across the refines; the median step time split by
      CUDA events into render forward, backward, optimizer and refine, the
      peak memory, the live splats after each refine and n_dropped per camera;
+     then K3 (and K2's planes) against the plain version on the training
+     step's own 4 lists, binned from two slot states: the input of step 10
+     and the slots after the refine at step 29;
 then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Each phase prints its wall time.
 
 Times are CUDA-event times after a warm-up. `bound_ms` is the larger of the
 bytes the function must move over 3.35 TB/s and its operations over the
 card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32; the
-H100 SXM data sheet). K3's operations are K3_FLOPS_PER_EVAL times the
-(pixel, entry) evaluations its backward walk needs (per in-image pixel, the
-entries up to its last kept one); its bytes are the list's entries read
-once (payload and id), the per-entry and per-splat grads written once, the
-cotangents and the T/last planes read once. In the `kernels` line every
-number of an inference kernel (K1, K2) is per forward of the main path:
-`launches` is the count from the one `run`, and `ms`, `plain_ms`,
-`library_ms` and `bound_ms` are totals over that forward's launches of the
-kernel, at its shapes. For the training kernel K3 they are per training
-step: `launches` is the count of one step of phase 8, and the times are
-totals over the 4 cameras' lists of phase 7.
+H100 SXM data sheet). The rasterizers' operations are counted on the plain
+replay of this run's list (blend_pairs): every (pixel, entry) pair the blend
+tests pays TEST_FLOPS, and the pairs that pass the keep test pay
+K2_FLOPS_PER_KEPT or K3_FLOPS_PER_KEPT instead. K2 tests, per in-image
+pixel, the entries up to the one that ends its blend; K3 those up to the
+pixel's last kept one. K3's bytes are the list's entries read once (payload
+and id), the per-entry and per-splat grads written once, the cotangents and
+the T/last planes read once. In the `kernels` line every number of an
+inference kernel (K1, K2) is per forward of the main path: `launches` is
+the count from the one `run`, and `ms`, `plain_ms`, `library_ms` and
+`bound_ms` are totals over that forward's launches of the kernel, at its
+shapes. For the training kernel K3 they are per training step: `launches`
+is the count of one step of phase 8, and the times are totals over the 4
+training lists of the slots after the refine at step 29.
 """
 
 import json
@@ -65,11 +71,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-K2_FLOPS_PER_EVAL = 25      # dx, dy, sigma, exp, alpha, T, 4 colour FMAs, sum
-# dx, dy, sigma, exp, alpha, T / (1 - alpha), g (4 colour FMAs), w, d alpha,
-# S, d sigma, d op, two mean grads, three conic grads, 4 colour grads, two
-# |.|, and the 12 rows' share of the sums over pixels
-K3_FLOPS_PER_EVAL = 60
+# f32 operations per (pixel, entry) pair. Every pair a blend walks pays the
+# keep test: dx, dy, sigma (five with FMAs), e^-sigma, op e^-sigma, the test.
+TEST_FLOPS = 10
+# a kept pair in K2: the test, alpha, T, w, 4 colour FMAs, the alpha sum
+K2_FLOPS_PER_KEPT = 25
+# a kept pair in K3: the test, alpha, T / (1 - alpha), g (4 colour FMAs), w,
+# d alpha, S, d sigma, d op, two mean grads, three conic grads, 4 colour
+# grads, two |.|, and the 12 rows' share of the sums over pixels
+K3_FLOPS_PER_KEPT = 60
 
 
 def log(*a):
@@ -176,23 +186,38 @@ def phase_k1():
 K2_BAND = 2e-3
 
 
-def blend_evaluations(packed, starts, counts, width, height, tile_size,
-                      d_col, f16) -> int:
-    """The (pixel, entry) evaluations a front-to-back blend with early stop
-    needs on this list: per in-image pixel, its tile's entries up to and
-    including the one that takes T to <= 1e-4 (the work that bounds K2)."""
+def blend_pairs(packed, starts, counts, width, height, tile_size, d_col,
+                f16) -> dict:
+    """The (pixel, entry) pairs of this list's blend, over in-image pixels,
+    counted on the plain replay: `kept` pairs pass the keep test and carry
+    the full arithmetic; `forward` pairs are those a front-to-back blend
+    with early stop tests (entries up to the one that takes T to <= 1e-4,
+    K2's work); `backward` pairs are those a back-to-front walk tests
+    (entries up to the pixel's last kept one, K3's work)."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     tw = (width + tile_size - 1) // tile_size
     lin = torch.arange(tile_size * tile_size, device=packed.device)
-    total = 0
+    n = dict(kept=0, forward=0, backward=0)
     for b in R.blend_groups(packed, starts, counts, width, height, tile_size,
                             d_col, f16):
         g = b.g
         inside = ((((g % tw) * tile_size)[:, None] + lin % tile_size < width)
                   & (((g // tw) * tile_size)[:, None] + lin // tile_size < height))
-        needed = (b.t_before > R.T_EPS) & b.live[..., None] & inside[:, None, :]
-        total += int(needed.sum())
-    return total
+        kept = (b.w > 0) & inside[:, None, :]
+        k = torch.arange(kept.shape[1], device=packed.device)[None, :, None]
+        last = torch.where(kept, k, -1).amax(dim=1)                    # (G, P)
+        n["kept"] += int(kept.sum())
+        n["forward"] += int(((b.t_before > R.T_EPS) & b.live[..., None]
+                             & inside[:, None, :]).sum())
+        n["backward"] += int((last + 1).sum())
+    return n
+
+
+def ops_ms(pairs, walked, flops_per_kept):
+    """Time at the f32 peak for `walked` tested pairs, of which pairs["kept"]
+    carry `flops_per_kept` operations and the rest only the keep test."""
+    kept = pairs["kept"]
+    return (kept * flops_per_kept + (walked - kept) * TEST_FLOPS) / F32_FLOPS * 1e3
 
 
 def k2_check(label, bins, W, H, d_col, f16):
@@ -209,15 +234,17 @@ def k2_check(label, bins, W, H, d_col, f16):
     ms = cuda_ms(lambda: R.rasterize_flat(*args))
     plain_ms = cuda_ms(lambda: R.rasterize_flat_plain(*args), reps=2, warmup=1)
     n_entries = int(bins.counts.sum())
-    evals = blend_evaluations(*args)
+    pairs = blend_pairs(*args)
     byts = (n_entries * bins.packed.shape[0] * 4 + 2 * bins.counts.numel() * 4
             + W * H * (d_col + 1) * 4)
-    bound = max(byts / HBM_BYTES_PER_S, evals * K2_FLOPS_PER_EVAL / F32_FLOPS) * 1e3
-    by = "bytes" if byts / HBM_BYTES_PER_S > evals * K2_FLOPS_PER_EVAL / F32_FLOPS \
-        else "operations"
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ms(pairs, pairs["forward"], K2_FLOPS_PER_KEPT)
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes > t_ops else "operations"
     log(f"K2 {label:24s} payload {'f16' if f16 else 'f32'}  entries {n_entries}  "
-        f"evaluations {evals}  max|d| {err:.3e} (band {K2_BAND:.0e})  "
-        f"kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by})")
+        f"pairs tested {pairs['forward']} kept {pairs['kept']}  max|d| {err:.3e} "
+        f"(band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
+        f"bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, operations {t_ops:.4f})")
     return err, ms, plain_ms, bound, by
 
 
@@ -407,18 +434,19 @@ def k3_check(label, bins, W, H, d_col, n_gauss, gen):
     k2_state_ms = cuda_ms(lambda: R.rasterize_flat(*fwd, with_state=True))
     n_entries = int(bins.counts.sum())
     rows = R.grad_rows(d_col)
-    inside = last >= 0
-    evals = int((last.long() + 1)[inside].sum())
+    pairs = blend_pairs(*fwd)
     byts = (n_entries * (bins.packed.shape[0] + 1 + rows) * 4 + n_gauss * rows * 4
             + W * H * ((d_col + 1) * 4 + 8) + 2 * bins.counts.numel() * 4)
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, evals * K3_FLOPS_PER_EVAL / F32_FLOPS
-    bound = max(t_bytes, t_ops) * 1e3
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ms(pairs, pairs["backward"], K3_FLOPS_PER_KEPT)
+    bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes > t_ops else "operations"
-    log(f"K3 {label:24s} entries {n_entries}  evaluations {evals}  max|d| "
-        f"{err:.3e} (rows within {K3_REL_BAND:.0e} of max|plain|)  K2 state "
-        f"max|dT| {t_err:.1e} last differs {last_bad:.1e}  kernel {ms:.4f} ms  "
-        f"plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by})  K2 with the "
-        f"training planes {k2_state_ms:.4f} ms")
+    log(f"K3 {label:24s} entries {n_entries}  pairs tested {pairs['backward']} "
+        f"kept {pairs['kept']}  max|d| {err:.3e} (rows within {K3_REL_BAND:.0e} "
+        f"of max|plain|)  K2 state max|dT| {t_err:.1e} last differs "
+        f"{last_bad:.1e}  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  bound "
+        f"{bound:.4f} ms ({by}; bytes {t_bytes:.4f}, operations {t_ops:.4f})  "
+        f"K2 with the training planes {k2_state_ms:.4f} ms")
     return err, ms, plain_ms, bound, by
 
 
@@ -431,25 +459,18 @@ def phase_k3_synthetic(gen):
     k3_check("synthetic 500k splats", bins, 518, 518, 4, scene[0].shape[0], gen)
 
 
-def phase_k3(preds):
+def k3_cameras(label, means, quats_xyzw, scales, opac, sh, w2c, Ks, HW,
+               max_per_tile, gen):
+    """k3_check on each camera's f32 list (9 tiles per splat), binned as the
+    training step bins -> totals over the cameras."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer
-    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    phase_k3_synthetic(gen)
-
-    HW = preds["depth"].shape[2]
-    sp = preds["splats"]
-    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
-    w2c = cam_utils.to_homogeneous(ext)
-    quats_xyzw = sp["quats"][0][:, [1, 2, 3, 0]]
     k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, by=set())
     for c in range(w2c.shape[0]):
-        bins = rasterizer.bin_camera(sp["means"][0], quats_xyzw, sp["scales"][0],
-                                     sp["opacities"][0], sp["sh"][0], w2c[c],
-                                     intr[c], HW, HW, 16, 4096, 9, False,
+        bins = rasterizer.bin_camera(means, quats_xyzw, scales, opac, sh, w2c[c],
+                                     Ks[c], HW, HW, 16, max_per_tile, 9, False,
                                      with_ids=True)
         err, ms, plain_ms, bound, by = k3_check(
-            f"main path camera {c}", bins, HW, HW, 4, sp["means"].shape[1], gen)
+            f"{label} camera {c}", bins, HW, HW, 4, means.shape[0], gen)
         k3["err"] = max(k3["err"], err)
         k3["ms"] += ms
         k3["plain_ms"] += plain_ms
@@ -458,6 +479,19 @@ def phase_k3(preds):
         del bins
         torch.cuda.empty_cache()
     return k3
+
+
+def phase_k3(preds):
+    """K3 on the synthetic scene and on the lists of the main path's splats."""
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    phase_k3_synthetic(gen)
+    HW = preds["depth"].shape[2]
+    sp = preds["splats"]
+    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
+    k3_cameras("main path", sp["means"][0], sp["quats"][0][:, [1, 2, 3, 0]],
+               sp["scales"][0], sp["opacities"][0], sp["sh"][0],
+               cam_utils.to_homogeneous(ext), intr, HW, 4096, gen)
 
 
 # --- the training path ----------------------------------------------------------
@@ -491,7 +525,7 @@ def phase_train(preds, imgs):
             raise AssertionError("trainer twin: bad gaussians_opt.ply")
 
         splats, gt, c2w, Ks, depths = splat_trainer.load_infer_dir(
-            str(out_dir), str(images), HW)
+            str(out_dir), str(images), HW, log)
     n = len(splats["means"])
     cfg = splat_opt.SplatOptConfig(iters=30, refine_start=10, refine_every=10,
                                    refine_stop=30)
@@ -502,6 +536,10 @@ def phase_train(preds, imgs):
 
     steps = []
     prev = {"k2": 0, "k3": 0}
+    # the slot states whose lists K3 is held on: the input of step 10, a step
+    # of the median below, and the state after the refine at step 29
+    snap_at = {9: "step 10", cfg.iters - 1: "after refine 29"}
+    snaps = {}
 
     def on_step(info):
         k2, k3 = R.rasterize_flat.launches, R.rasterize_flat_bwd.launches
@@ -512,6 +550,10 @@ def phase_train(preds, imgs):
                           n_dropped=info["meta"]["n_dropped"].tolist(), raw=None,
                           meta=None))
         prev.update(k2=k2, k3=k3)
+        if info["it"] in snap_at:
+            with torch.no_grad():
+                snaps[snap_at[info["it"]]] = [
+                    x.detach().clone() for x in splat_opt._activate(info["raw"])]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -554,7 +596,22 @@ def phase_train(preds, imgs):
         raise AssertionError("training: the slot count changed")
     if [it for it, _, _ in refines] != [19, 29]:
         raise AssertionError(f"training: refines at {refines}")
-    return steps[0]["k3"]
+
+    # K3 against its plain version on the training step's own lists, binned
+    # as the step bins them
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    w2c = cam_utils.se3_inverse(torch.as_tensor(c2w, device="cuda"))
+    Ks_t = torch.as_tensor(Ks, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k3 = {}
+    for label, (means, quats, scales, opac, sh) in snaps.items():
+        k3[label] = k3_cameras(f"training {label}", means, quats[:, [1, 2, 3, 0]],
+                               scales, opac, sh, w2c, Ks_t, HW, cfg.max_per_tile,
+                               gen)
+        log(f"K3 per training step on the lists of {label}: kernel "
+            f"{k3[label]['ms']:.4f} ms  plain {k3[label]['plain_ms']:.2f} ms  "
+            f"bound {k3[label]['bound_ms']:.4f} ms")
+    return steps[0]["k3"], k3["after refine 29"]
 
 
 # --- the card against the CPU ------------------------------------------------
@@ -610,8 +667,8 @@ def main():
     timed("K2 synthetic", phase_k2_synthetic)
     launches, k2, preds, imgs = timed("main path", phase_main_path)
     timed("card vs CPU", phase_cpu_reference)
-    k3 = timed("K3", phase_k3, preds)
-    k3_launches = timed("training", phase_train, preds, imgs)
+    timed("K3", phase_k3, preds)
+    k3_launches, k3 = timed("training", phase_train, preds, imgs)
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",

@@ -33,11 +33,15 @@
 // the block writes its entries' rows with coalesced stores. An entry
 // belongs to one tile, so no two blocks write the same row.
 //
-// What bounds it on this card: per (pixel, entry) evaluation ~60 FP32
-// operations plus up to (8 + D) * 5 warp shuffles, against 40 bytes of list
-// read and 48 bytes of grads written per entry: operations, by far. The warp
-// vote that skips an entry no pixel of the warp keeps is what this design
-// does about it; the shuffle reductions are the next cost to cut.
+// What bounds it on this card: bytes and operations about equally. Per entry
+// it reads 44 bytes of list and id and writes 48 bytes of grads; per
+// (pixel, entry) pair it walks it runs the keep test (~10 FP32 operations),
+// and only the pairs that pass (~5% on 518 px scenes) cost ~60 operations
+// more. On an H100 it runs ~80x off that bound (~2.4 ms for a list of 0.7M
+// entries): the (8 + D) * 5 warp shuffles that sum each entry over a warp
+// run whenever one lane keeps the entry. The warp vote that skips an entry
+// no lane keeps is what this design does about it so far; the shuffle
+// reductions are the next cost to cut.
 //
 // C interface: rasterize_flat_bwd(...) returns cudaGetLastError().
 
@@ -54,6 +58,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
   return v;
+}
+
+// K2's sigma (rasterize_flat_fwd.cu), rounded op by op in the same order, so
+// that K3 keeps exactly the pairs K2 kept.
+__device__ __forceinline__ float conic_sigma(float ca, float cb, float cc, float dx,
+                                             float dy) {
+  const float q = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
+                            __fmul_rn(__fmul_rn(cc, dy), dy));
+  return __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(cb, dx), dy));
 }
 
 __global__ void raster_flat_bwd_kernel(const float* __restrict__ packed,
@@ -140,14 +153,15 @@ __global__ void raster_flat_bwd_kernel(const float* __restrict__ packed,
         const float dx = px - s_mx[i];
         const float dy = py - s_my[i];
         const float ca = s_ca[i], cb = s_cb[i], cc = s_cc[i];
-        const float sigma = 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
+        const float sigma = conic_sigma(ca, cb, cc, dx, dy);
         const float ex = expf(-sigma);
         const float raw = s_op[i] * ex;
         if (sigma >= 0.f && raw >= ALPHA_THRESHOLD) {
           contrib = true;
           const float a = fminf(0.999f, raw);
           const float one_m = fmaxf(1.f - a, 1e-3f);
-          const float T_before = T / one_m;
+          // K2 multiplied T by exactly (1 - a); one_m is the formula's divisor
+          const float T_before = T / (1.f - a);
           float g = va;
 #pragma unroll
           for (int c = 0; c < MAX_D; ++c)

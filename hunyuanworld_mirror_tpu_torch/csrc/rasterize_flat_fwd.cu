@@ -15,9 +15,10 @@
 // was a TPU workaround; this kernel does the plain sequential product. The
 // two agree to f32 reassociation.
 //
-// What bounds it on this card: the per-(pixel, entry) arithmetic, ~30 flops
-// on the FP32 pipes for each of 256 pixels per entry, against 24-40 bytes of
-// payload per entry read once by one block; early termination cuts both.
+// What bounds it on this card: the per-(pixel, entry) arithmetic on the FP32
+// pipes, the keep test (~10 operations) for each of 256 pixels per entry and
+// ~25 for the few pairs kept, against 24-40 bytes of payload per entry read
+// once by one block; early termination cuts both.
 // Design (the gsplat forward structure): one block of tile_size^2 threads
 // per tile, one thread per pixel. The block stages a batch of blockDim
 // entries into shared memory cooperatively (one entry per thread, decoded to
@@ -51,6 +52,19 @@ __device__ __forceinline__ float f16_bits_to_f32(uint32_t h) {
   const uint32_t m = h & 0x3FFu;
   const uint32_t mag = (e == 0u) ? 0u : (((e + 112u) << 23) | (m << 13));
   return __uint_as_float(s | mag);
+}
+
+// sigma = 0.5 (ca dx^2 + cc dy^2) + cb dx dy, rounded op by op in the plain
+// version's order (no FMA contraction). The keep test (sigma >= 0, alpha >=
+// 1/255) is a step in alpha: a pair that one rounding keeps and another drops
+// changes T for every earlier entry of its pixel in the backward. With this
+// order the kernel decides as the plain version does, and K3
+// (rasterize_flat_bwd.cu, the same function) as K2 does.
+__device__ __forceinline__ float conic_sigma(float ca, float cb, float cc, float dx,
+                                             float dy) {
+  const float q = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
+                            __fmul_rn(__fmul_rn(cc, dy), dy));
+  return __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(cb, dx), dy));
 }
 
 __global__ void raster_flat_kernel(const float* __restrict__ packed,
@@ -120,7 +134,7 @@ __global__ void raster_flat_kernel(const float* __restrict__ packed,
     for (int i = 0; i < nb && !done; ++i) {
       const float dx = px - s_mx[i];
       const float dy = py - s_my[i];
-      const float sigma = 0.5f * (s_ca[i] * dx * dx + s_cc[i] * dy * dy) + s_cb[i] * dx * dy;
+      const float sigma = conic_sigma(s_ca[i], s_cb[i], s_cc[i], dx, dy);
       if (!(sigma >= 0.f)) continue;           // also skips NaN, as the JAX mask does
       const float raw = s_op[i] * expf(-sigma);
       if (!(raw >= ALPHA_THRESHOLD)) continue;  // min(0.999, raw) >= 1/255 <=> raw >= 1/255

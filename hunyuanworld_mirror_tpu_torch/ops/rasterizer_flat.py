@@ -113,6 +113,7 @@ def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
         dy = py[:, None, :] - my[idx][:, :, None]
         params = tuple(v[idx][..., None] for v in (ca, cb, cc, op))
         pa, pb, pc, po = params
+        # the kernels round sigma op by op in this order (conic_sigma)
         sigma = 0.5 * (pa * dx * dx + pc * dy * dy) + pb * dx * dy
         alpha = torch.clamp_max(po * torch.exp(-sigma), 0.999)
         keep = (sigma >= 0) & (alpha >= ALPHA_THRESHOLD) & live[..., None]

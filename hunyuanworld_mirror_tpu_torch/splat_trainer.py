@@ -44,7 +44,7 @@ UNPORTED = {
 }
 
 
-def load_infer_dir(result_dir: str, images_dir: str, size: int):
+def load_infer_dir(result_dir: str, images_dir: str, size: int, log_fn=print):
     """-> (splats (activated, quats wxyz, SH DC only), images (S, H, W, 3),
     c2w (S, 4, 4), Ks (S, 3, 3), depths (S, H, W) or None)."""
     gs = io_ply.read_ply(os.path.join(result_dir, "gaussians.ply"))
@@ -57,7 +57,7 @@ def load_infer_dir(result_dir: str, images_dir: str, size: int):
         "sh": np.stack([gs[f"f_dc_{i}"] for i in range(3)], -1)[:, None, :
                                                                 ].astype(np.float32),
     }
-    print(f"loaded {len(gs['x'])} splats from {result_dir}/gaussians.ply")
+    log_fn(f"loaded {len(gs['x'])} splats from {result_dir}/gaussians.ply")
 
     with open(os.path.join(result_dir, "camera_params.json")) as f:
         cams = json.load(f)
@@ -81,19 +81,19 @@ def load_infer_dir(result_dir: str, images_dir: str, size: int):
 def run(result_dir: str, images_dir: str, iters: int = 1000, size: int = 518,
         max_per_tile: int = 4096, depth_loss: bool = False,
         depth_lambda: float = 1e-2, opacity_reg: float = 0.0,
-        scale_reg: float = 0.0, device=None, seed: int = 0,
-        log_fn=print) -> dict:
+        scale_reg: float = 0.0, device=None, log_fn=print) -> dict:
     """Optimise an inference output directory's splats and write
     gaussians_opt.ply there; returns the optimised splats (numpy). Runs on
     CUDA unless `device` names another; without a GPU, device=None raises."""
     dev = resolve_device(device)
-    splats, imgs, c2w, Ks, depths = load_infer_dir(result_dir, images_dir, size)
+    splats, imgs, c2w, Ks, depths = load_infer_dir(result_dir, images_dir, size,
+                                                   log_fn)
     cfg = splat_opt.SplatOptConfig(iters=iters, max_per_tile=max_per_tile,
                                    depth_loss=depth_loss and depths is not None,
                                    depth_lambda=depth_lambda,
                                    opacity_reg=opacity_reg, scale_reg=scale_reg)
-    out = splat_opt.optimize_splats(splats, imgs, c2w, Ks, cfg, seed=seed,
-                                    log_fn=log_fn, depths=depths, device=dev)
+    out = splat_opt.optimize_splats(splats, imgs, c2w, Ks, cfg, log_fn=log_fn,
+                                    depths=depths, device=dev)
     log_fn(f"optimized: {len(out['means'])} splats alive")
     op = np.clip(out["opacities"], 1e-6, 1 - 1e-6)
     path = os.path.join(result_dir, "gaussians_opt.ply")

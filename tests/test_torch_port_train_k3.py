@@ -48,8 +48,10 @@ def test_plain_k3_matches_pallas_interpret(case):
             w, h, TILE, tpg, mpt, True)
         return jnp.sum(img * v_img) + jnp.sum(a * v_alpha)
 
+    # under jit the interpret-mode kernels compile as one program, several
+    # times faster than dispatching them eagerly
     diff = [jnp.asarray(s[k]) for k in ("m2d", "con", "col", "op")]
-    ref = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(
+    ref = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3, 4)))(
         *diff, jnp.zeros((n, 2), jnp.float32))
 
     ins = [t(s[k]).requires_grad_(True) for k in ("m2d", "con", "col", "op")]

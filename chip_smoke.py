@@ -37,6 +37,27 @@ Phases (any failure exits non-zero before the last line is printed):
      then K3 (and K2's planes) against the plain version on the training
      step's own 4 lists, binned from two slot states: the input of step 10
      and the slots after the refine at step 29;
+  9. K2m (rasterize_flat_multi_fwd): `rasterize(camera_batch=True)` on
+     phase 5's 537,088 splats and 4 cameras at 518 px with the render's caps
+     (4096 per tile, 4 tiles per splat): one sort of all cameras' slots, 1
+     K2m and 0 K2 launches; K2m against its plain version on that list; the
+     render against the per-camera route at the f32 payload (max, median
+     and share of pixels with |d| > 1e-3: the camera-batched key keeps 18
+     depth bits, not 20); the kernel, its plain version, the whole route
+     and the per-camera route timed;
+ 10. K5 (rasterize_flat_grouped_fwd): the per-camera inference route (f16
+     payload) with WM_RASTER_GROUP at 16, 8 and 4: 4 K5 and 0 K2 launches a
+     call, K5 against its plain version and against K2 on each camera's
+     list, extra_dropped; then optimize_splats for 3 steps on phase 8's
+     inputs with WM_RASTER_GROUP=4 against the same 3 steps with G=1: 4 K5,
+     0 K2 and 4 K3 launches a step, the losses within 1e-5 relative,
+     n_dropped equal (the window clamp cut nothing, so K3 read the same
+     counts K5 blended);
+ 11. K4 (rasterize_binned_fwd): `render_local_cameras(impl="pallas")`, the
+     per-rank body of the multi-device render, on phase 5's splats and 4
+     cameras with the render's caps (untightened radii, 1089 x 4096 id
+     table per camera): 4 K4 launches, K4 against its plain version (the
+     JAX package's log-space blend) on each camera's bins, both timed;
 then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Each phase prints its wall time.
 
@@ -56,11 +77,16 @@ the count from the one `run`, and `ms`, `plain_ms`, `library_ms` and
 `bound_ms` are totals over that forward's launches of the kernel, at its
 shapes. For the training kernel K3 they are per training step: `launches`
 is the count of one step of phase 8, and the times are totals over the 4
-training lists of the slots after the refine at step 29.
+training lists of the slots after the refine at step 29. K2m, K5 (G=4) and
+K4 are per call of their route over the 4 cameras: `launches` is the
+count of that call, the times and bounds totals over its cameras. K4's
+bytes are the id table's live slots and one read of each live slot's
+splat row, its operations those of the same blend replayed as a flat list.
 """
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -113,7 +139,8 @@ def phase_build():
     from hunyuanworld_mirror_tpu_torch.ops import _build
     t0 = time.time()
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
-                            "rasterize_flat_bwd"])
+                            "rasterize_flat_bwd", "rasterize_flat_grouped_fwd",
+                            "rasterize_binned_fwd"])
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -220,27 +247,52 @@ def ops_ms(pairs, walked, flops_per_kept):
     return (kept * flops_per_kept + (walked - kept) * TEST_FLOPS) / F32_FLOPS * 1e3
 
 
+def blend_bound(packed, starts, counts, W, H, d_col, f16, n_cams=1,
+                extra_bytes=0):
+    """A forward blend's bound on this list -> (bound_ms, bound_by, pairs):
+    the list's entries read once, starts and counts, the image and alpha
+    written once (plus `extra_bytes`), against the operations of the
+    (pixel, entry) pairs a front-to-back blend with early stop tests, over
+    each camera's segments of the list."""
+    n_tiles = starts.numel() // n_cams
+    pairs = dict(kept=0, forward=0, backward=0)
+    for c in range(n_cams):
+        seg = slice(c * n_tiles, (c + 1) * n_tiles)
+        for k, v in blend_pairs(packed, starts[seg], counts[seg], W, H, 16, d_col,
+                                f16).items():
+            pairs[k] += v
+    byts = (int(counts.sum()) * packed.shape[0] * 4 + 2 * counts.numel() * 4
+            + n_cams * W * H * (d_col + 1) * 4 + extra_bytes)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ms(pairs, pairs["forward"], K2_FLOPS_PER_KEPT)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+            pairs, t_bytes, t_ops)
+
+
+def check_blend(label, kern, plain):
+    """A forward kernel's (img, alpha) against its plain version's, within
+    K2_BAND -> max|d|."""
+    img, alpha = kern()
+    torch.cuda.synchronize()
+    img_p, alpha_p = plain()
+    err = max(float((img - img_p).abs().max()), float((alpha - alpha_p).abs().max()))
+    if not (err <= K2_BAND) or not torch.isfinite(img).all():
+        raise AssertionError(f"{label}: max|d| {err} > {K2_BAND}")
+    return err
+
+
 def k2_check(label, bins, W, H, d_col, f16):
     """K2 vs its plain version on one sorted list -> (err, ms, plain_ms,
     bound_ms)."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     args = (bins.packed, bins.starts, bins.counts, W, H, 16, d_col, f16)
-    img, alpha = R.rasterize_flat(*args)
-    torch.cuda.synchronize()
-    img_p, alpha_p = R.rasterize_flat_plain(*args)
-    err = max(float((img - img_p).abs().max()), float((alpha - alpha_p).abs().max()))
-    if not (err <= K2_BAND) or not torch.isfinite(img).all():
-        raise AssertionError(f"K2 {label}: max|d| {err} > {K2_BAND}")
+    err = check_blend(f"K2 {label}", lambda: R.rasterize_flat(*args),
+                      lambda: R.rasterize_flat_plain(*args))
     ms = cuda_ms(lambda: R.rasterize_flat(*args))
     plain_ms = cuda_ms(lambda: R.rasterize_flat_plain(*args), reps=2, warmup=1)
     n_entries = int(bins.counts.sum())
-    pairs = blend_pairs(*args)
-    byts = (n_entries * bins.packed.shape[0] * 4 + 2 * bins.counts.numel() * 4
-            + W * H * (d_col + 1) * 4)
-    t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ms(pairs, pairs["forward"], K2_FLOPS_PER_KEPT)
-    bound = max(t_bytes, t_ops)
-    by = "bytes" if t_bytes > t_ops else "operations"
+    bound, by, pairs, t_bytes, t_ops = blend_bound(bins.packed, bins.starts,
+                                                   bins.counts, W, H, d_col, f16)
     log(f"K2 {label:24s} payload {'f16' if f16 else 'f32'}  entries {n_entries}  "
         f"pairs tested {pairs['forward']} kept {pairs['kept']}  max|d| {err:.3e} "
         f"(band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
@@ -291,6 +343,22 @@ def fixed_cameras(S):
         cams[0, s, 3:7] = [0.0, math.sin(a / 2), 0.0, math.cos(a / 2)]  # xyzw
         cams[0, s, 7:9] = math.radians(60)
     return cams
+
+
+# the main path's render caps
+RENDER_MPT, RENDER_TPG = 4096, 4
+
+
+def main_path_scene(preds):
+    """Phase 5's compacted splats (quats xyzw) and its 4 predicted cameras
+    (world->cam, intrinsics) -> (means, quats, scales, opacities, sh, w2c,
+    Ks, HW)."""
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    HW = preds["depth"].shape[2]
+    sp = preds["splats"]
+    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
+    return (sp["means"][0], sp["quats"][0][:, [1, 2, 3, 0]], sp["scales"][0],
+            sp["opacities"][0], sp["sh"][0], cam_utils.to_homogeneous(ext), intr, HW)
 
 
 def phase_main_path():
@@ -362,15 +430,11 @@ def phase_main_path():
         raise AssertionError("main path: the render is empty")
 
     # K2 on the main path's own sorted lists (the same binning as the render)
-    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
-    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
-    w2c = cam_utils.to_homogeneous(ext)
+    means, quats, scales, opac, sh, w2c, intr, _ = main_path_scene(preds)
     k2 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, by=set())
-    quats_xyzw = sp["quats"][0][:, [1, 2, 3, 0]]
     for c in range(S):
-        bins = rasterizer.bin_camera(sp["means"][0], quats_xyzw, sp["scales"][0],
-                                     sp["opacities"][0], sp["sh"][0], w2c[c], intr[c],
-                                     HW, HW, 16, 4096, 4, True)
+        bins = rasterizer.bin_camera(means, quats, scales, opac, sh, w2c[c], intr[c],
+                                     HW, HW, 16, RENDER_MPT, RENDER_TPG, True)
         err, ms, plain_ms, bound, by = k2_check(f"main path camera {c}", bins,
                                                 HW, HW, 4, True)
         k2["err"] = max(k2["err"], err)
@@ -483,15 +547,11 @@ def k3_cameras(label, means, quats_xyzw, scales, opac, sh, w2c, Ks, HW,
 
 def phase_k3(preds):
     """K3 on the synthetic scene and on the lists of the main path's splats."""
-    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
     gen = torch.Generator(device="cuda").manual_seed(7)
     phase_k3_synthetic(gen)
-    HW = preds["depth"].shape[2]
-    sp = preds["splats"]
-    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
-    k3_cameras("main path", sp["means"][0], sp["quats"][0][:, [1, 2, 3, 0]],
-               sp["scales"][0], sp["opacities"][0], sp["sh"][0],
-               cam_utils.to_homogeneous(ext), intr, HW, 4096, gen)
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    k3_cameras("main path", means, quats, scales, opac, sh, w2c, Ks, HW, RENDER_MPT,
+               gen)
 
 
 # --- the training path ----------------------------------------------------------
@@ -611,7 +671,206 @@ def phase_train(preds, imgs):
         log(f"K3 per training step on the lists of {label}: kernel "
             f"{k3[label]['ms']:.4f} ms  plain {k3[label]['plain_ms']:.2f} ms  "
             f"bound {k3[label]['bound_ms']:.4f} ms")
-    return steps[0]["k3"], k3["after refine 29"]
+    return steps[0]["k3"], k3["after refine 29"], (splats, gt, c2w, Ks, depths)
+
+
+# --- the rasterizer variants: K2m, K5, K4 -------------------------------------
+
+def totals(label, rows):
+    """Sum the per-camera (err, ms, plain_ms, bound_ms, bound_by) rows of
+    one route -> the kernels-line numbers."""
+    out = dict(err=max(r[0] for r in rows), ms=sum(r[1] for r in rows),
+               plain_ms=sum(r[2] for r in rows), bound_ms=sum(r[3] for r in rows),
+               by="operations" if any(r[4] == "operations" for r in rows) else "bytes")
+    log(f"{label}: kernel {out['ms']:.4f} ms  plain {out['plain_ms']:.2f} ms  "
+        f"bound {out['bound_ms']:.4f} ms ({out['by']})  max|d| {out['err']:.3e}")
+    return out
+
+
+def phase_k2m(preds):
+    """K2m: the camera-batched route, its kernel against the plain version,
+    and the route against the per-camera one."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    C = w2c.shape[0]
+
+    def route(batch):
+        return rasterizer.rasterize(means, quats, scales, opac, sh, w2c, Ks, HW, HW,
+                                    max_per_tile=RENDER_MPT,
+                                    max_tiles_per_gauss=RENDER_TPG,
+                                    camera_batch=batch, device="cuda")
+
+    R.rasterize_flat.launches = R.rasterize_flat_multi.launches = 0
+    out, alpha, meta = route(True)
+    torch.cuda.synchronize()
+    launches = (R.rasterize_flat_multi.launches, R.rasterize_flat.launches)
+    if launches != (1, 0):
+        raise AssertionError(f"K2m route: (K2m, K2) launches {launches} != (1, 0)")
+    out_c, alpha_c, meta_c = route(False)
+    d = torch.cat([(out - out_c)[..., :3], alpha - alpha_c], -1).abs()
+    diff = dict(max=float(d.max()), median=float(d.median()),
+                share_gt_1e_3=float((d.amax(-1) > 1e-3).float().mean()))
+    log(f"K2m route vs per-camera route (RGB and alpha, f32 payload): {diff}; "
+        f"n_isects {meta['n_isects'].tolist()} vs {meta_c['n_isects'].tolist()}, "
+        f"n_dropped {int(meta['n_dropped'][0])} vs {meta_c['n_dropped'].tolist()}")
+    if not (torch.isfinite(out).all() and diff["median"] < 1e-3):
+        raise AssertionError(f"K2m route: render differs from the per-camera one {diff}")
+
+    bins, _ = rasterizer.bin_cameras(means, quats, scales, opac, sh, w2c, Ks, HW,
+                                     HW, 16, RENDER_MPT, RENDER_TPG)
+    args = (bins.packed, bins.starts, bins.counts, C, HW, HW, 16, 4)
+    err = check_blend("K2m", lambda: R.rasterize_flat_multi(*args),
+                      lambda: R.rasterize_flat_multi_plain(*args))
+    ms = cuda_ms(lambda: R.rasterize_flat_multi(*args))
+    plain_ms = cuda_ms(lambda: R.rasterize_flat_multi_plain(*args), reps=2, warmup=1)
+    bound, by, pairs, t_bytes, t_ops = blend_bound(bins.packed, bins.starts,
+                                                   bins.counts, HW, HW, 4, False, C)
+    route_ms = cuda_ms(lambda: route(True), reps=5, warmup=1)
+    per_camera_ms = cuda_ms(lambda: route(False), reps=5, warmup=1)
+    log(f"K2m {C} cameras, one list of {bins.packed.shape[1]} slots, entries "
+        f"{int(bins.counts.sum())}  pairs tested {pairs['forward']} kept "
+        f"{pairs['kept']}  max|d| {err:.3e} (band {K2_BAND:.0e})  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, "
+        f"operations {t_ops:.4f})")
+    log(f"rasterize, {C} cameras: camera-batched route {route_ms:.3f} ms, "
+        f"per-camera route (f32 payload) {per_camera_ms:.3f} ms")
+    return launches[0], dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
+
+
+def phase_k5(preds, train_inputs):
+    """K5: the per-camera inference route at G = 16, 8, 4, then 3 training
+    steps at G=4 against G=1. WM_RASTER_GROUP is restored afterwards."""
+    saved = os.environ.get("WM_RASTER_GROUP")
+    try:
+        line = None
+        for group in (16, 8, 4):
+            os.environ["WM_RASTER_GROUP"] = str(group)
+            launches, line = k5_render(preds, group)
+        train_k5(train_inputs)
+    finally:
+        if saved is None:
+            os.environ.pop("WM_RASTER_GROUP", None)
+        else:
+            os.environ["WM_RASTER_GROUP"] = saved
+    return launches, line
+
+
+def k5_render(preds, group):
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    R.rasterize_flat.launches = R.rasterize_flat_grouped.launches = 0
+    out, _, meta = rasterizer.rasterize(means, quats, scales, opac, sh, w2c, Ks, HW,
+                                        HW, max_per_tile=RENDER_MPT,
+                                        max_tiles_per_gauss=RENDER_TPG,
+                                        payload_f16=True, device="cuda")
+    torch.cuda.synchronize()
+    launches = (R.rasterize_flat_grouped.launches, R.rasterize_flat.launches)
+    if launches != (4, 0) or not torch.isfinite(out).all():
+        raise AssertionError(f"K5 G={group} route: (K5, K2) launches {launches}")
+    rows = []
+    for c in range(w2c.shape[0]):
+        bins = rasterizer.bin_camera(means, quats, scales, opac, sh, w2c[c], Ks[c],
+                                     HW, HW, 16, RENDER_MPT, RENDER_TPG, True)
+        starts, counts, extra = R.group_windows(bins.starts, bins.counts, group,
+                                                RENDER_MPT, bins.packed.shape[1])
+        args = (bins.packed, starts, counts, HW, HW, 16, 4, True)
+        err = check_blend(f"K5 G={group} camera {c}",
+                          lambda: R.rasterize_flat_grouped(*args, group),
+                          lambda: R.rasterize_flat_grouped_plain(*args))
+        img, alpha = R.rasterize_flat_grouped(*args, group)
+        img2, alpha2 = R.rasterize_flat(*args)
+        vs_k2 = max(float((img - img2).abs().max()), float((alpha - alpha2).abs().max()))
+        ms = cuda_ms(lambda: R.rasterize_flat_grouped(*args, group))
+        k2_ms = cuda_ms(lambda: R.rasterize_flat(*args))
+        plain_ms = cuda_ms(lambda: R.rasterize_flat_grouped_plain(*args), reps=2,
+                           warmup=1)
+        bound, by, _, _, _ = blend_bound(bins.packed, starts, counts, HW, HW, 4, True)
+        log(f"K5 G={group:2d} camera {c}: extra_dropped {int(extra)}  max|d| vs plain "
+            f"{err:.3e}, vs K2 on the same list {vs_k2:.3e}  kernel {ms:.4f} ms  "
+            f"K2 {k2_ms:.4f} ms  plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by})")
+        rows.append((err, ms, plain_ms, bound, by))
+    return launches[0], totals(f"K5 G={group} per render of {w2c.shape[0]} cameras",
+                               rows)
+
+
+def train_k5(train_inputs):
+    """3 optimize_splats steps at WM_RASTER_GROUP=4 against G=1."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    splats, gt, c2w, Ks, depths = train_inputs
+    cfg = splat_opt.SplatOptConfig(iters=3, refine_start=100)
+    runs = {}
+    for group in ("1", "4"):
+        os.environ["WM_RASTER_GROUP"] = group
+        steps, prev = [], [0, 0, 0]
+
+        def on_step(info):
+            now = [R.rasterize_flat_grouped.launches, R.rasterize_flat.launches,
+                   R.rasterize_flat_bwd.launches]
+            steps.append((float(info["loss"]), tuple(n - p for n, p in zip(now, prev)),
+                          info["meta"]["n_dropped"].tolist()))
+            prev[:] = now
+
+        R.rasterize_flat_grouped.launches = R.rasterize_flat.launches = 0
+        R.rasterize_flat_bwd.launches = 0
+        splat_opt.optimize_splats(splats, gt, c2w, Ks, cfg, depths=depths,
+                                  device="cuda", log_fn=lambda *a: None,
+                                  on_step=on_step)
+        runs[group] = steps
+        log(f"training with WM_RASTER_GROUP={group}: losses "
+            f"{[s[0] for s in steps]}, (K5, K2, K3) launches per step "
+            f"{[s[1] for s in steps]}, n_dropped {[s[2] for s in steps]}")
+    for (l1, _, d1), (l4, n4, d4) in zip(runs["1"], runs["4"]):
+        if n4 != (4, 0, 4) or d1 != d4 or not abs(l4 - l1) <= 1e-5 * abs(l1):
+            raise AssertionError(f"K5 training: G=4 {runs['4']} against G=1 {runs['1']}")
+
+
+def phase_k4(preds):
+    """K4: the per-rank render of the multi-device path on one card."""
+    from hunyuanworld_mirror_tpu_torch.ops import distributed, projection
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned as B
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    covars = projection.quat_scale_to_covar_planes(quats, scales)
+    proj = distributed.project_for_cameras(means, covars, opac, sh, w2c, Ks, HW, HW,
+                                           sh_degree=0)
+    B.rasterize_binned.launches = 0
+    out, alpha = distributed.render_local_cameras(*proj, HW, HW, 16, RENDER_MPT,
+                                                  RENDER_TPG, "pallas")
+    torch.cuda.synchronize()
+    launches = B.rasterize_binned.launches
+    if launches != 4 or not torch.isfinite(out).all():
+        raise AssertionError(f"K4 route: {launches} launches != 4")
+    log(f"K4 route: render_local_cameras over {w2c.shape[0]} cameras, mean alpha "
+        f"{float(alpha.mean()):.4f}")
+    rows = []
+    for c in range(w2c.shape[0]):
+        m2d, con, dep, rad, col, op = (x[c] for x in proj)
+        colors, bins = distributed.bin_local_camera(
+            m2d, con, dep, rad, col, op, HW, HW, 16, RENDER_MPT, RENDER_TPG)
+        args = (m2d, con, colors, op, bins, HW, HW, 16)
+        err = check_blend(f"K4 camera {c}", lambda: B.rasterize_binned(*args),
+                          lambda: B.rasterize_binned_plain(*args))
+        ms = cuda_ms(lambda: B.rasterize_binned(*args))
+        plain_ms = cuda_ms(lambda: B.rasterize_binned_plain(*args), reps=2, warmup=1)
+        # the same blend as a flat list: the live slots' rows in tile order
+        live = (torch.arange(RENDER_MPT, device="cuda")[None, :]
+                < bins.counts[:, None].long())
+        table = B.splat_table(m2d, con, colors, op)
+        packed = table[bins.gauss_ids[live].long()].T.contiguous()
+        starts = (torch.cumsum(bins.counts.long(), 0) - bins.counts).to(torch.int32)
+        n_live = int(bins.counts.sum())
+        bound, by, pairs, t_bytes, t_ops = blend_bound(
+            packed, starts, bins.counts, HW, HW, 4, False,
+            extra_bytes=n_live * 4 - bins.counts.numel() * 4)
+        log(f"K4 camera {c}: live slots {n_live}, n_dropped {int(bins.n_dropped)}  "
+            f"pairs tested {pairs['forward']} kept {pairs['kept']}  max|d| {err:.3e} "
+            f"(band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
+            f"bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+        rows.append((err, ms, plain_ms, bound, by))
+        del packed, table, bins
+    return launches, totals(f"K4 per render of {w2c.shape[0]} cameras", rows)
 
 
 # --- the card against the CPU ------------------------------------------------
@@ -661,14 +920,17 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    name, smi = timed("device", phase_device)
+    device_name, smi = timed("device", phase_device)
     timed("build", phase_build)
     k1 = timed("K1", phase_k1)
     timed("K2 synthetic", phase_k2_synthetic)
     launches, k2, preds, imgs = timed("main path", phase_main_path)
     timed("card vs CPU", phase_cpu_reference)
     timed("K3", phase_k3, preds)
-    k3_launches, k3 = timed("training", phase_train, preds, imgs)
+    k3_launches, k3, train_inputs = timed("training", phase_train, preds, imgs)
+    k2m_launches, k2m = timed("K2m", phase_k2m, preds)
+    k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
+    k4_launches, k4 = timed("K4", phase_k4, preds)
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -692,9 +954,21 @@ def main():
          "bound_by": "operations" if "operations" in k3["by"] else "bytes",
          "library_ms": None},
     ]
+    for kernel, source, replaces, count, row in (
+            ("rasterize_flat_multi_fwd", "rasterize_flat_fwd.cu", 771, k2m_launches, k2m),
+            ("rasterize_flat_grouped_fwd", "rasterize_flat_grouped_fwd.cu", 467,
+             k5_launches, k5),
+            ("rasterize_binned_fwd", "rasterize_binned_fwd.cu", 138, k4_launches, k4)):
+        kernels.append(
+            {"name": kernel, "route": "cuda",
+             "source": f"hunyuanworld_mirror_tpu_torch/csrc/{source}",
+             "replaces": f"hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py:{replaces}",
+             "launches": count, "max_abs_err": row["err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

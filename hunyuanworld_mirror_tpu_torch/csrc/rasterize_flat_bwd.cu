@@ -45,28 +45,20 @@
 //
 // C interface: rasterize_flat_bwd(...) returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int MAX_D = 8;
-constexpr float ALPHA_THRESHOLD = 1.0f / 255.0f;
+using raster::ALPHA_THRESHOLD;
+using raster::MAX_D;
+using raster::conic_sigma;  // K2's sigma, so that K3 keeps exactly the pairs K2 kept
+
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
   return v;
-}
-
-// K2's sigma (rasterize_flat_fwd.cu), rounded op by op in the same order, so
-// that K3 keeps exactly the pairs K2 kept.
-__device__ __forceinline__ float conic_sigma(float ca, float cb, float cc, float dx,
-                                             float dy) {
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                            __fmul_rn(__fmul_rn(cc, dy), dy));
-  return __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(cb, dx), dy));
 }
 
 __global__ void raster_flat_bwd_kernel(const float* __restrict__ packed,

@@ -3,9 +3,10 @@
 Each source compiles with nvcc into its own shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers: a build takes seconds,
 not minutes). The build happens at first use into `build/kernels/` at the
-repository root; the library's file name carries a hash of its source, so an
-edited kernel is never served from a stale build. Nothing here runs at
-import time: this module is imported on machines without nvcc or a card.
+repository root; the library's file name carries a hash of its source and of
+the csrc headers it includes, so an edited kernel or header is never served
+from a stale build. Nothing here runs at import time: this module is
+imported on machines without nvcc or a card.
 
 `load` builds one source at a time. Building several at once, and keeping
 nvcc's -Xptxas -v report (register and spill counts), is there for
@@ -16,16 +17,19 @@ report; the report also carries nvcc's errors when a build fails.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -38,9 +42,25 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(name: str) -> List[Path]:
+    """csrc/<name>.cu and every csrc header it includes, directly or not."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / h.decode() for h in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's file name hashes its source and the headers it
+    includes, so an edit to either is never served from a stale build."""
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

@@ -1,11 +1,13 @@
-"""Tile-based 3D Gaussian rasterization of pinhole cameras, one camera at a time.
+"""Tile-based 3D Gaussian rasterization of pinhole cameras.
 
 Port of hunyuanworld_mirror_tpu/ops/rasterizer.py `rasterize` on its
-`impl="pallas"` per-camera path in RGB+ED mode: projection
+`impl="pallas"` paths in RGB+ED mode. Per camera: projection
 (ops/projection.py) -> opacity-tight radii -> SH colours + depth -> flat
 binning with the exact ellipse-tile test (ops/tiles.py, f32 or f16-pair
-payload) -> the flat blend (ops/rasterizer_flat.py, kernel K2) -> expected
-depth normalized by alpha.
+payload) -> the flat blend (ops/rasterizer_flat.py: kernel K2, or K5 when
+WM_RASTER_GROUP > 1) -> expected depth normalized by alpha. With
+`camera_batch=True` (inference only) all cameras share one projection call,
+one sort and one launch of kernel K2m.
 
 Differentiable in means, quats, scales, opacities and colours: autograd runs
 through the projection and the SH evaluation, and `RasterizeFlat` (the port
@@ -13,6 +15,7 @@ of the custom VJP of rasterizer_pallas.rasterize_flat_pallas) takes the
 blend's gradient with kernel K3.
 """
 
+import os
 from typing import Dict
 
 import torch
@@ -20,8 +23,9 @@ import torch
 from .. import resolve_device
 from ..utils import sh as sh_utils
 from . import projection, tiles
-from .rasterizer_flat import (pack_f16_pairs, rasterize_flat,
-                              rasterize_flat_bwd)
+from .rasterizer_flat import (group_windows, pack_f16_pairs, rasterize_flat,
+                              rasterize_flat_bwd, rasterize_flat_grouped,
+                              rasterize_flat_multi)
 
 
 def _colors(colors, means, viewmat):
@@ -98,6 +102,26 @@ def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
                       payload_f16, with_ids)
 
 
+def blend_flat(bins: tiles.FlatBins, width: int, height: int, tile_size: int,
+               d_col: int, f16: bool, max_per_tile: int,
+               with_state: bool = False):
+    """The flat forward of one camera's list, K2 or, with WM_RASTER_GROUP =
+    G > 1, K5 on the segments clamped to their group windows ->
+    (rasterize_flat's outputs, the starts and counts blended, n_dropped
+    including the entries the windows cut). WM_RASTER_GROUP is read at every
+    call, as rasterizer_pallas._flat_fwd reads it."""
+    group = int(os.environ.get("WM_RASTER_GROUP", "1"))
+    if group <= 1:
+        outs = rasterize_flat(bins.packed, bins.starts, bins.counts, width,
+                              height, tile_size, d_col, f16, with_state)
+        return outs, bins.starts, bins.counts, bins.n_dropped
+    starts, counts, extra = group_windows(bins.starts, bins.counts, group,
+                                          max_per_tile, bins.packed.shape[1])
+    outs = rasterize_flat_grouped(bins.packed, starts, counts, width, height,
+                                  tile_size, d_col, f16, group, with_state)
+    return outs, starts, counts, bins.n_dropped + extra
+
+
 class RasterizeFlat(torch.autograd.Function):
     """Bin + blend one camera with a hand-written backward (kernel K3).
 
@@ -111,7 +135,11 @@ class RasterizeFlat(torch.autograd.Function):
     forward SAVES its sorted list and entry -> splat ids for backward
     instead of re-binning as the JAX VJP does: it spends memory (about
     (6 + D) f32 rows plus one int32 id per entry, 0.39 GB per camera at 9.67M
-    entries) to save backward a second sort of the whole list.
+    entries) to save backward a second sort of the whole list. With
+    WM_RASTER_GROUP > 1 the forward is K5 and the saved starts and counts
+    are the window-clamped ones, so K3 differentiates what K5 blended; the
+    JAX backward re-bins with the unclamped counts, so the two agree only
+    where no group overflows its window.
 
     Returns (img (H, W, D), alpha (H, W, 1), n_dropped (), n_isects ()).
     """
@@ -126,15 +154,15 @@ class RasterizeFlat(torch.autograd.Function):
                           tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
                           False, with_ids=True)
         d = colors.shape[-1]
-        img, alpha, t_fin, last = rasterize_flat(
-            bins.packed, bins.starts, bins.counts, width, height, tile_size, d,
-            False, with_state=True)
-        ctx.save_for_backward(bins.packed, bins.starts, bins.counts,
-                              bins.gauss_ids, t_fin, last)
+        (img, alpha, t_fin, last), starts, counts, n_dropped = blend_flat(
+            bins, width, height, tile_size, d, False, max_per_tile,
+            with_state=True)
+        ctx.save_for_backward(bins.packed, starts, counts, bins.gauss_ids,
+                              t_fin, last)
         ctx.dims = (width, height, tile_size, d, means2d.shape[0])
-        n_isects = bins.counts.sum()
-        ctx.mark_non_differentiable(bins.n_dropped, n_isects)
-        return img, alpha, bins.n_dropped, n_isects
+        n_isects = counts.sum()
+        ctx.mark_non_differentiable(n_dropped, n_isects)
+        return img, alpha, n_dropped, n_isects
 
     @staticmethod
     def backward(ctx, v_img, v_alpha, _drop, _isect):
@@ -148,12 +176,68 @@ class RasterizeFlat(torch.autograd.Function):
                 None, None, None, None, None, None, None)
 
 
+def depth_by_alpha(colors: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    """RGB+ED: the accumulated depth (last channel) over alpha."""
+    return torch.cat([colors[..., :-1],
+                      colors[..., -1:] / torch.clamp_min(alphas, 1e-10)], dim=-1)
+
+
+def bin_cameras(means, quats_xyzw, scales, opacities, colors, viewmats, Ks,
+                width: int, height: int, tile_size: int, max_per_tile: int,
+                max_tiles_per_gauss: int):
+    """Project all C cameras in one call, colour (SH per camera, + depth)
+    and bin them into one sorted f32 list (bin_gaussians_packed_multi) with
+    opacity-tight radii and the exact ellipse-tile test -> (bins, the
+    projection); the list's colour width is colors' + 1."""
+    C = viewmats.shape[0]
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    covars = projection.quat_scale_to_covar_planes(quats_xyzw, scales)
+    proj = projection.fully_fused_projection(means, covars, viewmats, Ks,
+                                             width, height)
+    op = opacities[None].expand(C, -1)
+    rad = tiles.opacity_tight_radii(proj.radii, op)
+    col = torch.cat([torch.stack([_colors(colors, means, viewmats[c])
+                                  for c in range(C)]),
+                     proj.depths[..., None]], dim=-1)
+    m2d, con = proj.means2d, proj.conics
+    values = ([m2d[..., 0], m2d[..., 1], con[..., 0], con[..., 1], con[..., 2], op]
+              + [col[..., i] for i in range(col.shape[-1])])
+    bins = tiles.bin_gaussians_packed_multi(
+        m2d, rad, proj.depths, values, tile_size, tw, th, max_tiles_per_gauss,
+        max_per_tile, conic_test=tiles.conic_test_planes(con, op))
+    return bins, proj
+
+
+def _rasterize_camera_batch(means, quats_xyzw, scales, opacities, colors,
+                            viewmats, Ks, width: int, height: int,
+                            tile_size: int, max_per_tile: int,
+                            max_tiles_per_gauss: int):
+    """The camera_batch route (the JAX function's `camera_batch` branch):
+    bin_cameras, then one K2m launch. meta["radii"] are the projection's
+    radii, not the tight ones, and meta["n_dropped"] is the one total
+    broadcast to (C,), as the JAX branch returns them."""
+    C = viewmats.shape[0]
+    bins, proj = bin_cameras(means, quats_xyzw, scales, opacities, colors,
+                             viewmats, Ks, width, height, tile_size,
+                             max_per_tile, max_tiles_per_gauss)
+    img, alpha = rasterize_flat_multi(bins.packed, bins.starts, bins.counts, C,
+                                      width, height, tile_size,
+                                      bins.packed.shape[0] - 6)
+    meta: Dict[str, torch.Tensor] = {
+        "radii": proj.radii, "means2d": proj.means2d, "depths": proj.depths,
+        "n_dropped": bins.n_dropped.expand(C),
+        "n_isects": bins.counts.reshape(C, -1).sum(dim=1)}
+    return depth_by_alpha(img, alpha), alpha, meta
+
+
 def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
               opacities: torch.Tensor, colors: torch.Tensor,
               viewmats: torch.Tensor, Ks: torch.Tensor, width: int, height: int,
               tile_size: int = 16, max_per_tile: int = 1024,
               max_tiles_per_gauss: int = 9, quat_order: str = "xyzw",
-              payload_f16: bool = False, abs_tap=None, device=None):
+              payload_f16: bool = False, abs_tap=None,
+              camera_batch: bool = False, device=None):
     """Render N splats into C pinhole cameras in RGB+ED (gsplat.rasterization's
     dense single-batch form). colors: (N, D) or SH (N, K, 3); viewmats
     (C, 4, 4) world->cam; Ks (C, 3, 3).
@@ -162,6 +246,10 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     when grad is enabled and one of them requires it; `abs_tap`, an (N, 2)
     tensor that requires grad and is shared by all cameras, then receives
     the summed AbsGS absgrad. The backward takes only the f32 payload.
+
+    `camera_batch=True` renders all cameras through one sort and one K2m
+    launch (_rasterize_camera_batch): forward only, so it raises on an input
+    that requires grad or an `abs_tap`, and it always bins the f32 payload.
 
     Runs on `device`: CUDA unless the caller passes one (on a machine
     without a GPU, device=None raises). Returns (colors (C, H, W, D + 1)
@@ -183,9 +271,16 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         for x in (means, quats, scales, opacities, colors, abs_tap))
     if train and payload_f16:
         raise ValueError("the rasterizer's backward takes only the f32 payload")
+    if camera_batch and (train or abs_tap is not None):
+        raise ValueError("camera_batch=True is forward only: it takes no input "
+                         "that requires grad and no abs_tap")
+    max_per_tile = _capped(max_per_tile, means.shape[0], max_tiles_per_gauss)
+    if camera_batch:
+        return _rasterize_camera_batch(means, quats, scales, opacities, colors,
+                                       viewmats, Ks, width, height, tile_size,
+                                       max_per_tile, max_tiles_per_gauss)
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
-    max_per_tile = _capped(max_per_tile, means.shape[0], max_tiles_per_gauss)
     covars = projection.quat_scale_to_covar_planes(quats, scales)
 
     outs = []
@@ -200,17 +295,14 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
             bins = bin_splats(m2d, con, col, opacities, rad, dep, tile_size,
                               tw, th, max_tiles_per_gauss, max_per_tile,
                               payload_f16)
-            img, alpha = rasterize_flat(bins.packed, bins.starts, bins.counts,
-                                        width, height, tile_size,
-                                        col.shape[-1], payload_f16)
-            n_drop, n_isect = bins.n_dropped, bins.counts.sum()
+            (img, alpha), _, counts, n_drop = blend_flat(
+                bins, width, height, tile_size, col.shape[-1], payload_f16,
+                max_per_tile)
+            n_isect = counts.sum()
         outs.append((img, alpha, n_drop, n_isect, rad, m2d, dep))
     (render_colors, render_alphas, drops, isects, radii, means2d,
      depths) = (torch.stack([o[i] for o in outs]) for i in range(7))
-    render_colors = torch.cat([
-        render_colors[..., :-1],
-        render_colors[..., -1:] / torch.clamp_min(render_alphas, 1e-10)], dim=-1)
     meta: Dict[str, torch.Tensor] = {
         "radii": radii, "means2d": means2d, "depths": depths,
         "n_dropped": drops, "n_isects": isects}
-    return render_colors, render_alphas, meta
+    return depth_by_alpha(render_colors, render_alphas), render_alphas, meta

@@ -1,0 +1,153 @@
+"""Dense-bin tile-rasterizer: forward kernel K4, its plain version, and the
+autograd Function whose backward replays the plain version.
+
+K4 replaces hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py `_kernel` (via
+`_forward_pallas` / `rasterize_binned_pallas`); the plain version is the JAX
+package's own pure route, ops/rasterizer.py `_blend_tile` /
+`rasterize_binned_jax`. Input is one camera's dense bins from
+ops/tiles.bin_gaussians: tile t blends splats gauss_ids[t, :counts[t]]
+front to back. The CUDA kernel is csrc/rasterize_binned_fwd.cu.
+"""
+
+import ctypes
+
+import torch
+
+from . import tiles
+from .rasterizer_flat import (ALPHA_THRESHOLD, T_EPS, _from_tiles,
+                              check_device, forward_outputs, launch,
+                              tile_groups)
+
+# the C entry's arguments before the trailing stream
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+
+
+def splat_table(means2d, conics, colors, opacities) -> torch.Tensor:
+    """(N, 6 + D) rows [mx, my, ca, cb, cc, op, colours] (the JAX route's
+    staging table, before its per-tile gather)."""
+    return torch.cat([means2d, conics, opacities[:, None], colors], dim=-1)
+
+
+def rasterize_binned_plain(means2d: torch.Tensor, conics: torch.Tensor,
+                           colors: torch.Tensor, opacities: torch.Tensor,
+                           bins: tiles.TileBins, width: int, height: int,
+                           tile_size: int):
+    """The JAX package's dense-bin blend (rasterizer.py `_blend_tile`) ->
+    (img (H, W, D), alpha (H, W, 1)), differentiable in every input: per
+    tile, alpha = min(0.999, op e^-sigma) kept iff sigma >= 0 and alpha >=
+    1/255, T in log space (exclusive cumsum of log1p(-alpha)), w = alpha T
+    where T after the entry > 1e-4. Tiles are blended in groups of at most
+    PLAIN_BUDGET plane elements, over the group's longest count (slots past
+    a tile's count have alpha 0 and change nothing)."""
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    P, D, dev = tile_size * tile_size, colors.shape[-1], means2d.device
+    lin = torch.arange(P, device=dev)
+    lx = (lin % tile_size).float() + 0.5
+    ly = (lin // tile_size).float() + 0.5
+    outs, alphas = [], []
+    for t0, t1, K in tile_groups(bins.counts, P):
+        if K == 0:
+            outs.append(means2d.new_zeros(t1 - t0, P, D))
+            alphas.append(means2d.new_zeros(t1 - t0, P))
+            continue
+        g = torch.arange(t0, t1, device=dev)
+        ids = bins.gauss_ids[t0:t1, :K].long()                          # (G, K)
+        live = torch.arange(K, device=dev)[None, :] < bins.counts[t0:t1, None]
+        px = ((g % tw) * tile_size).float()[:, None] + lx[None, :]       # (G, P)
+        py = ((g // tw) * tile_size).float()[:, None] + ly[None, :]
+        dx = px[:, None, :] - means2d[ids, 0][..., None]                 # (G, K, P)
+        dy = py[:, None, :] - means2d[ids, 1][..., None]
+        ca, cb, cc = (conics[ids, i][..., None] for i in range(3))
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        alpha = torch.clamp_max(opacities[ids][..., None] * torch.exp(-sigma), 0.999)
+        keep = (sigma >= 0) & (alpha >= ALPHA_THRESHOLD) & live[..., None]
+        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
+        lg = torch.log1p(-alpha)
+        t_before = torch.exp(torch.cumsum(lg, dim=1) - lg)
+        t_after = t_before * (1.0 - alpha)
+        w = torch.where(t_after > T_EPS, alpha * t_before, torch.zeros_like(alpha))
+        outs.append(torch.einsum("gkp,gkd->gpd", w, colors[ids]))
+        alphas.append(w.sum(dim=1))
+    img = _from_tiles(torch.cat(outs), width, height, tile_size)
+    alpha = _from_tiles(torch.cat(alphas), width, height, tile_size)
+    return img, alpha[..., None]
+
+
+def _check_bins(table, bins, width, height, tile_size, d_col):
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    if table.dtype != torch.float32 or table.shape[1:] != (6 + d_col,):
+        raise ValueError(f"table must be f32 (N, {6 + d_col}), got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    ids, counts = bins.gauss_ids, bins.counts
+    if ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != tw * th:
+        raise ValueError(f"gauss_ids must be int32 ({tw * th}, max_per_tile), got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    if counts.dtype != torch.int32 or counts.shape != (tw * th,):
+        raise ValueError(f"counts must be int32 ({tw * th},), got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if ids.device != table.device or counts.device != table.device:
+        raise ValueError(f"the bins must lie on {table.device}")
+    if not (1 <= d_col <= 8) or tile_size * tile_size > 1024:
+        raise ValueError(f"unsupported d_col={d_col} / tile_size={tile_size}")
+    return tw, th
+
+
+def rasterize_binned(means2d: torch.Tensor, conics: torch.Tensor,
+                     colors: torch.Tensor, opacities: torch.Tensor,
+                     bins: tiles.TileBins, width: int, height: int,
+                     tile_size: int):
+    """Blend one camera from its dense bins -> (img (H, W, D), alpha
+    (H, W, 1)), both f32; not differentiable (RasterizeBinned is).
+
+    A CPU tensor takes rasterize_binned_plain; a CUDA tensor launches kernel
+    K4 (counted in `rasterize_binned.launches`) or raises.
+    """
+    if check_device(means2d, "rasterize_binned"):
+        return rasterize_binned_plain(means2d, conics, colors, opacities, bins,
+                                      width, height, tile_size)
+    d_col = colors.shape[-1]
+    table = splat_table(means2d, conics, colors, opacities).float().contiguous()
+    tw, th = _check_bins(table, bins, width, height, tile_size, d_col)
+    ids, counts = bins.gauss_ids.contiguous(), bins.counts.contiguous()
+    img, alpha, _, _ = forward_outputs((), height, width, d_col, table.device)
+    launch("rasterize_binned_fwd", "rasterize_binned_fwd", _ARGS, table.device,
+           table.data_ptr(), ids.data_ptr(), counts.data_ptr(), img.data_ptr(),
+           alpha.data_ptr(), width, height, tile_size, tw, tw * th, d_col,
+           ids.shape[1])
+    rasterize_binned.launches += 1
+    return img, alpha
+
+
+rasterize_binned.launches = 0
+
+
+class RasterizeBinned(torch.autograd.Function):
+    """rasterize_binned with a gradient (the port of rasterizer_pallas's
+    custom VJP of rasterize_binned_pallas): forward is K4 (or the plain
+    version on the CPU); backward replays rasterize_binned_plain under
+    autograd, as the JAX backward replays rasterize_binned_jax through
+    jax.vjp. The JAX package has no backward kernel for this route, so
+    neither has the port. Differentiable in means2d (N, 2), conics (N, 3),
+    colors (N, D) and opacities (N,)."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, gauss_ids, counts,
+                width, height, tile_size):
+        bins = tiles.TileBins(gauss_ids, counts, None)
+        ctx.save_for_backward(means2d, conics, colors, opacities, gauss_ids,
+                              counts)
+        ctx.dims = (width, height, tile_size)
+        return rasterize_binned(means2d, conics, colors, opacities, bins,
+                                width, height, tile_size)
+
+    @staticmethod
+    def backward(ctx, v_img, v_alpha):
+        *params, gauss_ids, counts = ctx.saved_tensors
+        params = [p.detach().requires_grad_(True) for p in params]
+        with torch.enable_grad():
+            img, alpha = rasterize_binned_plain(
+                *params, tiles.TileBins(gauss_ids, counts, None), *ctx.dims)
+            grads = torch.autograd.grad((img, alpha), params, (v_img, v_alpha))
+        return (*grads, None, None, None, None, None)

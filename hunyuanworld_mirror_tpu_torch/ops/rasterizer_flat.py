@@ -1,16 +1,21 @@
-"""Flat tile-rasterizer: forward kernel K2, backward kernel K3, their plain
-versions, f16 packing.
+"""Flat tile-rasterizer: forward kernels K2, K2m and K5, backward kernel K3,
+their plain versions, f16 packing.
 
-K2 replaces hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py `_kernel_flat`
-(via `_forward_flat` / `rasterize_flat_pallas`, flat forward); K3 replaces
+All of them replace hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py
+kernels. K2 replaces `_kernel_flat` (via `_forward_flat` /
+`rasterize_flat_pallas`, flat forward); K2m the same kernel launched over C
+cameras (`_forward_flat_multi` / `rasterize_flat_pallas_multi`); K5
+`_kernel_flat_grouped` (`_forward_flat_grouped`, WM_RASTER_GROUP > 1); K3
 `_kernel_flat_bwd` (via `_backward_flat`, the custom VJP's backward). Input
 is the globally sorted, component-major intersection list of
-ops/tiles.bin_gaussians_packed: tile t blends entries
-[starts[t], starts[t] + counts[t]) of `packed` (V, M) front to back.
-The CUDA kernels are csrc/rasterize_flat_fwd.cu and csrc/rasterize_flat_bwd.cu.
+ops/tiles.bin_gaussians_packed (or bin_gaussians_packed_multi): tile t
+blends entries [starts[t], starts[t] + counts[t]) of `packed` (V, M) front
+to back. The CUDA kernels are csrc/rasterize_flat_fwd.cu (K2, K2m),
+csrc/rasterize_flat_grouped_fwd.cu (K5) and csrc/rasterize_flat_bwd.cu (K3).
 """
 
 import ctypes
+import os
 from typing import NamedTuple, Tuple
 
 import torch
@@ -85,6 +90,20 @@ class Blend(NamedTuple):
     w: torch.Tensor         # alpha T for the entries the blend keeps, else 0
 
 
+def tile_groups(counts: torch.Tensor, P: int):
+    """Consecutive tile ranges [t0, t1) whose (tiles, entries, pixels)
+    planes hold at most PLAIN_BUDGET elements, with their longest count."""
+    cnt = counts.tolist()
+    t0 = 0
+    while t0 < len(cnt):
+        t1, k = t0 + 1, cnt[t0]
+        while t1 < len(cnt) and (t1 - t0 + 1) * max(k, cnt[t1]) * P <= PLAIN_BUDGET:
+            k = max(k, cnt[t1])
+            t1 += 1
+        yield t0, t1, k
+        t0 = t1
+
+
 def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
                  f16):
     """Yield a Blend for each group of tiles of at most PLAIN_BUDGET plane
@@ -93,17 +112,14 @@ def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
     transmittance is an exclusive cumprod."""
     dev = packed.device
     tw = (width + tile_size - 1) // tile_size
-    th = (height + tile_size - 1) // tile_size
-    n_tiles, P, M = tw * th, tile_size * tile_size, packed.shape[1]
+    P, M = tile_size * tile_size, packed.shape[1]
     mx, my, ca, cb, cc, op, col = decode_payload(packed, d_col, f16)
     lin = torch.arange(P, device=dev)
     lx = (lin % tile_size).float() + 0.5
     ly = (lin // tile_size).float() + 0.5
-    cnt = counts.tolist()
 
-    def blend(group):
-        K = max(cnt[t] for t in group)
-        g = torch.as_tensor(group, device=dev)
+    def blend(t0, t1, K):
+        g = torch.arange(t0, t1, device=dev)
         ar = torch.arange(K, device=dev)
         live = ar[None, :] < counts[g].long()[:, None]                 # (G, K)
         idx = (starts[g].long()[:, None] + ar[None, :]).clamp(0, M - 1)
@@ -124,17 +140,9 @@ def blend_groups(packed, starts, counts, width, height, tile_size, d_col,
         return Blend(g, idx, live, params, col[:, idx], dx, dy, sigma, alpha,
                      t_before, w)
 
-    group, kmax = [], 0
-    for t in range(n_tiles):
-        k = max(kmax, cnt[t])
-        if group and (len(group) + 1) * k * P > PLAIN_BUDGET:
-            if kmax:
-                yield blend(group)
-            group, k = [], cnt[t]
-        group.append(t)
-        kmax = k
-    if group and kmax:
-        yield blend(group)
+    for t0, t1, K in tile_groups(counts, P):
+        if K:
+            yield blend(t0, t1, K)
 
 
 def _from_tiles(x: torch.Tensor, width: int, height: int, tile_size: int):
@@ -243,38 +251,138 @@ def rasterize_flat_bwd_plain(packed: torch.Tensor, starts: torch.Tensor,
     return entry, splat
 
 
-# --- kernel wrapper ---------------------------------------------------------
+# --- camera-batched and grouped lists (K2m, K5) ----------------------------
 
-def _library(name: str, argtypes):
-    lib = _build.load(name)
-    if name not in _SIGNATURES_SET:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _SIGNATURES_SET.add(name)
-    return lib
+def rasterize_flat_multi_plain(packed: torch.Tensor, starts: torch.Tensor,
+                               counts: torch.Tensor, n_cams: int, width: int,
+                               height: int, tile_size: int, d_col: int):
+    """rasterize_flat_plain for each camera of one camera-batched f32 list
+    (ops/tiles.bin_gaussians_packed_multi: camera c's tiles are segments
+    c * n_tiles .. (c + 1) * n_tiles - 1) -> (img (C, H, W, d_col),
+    alpha (C, H, W, 1))."""
+    n_tiles = starts.shape[0] // n_cams
+    outs = [rasterize_flat_plain(packed, starts[c * n_tiles:(c + 1) * n_tiles],
+                                 counts[c * n_tiles:(c + 1) * n_tiles], width,
+                                 height, tile_size, d_col, False)
+            for c in range(n_cams)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
+
+def raster_chunk() -> int:
+    """The TPU blend's chunk width, which sets the grouped windows:
+    WM_RASTER_CHUNK (512 unless set) rounded down to a multiple of 128, at
+    least 128 (rasterizer_pallas._raster_chunk)."""
+    c = int(os.environ.get("WM_RASTER_CHUNK", "512"))
+    return max(128, (c // 128) * 128)
+
+
+def group_windows(starts: torch.Tensor, counts: torch.Tensor, group: int,
+                  max_per_tile: int, M: int):
+    """Clamp each tile's segment to its group's window, as the TPU's grouped
+    forward does (rasterizer_pallas._group_windows on the list padded by
+    _forward_flat_grouped) -> (starts, counts) int32 (n_tiles,), and
+    extra_dropped () int64, the entries the clamp cut.
+
+    A group of `group` consecutive tiles reads one window of Wc chunks from
+    the chunk-aligned start of its first tile; a tile's entries past the
+    window are dropped, like the max_per_tile cap drops a saturated tile's
+    furthest splats. Only a saturated group overflows its window."""
+    chunk = raster_chunk()
+    n_tiles = starts.shape[0]
+    n_groups = -(-n_tiles // group)
+    win = (group * -(-max_per_tile // chunk) + 1) * chunk
+    M = M + (-M) % chunk + max(0, win - M)        # the padded list length
+    pad = n_groups * group - n_tiles
+    s = torch.cat([starts.long(), starts.new_full((pad,), M, dtype=torch.long)])
+    c = torch.cat([counts.long(), counts.new_zeros((pad,), dtype=torch.long)])
+    wbase = torch.clamp_max((s[::group] // chunk) * chunk, max(M - win, 0))
+    wbase_t = wbase.repeat_interleave(group)
+    wend_t = wbase_t + win
+    counts_w = torch.minimum(torch.clamp_min(wend_t - s, 0), c)
+    # tiles that start beyond their window (only after an overflow) read none
+    starts_w = torch.minimum(torch.maximum(s, wbase_t), wend_t)
+    extra = (c - counts_w).sum()
+    return (starts_w[:n_tiles].to(torch.int32), counts_w[:n_tiles].to(torch.int32),
+            extra)
+
+
+def rasterize_flat_grouped_plain(packed: torch.Tensor, starts: torch.Tensor,
+                                 counts: torch.Tensor, width: int, height: int,
+                                 tile_size: int, d_col: int, f16: bool,
+                                 with_state: bool = False):
+    """K5's function on window-clamped segments (group_windows): how many
+    tiles one block walks does not change what a tile blends, so this is
+    rasterize_flat_plain on the clamped list."""
+    return rasterize_flat_plain(packed, starts, counts, width, height,
+                                tile_size, d_col, f16, with_state)
+
+
+# --- kernel wrappers --------------------------------------------------------
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL, _I, _P]
-_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL, _P]
+# each C entry's arguments before the trailing stream
+_FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL, _I]
+_MULTI_ARGS = [_P] * 5 + [_I] * 7 + [_LL]
+_GROUPED_ARGS = [_P] * 7 + [_I] * 7 + [_LL, _I]
+_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL]
 
 
-def _check_list(packed, starts, counts, width, height, tile_size, d_col, V):
+def launch(source: str, fn: str, argtypes, dev: torch.device, *args) -> None:
+    """Call the C entry `fn` of csrc/<source>.cu on dev's current stream
+    (building the library at first use); raise if the launch was refused."""
+    f = getattr(_build.load(source), fn)
+    if fn not in _SIGNATURES_SET:
+        f.argtypes = list(argtypes) + [_P]
+        f.restype = ctypes.c_int
+        _SIGNATURES_SET.add(fn)
+    with torch.cuda.device(dev):
+        rc = f(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
+
+
+def check_device(x: torch.Tensor, fn: str) -> bool:
+    """True for a CPU tensor (the plain version runs), False for CUDA (the
+    kernel runs); anything else raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cuda or cpu, not {x.device}")
+    return x.device.type == "cpu"
+
+
+def _check_list(packed, starts, counts, width, height, tile_size, d_col, V,
+                n_cams=1):
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
     if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != V:
         raise ValueError(f"packed must be f32 ({V}, M), got {packed.dtype} "
                          f"{tuple(packed.shape)}")
     for name, t in (("starts", starts), ("counts", counts)):
-        if t.dtype != torch.int32 or t.shape != (tw * th,):
-            raise ValueError(f"{name} must be int32 ({tw * th},), got "
+        if t.dtype != torch.int32 or t.shape != (n_cams * tw * th,):
+            raise ValueError(f"{name} must be int32 ({n_cams * tw * th},), got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != packed.device:
             raise ValueError(f"{name} must lie on {packed.device}")
     if not (1 <= d_col <= 8) or tile_size * tile_size > 1024:
         raise ValueError(f"unsupported d_col={d_col} / tile_size={tile_size}")
     return tw, th
+
+
+def forward_outputs(lead: Tuple[int, ...], height: int, width: int, d_col: int,
+                    dev: torch.device, with_state: bool = False):
+    """Uninitialised outputs of a forward kernel: img (*lead, H, W, d_col),
+    alpha (*lead, H, W, 1), and with `with_state` the training planes
+    (final T f32, last kept entry int32, both (*lead, H, W)), else None."""
+    img = torch.empty(*lead, height, width, d_col, dtype=torch.float32, device=dev)
+    alpha = torch.empty(*lead, height, width, 1, dtype=torch.float32, device=dev)
+    if not with_state:
+        return img, alpha, None, None
+    return (img, alpha,
+            torch.empty(*lead, height, width, dtype=torch.float32, device=dev),
+            torch.empty(*lead, height, width, dtype=torch.int32, device=dev))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
@@ -285,41 +393,86 @@ def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
     alpha (H, W, 1)), both f32; `with_state` adds the final transmittance
     (H, W) and last kept entry (H, W) int32 that the backward reads.
 
-    A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches the
-    kernel (counted in `rasterize_flat.launches`) or raises.
+    A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches kernel
+    K2 (counted in `rasterize_flat.launches`) or raises.
     """
-    if packed.device.type == "cpu":
+    if check_device(packed, "rasterize_flat"):
         return rasterize_flat_plain(packed, starts, counts, width, height,
                                     tile_size, d_col, f16, with_state)
-    if packed.device.type != "cuda":
-        raise ValueError(f"rasterize_flat runs on cuda or cpu, not {packed.device}")
     tw, th = _check_list(packed, starts, counts, width, height, tile_size,
                          d_col, payload_rows(d_col, f16))
-    packed, starts, counts = (packed.contiguous(), starts.contiguous(),
-                              counts.contiguous())
-    dev = packed.device
-    img = torch.empty(height, width, d_col, dtype=torch.float32, device=dev)
-    alpha = torch.empty(height, width, 1, dtype=torch.float32, device=dev)
-    t_fin = last = None
-    if with_state:
-        t_fin = torch.empty(height, width, dtype=torch.float32, device=dev)
-        last = torch.empty(height, width, dtype=torch.int32, device=dev)
-    lib = _library("rasterize_flat_fwd", _FWD_ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rasterize_flat_fwd(
-            packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            img.data_ptr(), alpha.data_ptr(),
-            t_fin.data_ptr() if with_state else None,
-            last.data_ptr() if with_state else None, width, height, tile_size,
-            tw, tw * th, d_col, packed.shape[1], int(f16), stream)
-    if rc != 0:
-        raise RuntimeError(f"rasterize_flat_fwd kernel launch failed: CUDA error {rc}")
+    packed, starts, counts = (x.contiguous() for x in (packed, starts, counts))
+    img, alpha, t_fin, last = forward_outputs((), height, width, d_col,
+                                              packed.device, with_state)
+    launch("rasterize_flat_fwd", "rasterize_flat_fwd", _FWD_ARGS, packed.device,
+           packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+           img.data_ptr(), alpha.data_ptr(), _ptr(t_fin), _ptr(last), width,
+           height, tile_size, tw, tw * th, d_col, packed.shape[1], int(f16))
     rasterize_flat.launches += 1
     return (img, alpha, t_fin, last) if with_state else (img, alpha)
 
 
 rasterize_flat.launches = 0
+
+
+def rasterize_flat_multi(packed: torch.Tensor, starts: torch.Tensor,
+                         counts: torch.Tensor, n_cams: int, width: int,
+                         height: int, tile_size: int, d_col: int):
+    """Blend C cameras' tiles from one camera-batched f32 list in one launch
+    -> (img (C, H, W, d_col), alpha (C, H, W, 1)), both f32.
+
+    A CPU tensor takes rasterize_flat_multi_plain; a CUDA tensor launches
+    kernel K2m (counted in `rasterize_flat_multi.launches`) or raises.
+    """
+    if check_device(packed, "rasterize_flat_multi"):
+        return rasterize_flat_multi_plain(packed, starts, counts, n_cams, width,
+                                          height, tile_size, d_col)
+    tw, th = _check_list(packed, starts, counts, width, height, tile_size,
+                         d_col, payload_rows(d_col, False), n_cams)
+    packed, starts, counts = (x.contiguous() for x in (packed, starts, counts))
+    img, alpha, _, _ = forward_outputs((n_cams,), height, width, d_col,
+                                       packed.device)
+    launch("rasterize_flat_fwd", "rasterize_flat_multi_fwd", _MULTI_ARGS,
+           packed.device, packed.data_ptr(), starts.data_ptr(),
+           counts.data_ptr(), img.data_ptr(), alpha.data_ptr(), width, height,
+           tile_size, tw, tw * th, n_cams, d_col, packed.shape[1])
+    rasterize_flat_multi.launches += 1
+    return img, alpha
+
+
+rasterize_flat_multi.launches = 0
+
+
+def rasterize_flat_grouped(packed: torch.Tensor, starts: torch.Tensor,
+                           counts: torch.Tensor, width: int, height: int,
+                           tile_size: int, d_col: int, f16: bool, group: int,
+                           with_state: bool = False):
+    """rasterize_flat on window-clamped segments (group_windows), `group`
+    consecutive tiles to a block; same outputs as rasterize_flat.
+
+    A CPU tensor takes rasterize_flat_grouped_plain; a CUDA tensor launches
+    kernel K5 (counted in `rasterize_flat_grouped.launches`) or raises.
+    """
+    if check_device(packed, "rasterize_flat_grouped"):
+        return rasterize_flat_grouped_plain(packed, starts, counts, width, height,
+                                            tile_size, d_col, f16, with_state)
+    tw, th = _check_list(packed, starts, counts, width, height, tile_size,
+                         d_col, payload_rows(d_col, f16))
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    packed, starts, counts = (x.contiguous() for x in (packed, starts, counts))
+    img, alpha, t_fin, last = forward_outputs((), height, width, d_col,
+                                              packed.device, with_state)
+    launch("rasterize_flat_grouped_fwd", "rasterize_flat_grouped_fwd",
+           _GROUPED_ARGS, packed.device, packed.data_ptr(), starts.data_ptr(),
+           counts.data_ptr(), img.data_ptr(), alpha.data_ptr(), _ptr(t_fin),
+           _ptr(last), width, height, tile_size, tw, tw * th, group, d_col,
+           packed.shape[1], int(f16))
+    rasterize_flat_grouped.launches += 1
+    return (img, alpha, t_fin, last) if with_state else (img, alpha)
+
+
+rasterize_flat_grouped.launches = 0
 
 
 def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
@@ -337,12 +490,10 @@ def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
     `rasterize_flat_bwd.launches`), then scatters the entry rows to splats
     with index_add_, or raises. f16-pair payloads are refused.
     """
-    if packed.device.type == "cpu":
+    if check_device(packed, "rasterize_flat_bwd"):
         return rasterize_flat_bwd_plain(packed, starts, counts, gauss_ids,
                                         n_gauss, v_img, v_alpha, width, height,
                                         tile_size, d_col)
-    if packed.device.type != "cuda":
-        raise ValueError(f"rasterize_flat_bwd runs on cuda or cpu, not {packed.device}")
     tw, th = _check_list(packed, starts, counts, width, height, tile_size,
                          d_col, payload_rows(d_col, False))
     M, dev = packed.shape[1], packed.device
@@ -358,16 +509,11 @@ def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
         x.contiguous() for x in (packed, starts, counts, v_img, v_alpha,
                                  t_final, last))
     entry = torch.zeros(grad_rows(d_col), M, dtype=torch.float32, device=dev)
-    lib = _library("rasterize_flat_bwd", _BWD_ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rasterize_flat_bwd(
-            packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            v_img.data_ptr(), v_alpha.data_ptr(), t_final.data_ptr(),
-            last.data_ptr(), entry.data_ptr(), width, height, tile_size, tw,
-            tw * th, d_col, M, stream)
-    if rc != 0:
-        raise RuntimeError(f"rasterize_flat_bwd kernel launch failed: CUDA error {rc}")
+    launch("rasterize_flat_bwd", "rasterize_flat_bwd", _BWD_ARGS, dev,
+           packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+           v_img.data_ptr(), v_alpha.data_ptr(), t_final.data_ptr(),
+           last.data_ptr(), entry.data_ptr(), width, height, tile_size, tw,
+           tw * th, d_col, M)
     rasterize_flat_bwd.launches += 1
     splat = torch.zeros(grad_rows(d_col), n_gauss, dtype=torch.float32, device=dev)
     splat.index_add_(1, gauss_ids, entry)

@@ -1,13 +1,15 @@
-"""Tile binning: one camera's splats -> a (tile | depth)-sorted flat list.
+"""Tile binning: splats -> (tile | depth)-sorted intersection lists.
 
-Port of hunyuanworld_mirror_tpu/ops/tiles.py (the flat-list path). Every
-splat owns `max_tiles_per_gauss` (tile, splat) slots over its clamped tile
-box; slots outside the exact alpha >= 1/255 ellipse go to a sentinel tile.
-The blend order is the JAX package's, reproduced exactly: the i32 key
-`tile_id << depth_bits | depth_q` (depth quantized against the live
-[min, max]) with the flat slot index breaking ties. Here the two ride one
-int64 sort key, `key32 << 32 | flat_idx`, and the payload is gathered by the
-sorted index instead of riding the sort.
+Port of hunyuanworld_mirror_tpu/ops/tiles.py: the flat list of one camera
+(bin_gaussians_packed), of C cameras in one sort
+(bin_gaussians_packed_multi), and the dense per-tile id table
+(bin_gaussians). Every splat owns `max_tiles_per_gauss` (tile, splat) slots
+over its clamped tile box; slots outside the exact alpha >= 1/255 ellipse
+go to a sentinel tile. The blend order is the JAX package's, reproduced
+exactly: the i32 key `tile_id << depth_bits | depth_q` (depth quantized
+against the live [min, max]) with the flat slot index breaking ties. Here
+the two ride one int64 sort key, `key32 << 32 | flat_idx`, and the payload
+is gathered by the sorted index instead of riding the sort.
 """
 
 import math
@@ -17,6 +19,12 @@ import torch
 
 DEPTH_BITS = 20
 _CONIC_TEST_EPS = 1e-3
+
+
+class TileBins(NamedTuple):
+    gauss_ids: torch.Tensor  # (n_tiles, max_per_tile) int32 splat ids
+    counts: torch.Tensor     # (n_tiles,) int32 live slots per tile
+    n_dropped: torch.Tensor  # () int64 - intersections beyond the caps
 
 
 class FlatBins(NamedTuple):
@@ -122,6 +130,41 @@ def _isect_keys(means2d, radii, depths, tile_size, tile_width, tile_height,
     return (tile_id << depth_bits) | depth_q[None, :], n_cover, valid
 
 
+def _sort_slots(key: torch.Tensor):
+    """Sort the slots' i32 keys, the flat slot index breaking ties ->
+    (sorted keys int64, sorted slot indices int64)."""
+    flat_idx = torch.arange(key.numel(), dtype=torch.int64, device=key.device)
+    sort_key, _ = torch.sort((key.reshape(-1).to(torch.int64) << 32) | flat_idx)
+    return sort_key >> 32, sort_key & 0xFFFFFFFF
+
+
+def _segments(key32: torch.Tensor, cells: torch.Tensor, db: int,
+              max_per_tile: int, keep=None):
+    """Each cell's segment of the sorted keys: cells (Q,) int64 are key
+    prefixes, the segment of cell q running from the first key >= cells[q]
+    << db to the first >= cells[q + 1] << db. `keep` (Q - 1,) bool selects
+    segments -> (starts, counts clamped to max_per_tile, entries the clamp
+    cut), int64."""
+    edges = torch.searchsorted(key32, cells << db)
+    starts, counts_full = edges[:-1], edges[1:] - edges[:-1]
+    if keep is not None:
+        starts, counts_full = starts[keep], counts_full[keep]
+    counts = torch.clamp_max(counts_full, max_per_tile)
+    return starts, counts, torch.sum(counts_full - counts)
+
+
+def _lost_to_tpg(n_cover, valid, TPG):
+    """Intersections beyond the max_tiles_per_gauss slots of each splat."""
+    return torch.sum(torch.clamp_min(n_cover - TPG, 0) * valid)
+
+
+def _gather(values: Sequence[torch.Tensor], index: torch.Tensor) -> torch.Tensor:
+    """(V, len(index)) payload: the planes' bit patterns gathered as int32,
+    so packed f16 pairs pass through untouched."""
+    planes = torch.stack([v.reshape(-1) for v in values]).contiguous()
+    return planes.view(torch.int32)[:, index].view(torch.float32)
+
+
 def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
                          depths: torch.Tensor, values: Sequence[torch.Tensor],
                          tile_size: int, tile_width: int, tile_height: int,
@@ -139,21 +182,92 @@ def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
     key, n_cover, valid = _isect_keys(means2d, radii, depths, tile_size,
                                       tile_width, tile_height, TPG, db,
                                       conic_test)
-    flat_idx = torch.arange(N * TPG, dtype=torch.int64, device=means2d.device)
-    sort_key, _ = torch.sort((key.reshape(-1).to(torch.int64) << 32) | flat_idx)
-    key32 = sort_key >> 32
-    gauss = (sort_key & 0xFFFFFFFF) % N
+    key32, slot = _sort_slots(key)
+    gauss = slot % N
+    cells = torch.arange(n_tiles + 1, dtype=torch.int64, device=means2d.device)
+    starts, counts, clamped = _segments(key32, cells, db, max_per_tile)
+    n_dropped = clamped + _lost_to_tpg(n_cover, valid, TPG)
+    return FlatBins(_gather(values, gauss), starts.to(torch.int32),
+                    counts.to(torch.int32), n_dropped,
+                    gauss.to(torch.int32) if with_ids else None)
 
-    queries = torch.arange(n_tiles + 1, dtype=torch.int64,
-                           device=means2d.device) << db
-    edges = torch.searchsorted(key32, queries)
-    starts = edges[:-1]
-    counts_full = edges[1:] - starts
-    counts = torch.clamp_max(counts_full, max_per_tile)
-    n_dropped = (torch.sum(counts_full - counts)
-                 + torch.sum(torch.clamp_min(n_cover - TPG, 0) * valid))
-    # gather bit patterns as int32 so packed f16 pairs pass through untouched
-    planes = torch.stack(list(values)).contiguous().view(torch.int32)
-    packed = planes[:, gauss].view(torch.float32)
-    return FlatBins(packed, starts.to(torch.int32), counts.to(torch.int32),
-                    n_dropped, gauss.to(torch.int32) if with_ids else None)
+
+def multi_camera_depth_bits(n_cams: int, n_tiles: int) -> int:
+    """Depth bits so (cam * (n_tiles + 1) + tile) << db | depth_q fits
+    int31: 20 while it fits, fewer as cameras multiply the tile ids (18 at
+    4 cameras of 1089 tiles)."""
+    db = min(DEPTH_BITS, int(math.floor(math.log2(
+        (2 ** 31 - 1) / (n_cams * (n_tiles + 1))))))
+    if db < 10:
+        raise ValueError(f"{n_cams} cameras x {n_tiles} tiles leaves {db} depth "
+                         "bits (<10); batch fewer cameras")
+    return db
+
+
+def bin_gaussians_packed_multi(means2d: torch.Tensor, radii: torch.Tensor,
+                               depths: torch.Tensor,
+                               values: Sequence[torch.Tensor], tile_size: int,
+                               tile_width: int, tile_height: int,
+                               max_tiles_per_gauss: int = 9,
+                               max_per_tile: int = 1024,
+                               conic_test=None) -> FlatBins:
+    """bin_gaussians_packed for C cameras in one sort: means2d (C, N, 2),
+    radii (C, N, 2), depths (C, N), V payload planes (C, N), conic_test
+    planes (C, N). Keys are (cam (n_tiles + 1) + tile) << db | depth_q, each
+    camera's depth quantized against its own live [min, max].
+
+    Returns one packed (V, C*TPG*N) list; starts and counts are camera-major
+    (camera c's tile t at c * n_tiles + t), n_dropped is one total over the
+    cameras.
+    With only db = multi_camera_depth_bits(C, n_tiles) depth bits (18 at 4
+    cameras of 1089 tiles, against 20 for one camera) splats whose depths
+    tie at db bits may blend in another order than the per-camera list's.
+    """
+    C, N = depths.shape
+    n_tiles = tile_width * tile_height
+    TPG = max_tiles_per_gauss
+    db = multi_camera_depth_bits(C, n_tiles)
+    keys, lost = [], 0
+    for c in range(C):
+        ct = None if conic_test is None else tuple(p[c] for p in conic_test)
+        key, n_cover, valid = _isect_keys(means2d[c], radii[c], depths[c],
+                                          tile_size, tile_width, tile_height,
+                                          TPG, db, ct)
+        keys.append(key + ((c * (n_tiles + 1)) << db))
+        lost = lost + _lost_to_tpg(n_cover, valid, TPG)
+    key32, slot = _sort_slots(torch.stack(keys))        # slots (C, TPG, N)
+    # camera c's tile t is cell c (n_tiles + 1) + t; its sentinel cell
+    # closes its last tile and has no segment of its own
+    cells = torch.arange(C * (n_tiles + 1), dtype=torch.int64,
+                         device=means2d.device)
+    starts, counts, clamped = _segments(key32, cells, db, max_per_tile,
+                                        keep=cells[:-1] % (n_tiles + 1) != n_tiles)
+    n_dropped = clamped + lost
+    # slot (c, k, n) carries camera c's payload of splat n
+    return FlatBins(_gather(values, slot // (TPG * N) * N + slot % N),
+                    starts.to(torch.int32), counts.to(torch.int32), n_dropped)
+
+
+def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor,
+                  depths: torch.Tensor, tile_size: int, tile_width: int,
+                  tile_height: int, max_tiles_per_gauss: int = 9,
+                  max_per_tile: int = 1024, conic_test=None) -> TileBins:
+    """Bin one camera's N projected splats into the dense per-tile table:
+    gauss_ids (n_tiles, max_per_tile), tile t's first counts[t] slots its
+    splats front to back. Slot k of tile t reads sorted entry
+    min(starts[t] + k, N*TPG - 1), so the slots past the count hold ids of
+    later tiles, masked by `counts`, as in the JAX table."""
+    N = means2d.shape[0]
+    n_tiles = tile_width * tile_height
+    TPG = max_tiles_per_gauss
+    db = depth_bits_for(n_tiles)
+    key, n_cover, valid = _isect_keys(means2d, radii, depths, tile_size,
+                                      tile_width, tile_height, TPG, db,
+                                      conic_test)
+    key32, slot = _sort_slots(key)
+    cells = torch.arange(n_tiles + 1, dtype=torch.int64, device=means2d.device)
+    starts, counts, clamped = _segments(key32, cells, db, max_per_tile)
+    idx = torch.clamp_max(starts[:, None] + torch.arange(
+        max_per_tile, device=means2d.device)[None, :], N * TPG - 1)
+    return TileBins((slot % N).to(torch.int32)[idx], counts.to(torch.int32),
+                    clamped + _lost_to_tpg(n_cover, valid, TPG))

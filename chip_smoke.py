@@ -53,7 +53,7 @@ Phases (any failure exits non-zero before the last line is printed):
      0 K2 and 4 K3 launches a step, the losses within 1e-5 relative,
      n_dropped equal (the window clamp cut nothing, so K3 read the same
      counts K5 blended);
- 11. K4 (rasterize_binned_fwd): `render_local_cameras(impl="pallas")`, the
+ 11. K4 (rasterize_binned_fwd): `render_local_cameras`, the
      per-rank body of the multi-device render, on phase 5's splats and 4
      cameras with the render's caps (untightened radii, 1089 x 4096 id
      table per camera): 4 K4 launches, K4 against its plain version (the
@@ -833,11 +833,10 @@ def phase_k4(preds):
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned as B
     means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
     covars = projection.quat_scale_to_covar_planes(quats, scales)
-    proj = distributed.project_for_cameras(means, covars, opac, sh, w2c, Ks, HW, HW,
-                                           sh_degree=0)
+    proj = distributed.project_for_cameras(means, covars, opac, sh, w2c, Ks, HW, HW)
     B.rasterize_binned.launches = 0
     out, alpha = distributed.render_local_cameras(*proj, HW, HW, 16, RENDER_MPT,
-                                                  RENDER_TPG, "pallas")
+                                                  RENDER_TPG)
     torch.cuda.synchronize()
     launches = B.rasterize_binned.launches
     if launches != 4 or not torch.isfinite(out).all():

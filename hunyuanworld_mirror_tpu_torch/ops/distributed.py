@@ -13,40 +13,25 @@ exact ellipse-tile test, and colours and alpha only (no meta). It renders
 RGB+ED, the only mode the port's renders use.
 """
 
-from typing import Optional
-
 import torch
 
-from ..utils import sh as sh_utils
 from . import projection, tiles
-from .rasterizer import depth_by_alpha
-from .rasterizer_binned import RasterizeBinned, rasterize_binned_plain
+from .rasterizer import _colors, depth_by_alpha
+from .rasterizer_binned import RasterizeBinned
 
 
 def project_for_cameras(means: torch.Tensor, covars, opacities: torch.Tensor,
                         colors: torch.Tensor, viewmats: torch.Tensor,
-                        Ks: torch.Tensor, width: int, height: int,
-                        sh_degree: Optional[int] = None):
+                        Ks: torch.Tensor, width: int, height: int):
     """Project N splats (covars: the six planes) for all C cameras ->
     (means2d (C, N, 2), conics (C, N, 3), depths (C, N), radii (C, N, 2),
-    colours (C, N, D), opacities (C, N)). With `sh_degree`, colors are SH
-    (N, K, 3) evaluated toward each camera, + 0.5 and clamped at 0."""
+    colours (C, N, D), opacities (C, N)). colors are (N, D), or SH
+    (N, K, 3) coloured toward each camera as the render does."""
     proj = projection.fully_fused_projection(means, covars, viewmats, Ks,
                                              width, height)
-    C = viewmats.shape[0]
-    if sh_degree is not None:
-        cols = []
-        for c in range(C):
-            cam_t = -torch.einsum("ij,i->j", viewmats[c, :3, :3], viewmats[c, :3, 3])
-            dirs = means - cam_t[None, :]
-            dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True),
-                                          1e-8)
-            cols.append(torch.clamp_min(
-                sh_utils.eval_sh(sh_degree, colors.transpose(-1, -2), dirs) + 0.5, 0.0))
-        col = torch.stack(cols)
-    else:
-        col = colors[None].expand(C, *colors.shape)
-    op = opacities[None].expand(C, *opacities.shape)
+    col = torch.stack([_colors(colors, means, viewmats[c])
+                       for c in range(viewmats.shape[0])])
+    op = opacities[None].expand(viewmats.shape[0], *opacities.shape)
     return proj.means2d, proj.conics, proj.depths, proj.radii, col, op
 
 
@@ -65,28 +50,21 @@ def bin_local_camera(m2d, con, dep, rad, col, op, width: int, height: int,
 
 def render_local_cameras(m2d, con, dep, rad, col, op, width: int, height: int,
                          tile_size: int = 16, max_per_tile: int = 1024,
-                         max_tiles_per_gauss: int = 9, impl: str = "pallas"):
+                         max_tiles_per_gauss: int = 9):
     """Bin (bin_local_camera) and blend each local camera over all splats in
-    RGB+ED; every input (C_local, N, ...) as project_for_cameras returns
-    them. impl="pallas" runs kernel K4 (RasterizeBinned), impl="jax" its
-    plain version -> (colours with the depth over alpha last
-    (C, H, W, D + 1), alphas (C, H, W, 1))."""
-    if impl not in ("pallas", "jax"):
-        raise ValueError(f"unknown impl {impl!r}")
+    RGB+ED with kernel K4 (RasterizeBinned: its plain version on the CPU);
+    every input (C_local, N, ...) as project_for_cameras returns them ->
+    (colours with the depth over alpha last (C, H, W, D + 1), alphas
+    (C, H, W, 1))."""
     outs, alphas = [], []
     for c in range(m2d.shape[0]):
         colors, bins = bin_local_camera(m2d[c], con[c], dep[c], rad[c], col[c],
                                         op[c], width, height, tile_size,
                                         max_per_tile, max_tiles_per_gauss)
-        if impl == "pallas":
-            img, alpha = RasterizeBinned.apply(m2d[c], con[c], colors, op[c],
-                                               bins.gauss_ids, bins.counts,
-                                               width, height, tile_size)
-        else:
-            img, alpha = rasterize_binned_plain(m2d[c], con[c], colors, op[c],
-                                                bins, width, height, tile_size)
+        img, alpha = RasterizeBinned.apply(m2d[c], con[c], colors, op[c],
+                                           bins.gauss_ids, bins.counts,
+                                           width, height, tile_size)
         outs.append(img)
         alphas.append(alpha)
     alpha = torch.stack(alphas)
     return depth_by_alpha(torch.stack(outs), alpha), alpha
-

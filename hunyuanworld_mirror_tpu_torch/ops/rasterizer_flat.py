@@ -306,15 +306,9 @@ def group_windows(starts: torch.Tensor, counts: torch.Tensor, group: int,
             extra)
 
 
-def rasterize_flat_grouped_plain(packed: torch.Tensor, starts: torch.Tensor,
-                                 counts: torch.Tensor, width: int, height: int,
-                                 tile_size: int, d_col: int, f16: bool,
-                                 with_state: bool = False):
-    """K5's function on window-clamped segments (group_windows): how many
-    tiles one block walks does not change what a tile blends, so this is
-    rasterize_flat_plain on the clamped list."""
-    return rasterize_flat_plain(packed, starts, counts, width, height,
-                                tile_size, d_col, f16, with_state)
+# K5's plain version: how many tiles one block walks does not change what a
+# tile blends, so it is rasterize_flat_plain on the window-clamped list.
+rasterize_flat_grouped_plain = rasterize_flat_plain
 
 
 # --- kernel wrappers --------------------------------------------------------

@@ -4,18 +4,26 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the three CUDA kernels (csrc/*.cu) compiled from this checkout,
+  2. build: the five CUDA sources (csrc/*.cu) compiled from this checkout,
+     and K1 a second time without its ping-pong turns (-DK1_PINGPONG=0),
      the nvcc processes started together;
-  3. K1 (attention_fwd) against its plain version at the shapes of the main
-     path, plus a ragged N;
+  3. K1 (attention_fwd) against its plain version: the ptxas report (no
+     C7508, no spills); the main path's shapes, timed (kernel, plain, SDPA,
+     bound, and, both launched through the C entry alone, this build in
+     turns with K1 built without the ping-pong turns); the ragged and
+     tile-edge N (37, 127, 129, 130, 193, 4097), D = 128 bf16, the encoder's
+     q/k/v as views of one fused qkv, the trunk's q/k (LayerNorm, RoPE) and
+     strided v, and 3 batches whose middle one has 100x keys and values,
+     each batch held to its own band;
   4. K2 (rasterize_flat_fwd) against its plain version on a synthetic 518 px
      scene of ~500k splats, f32 and f16-pair payloads;
   5. the main path through the CLI's `run(...)`: the `large` preset (ViT-L
      trunk, width 1024, 24 + 24 blocks, all five heads, the Gaussian render)
      at B=1, S=4, 518 px, random weights from a seed, fixed cameras: one
-     `run` with the kernels' launch counts (88 attention and 4 rasterizer
-     launches) and the peak memory; then one model from `load_model`, one
-     warm-up and 7 timed forwards through `reconstruct`, with the per-phase
+     `run` with the kernels' launch counts (88 attention launches, 24 of
+     them at N >= 4096, and 4 rasterizer launches) and the peak memory;
+     then one model from `load_model`, one warm-up and 7 timed forwards
+     through `reconstruct`, with the per-phase
      time; then K2 against its plain version on the main path's own
      intersection lists;
   6. the port on the card against the same port on the CPU (plain versions)
@@ -64,7 +72,10 @@ then a `kernels` JSON line, the card line, and as the last line
 Times are CUDA-event times after a warm-up. `bound_ms` is the larger of the
 bytes the function must move over 3.35 TB/s and its operations over the
 card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32; the
-H100 SXM data sheet). The rasterizers' operations are counted on the plain
+H100 SXM data sheet). K1 has two entries in the `kernels` line, one per
+JAX route it replaces: N <= 4095 (the one-pass kernel: encoder, frame
+layers, camera head) and N >= 4096 (the flash kernel: global layers). The
+rasterizers' operations are counted on the plain
 replay of this run's list (blend_pairs): every (pixel, entry) pair the blend
 tests pays TEST_FLOPS, and the pairs that pass the keep test pay
 K2_FLOPS_PER_KEPT or K3_FLOPS_PER_KEPT instead. K2 tests, per in-image
@@ -87,6 +98,7 @@ splat row, its operations those of the same blend replayed as a flat list.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -135,12 +147,24 @@ def phase_device():
     return name, smi
 
 
+# K1 built without its ping-pong turns (-DK1_PINGPONG=0), for phase 3's ablation
+NO_PINGPONG_LIB = "libattention_fwd_no_pingpong.so"
+
+
 def phase_build():
     from hunyuanworld_mirror_tpu_torch.ops import _build
     t0 = time.time()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    no_pingpong = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DK1_PINGPONG=0", "-o",
+         str(_build.BUILD_DIR / NO_PINGPONG_LIB), str(_build.CSRC / "attention_fwd.cu")],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
                             "rasterize_flat_bwd", "rasterize_flat_grouped_fwd",
                             "rasterize_binned_fwd"])
+    if no_pingpong.wait(timeout=600) != 0:
+        raise RuntimeError(f"nvcc failed for K1 without the ping-pong turns:\n"
+                           f"{no_pingpong.stderr.read()}")
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -152,7 +176,9 @@ def phase_build():
 
 # --- K1 ---------------------------------------------------------------------
 
-# (label, (B, N, H, D), dtype, launches per forward on the main path)
+# (label, (B, N, H, D), dtype, launches per forward on the main path). The
+# JAX route a shape stands for follows N: K1a the one-pass kernel
+# (N <= 4095), K1b the flash kernel (N >= 4096).
 K1_SHAPES = [
     ("encoder", (4, 1374, 16, 64), torch.bfloat16, 24),
     ("frame", (4, 1376, 16, 64), torch.bfloat16, 24),
@@ -160,7 +186,19 @@ K1_SHAPES = [
     ("camera_head", (1, 4, 16, 128), torch.float32, 16),
     ("ragged", (2, 37, 16, 64), torch.bfloat16, 0),
     ("ragged_d128", (3, 130, 4, 128), torch.bfloat16, 0),
+    ("n127", (1, 127, 16, 64), torch.bfloat16, 0),
+    ("n129", (1, 129, 16, 64), torch.bfloat16, 0),
+    ("n193", (1, 193, 16, 64), torch.bfloat16, 0),
+    ("n4097", (1, 4097, 16, 64), torch.bfloat16, 0),
+    ("d128_n300", (2, 300, 8, 128), torch.bfloat16, 0),
 ]
+
+
+def k1_route(n):
+    from hunyuanworld_mirror_tpu_torch.ops.attention import FLASH_MIN_N
+    return "K1b" if n >= FLASH_MIN_N else "K1a"
+
+
 # max|kernel - plain| <= this share of max|plain|: 2^-6 is at most 4 ulps at
 # the largest output for bf16, 2^-16 for f32 (ragged N and a skipped K/V
 # tile move the output far more).
@@ -175,37 +213,151 @@ def k1_bound_ms(shape, dtype):
     return max(flops / rate, byts / HBM_BYTES_PER_S) * 1e3
 
 
-def phase_k1():
+def k1_check(label, q, k, v, per_batch=False):
+    """K1 against its plain version within the band -> max|d|; with
+    per_batch each batch is held to the band of its own max|plain|."""
     from hunyuanworld_mirror_tpu_torch.ops import attention as A
+    scale = q.shape[-1] ** -0.5
+    out = A.attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = A.attention_plain(q, k, v, scale).float()
+    d = (out.float() - ref).abs()
+    if per_batch:
+        err = d.flatten(1).amax(1)
+        band = K1_REL_BAND[q.dtype] * ref.abs().flatten(1).amax(1)
+    else:
+        err, band = d.max(), K1_REL_BAND[q.dtype] * ref.abs().max()
+    ok = bool((err <= band).all()) and bool(torch.isfinite(out).all())
+    err, band = err.tolist(), band.tolist()
+    log(f"K1 {label:12s} {str(tuple(q.shape)):22s} {str(q.dtype)[6:]:8s} "
+        f"strides {tuple(q.stride())}/{tuple(k.stride())}/{tuple(v.stride())}  "
+        f"max|d| {err} (band {band})")
+    if not ok:
+        raise AssertionError(f"K1 {label} {tuple(q.shape)}: max|d| {err} > {band}")
+    return max(err) if per_batch else err
+
+
+def trunk_qkv(gen):
+    """q, k, v of a frame layer as models/block.Attention.forward makes
+    them: the fused qkv projection's views, q_norm / k_norm, and the 2D RoPE
+    with the large preset's frame tables (7 special tokens + 37 x 37
+    patches), at (4, 1376, 16, 64) bf16."""
+    from hunyuanworld_mirror_tpu_torch.models import block, nn as pnn, rope
+    B, N, C, H = 4, 1376, 1024, 16
+    attn = block.Attention(C, H, qk_norm=True)
+    pnn.init_weights(attn, torch.Generator().manual_seed(5))
+    attn = attn.to("cuda", torch.bfloat16)
+    x = torch.randn(B, N, C, generator=gen, device="cuda").to(torch.bfloat16)
+    tables = rope.make_rope_tables(rope.grid_positions(37, 37, N - 37 * 37), C // H,
+                                   device="cuda")
+    with torch.no_grad():
+        q, k, v = attn.qkv(x).reshape(B, N, 3, H, C // H).unbind(2)
+        q, k = attn.q_norm(q), attn.k_norm(k)
+        q, k = rope.apply_rope2d(q, tables), rope.apply_rope2d(k, tables)
+    return q, k, v
+
+
+def k1_no_pingpong_lib():
+    """K1 built with -DK1_PINGPONG=0 (phase_build), for the ablation."""
+    import ctypes
+    from hunyuanworld_mirror_tpu_torch.ops import _build
+    lib = ctypes.CDLL(str(_build.BUILD_DIR / NO_PINGPONG_LIB))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, i] + [ll] * 9 + [ctypes.c_float, i, p]
+    return lib
+
+
+def k1_raw_run(lib, q, k, v, o, scale):
+    """One bf16 launch of a K1 library's C entry, without the wrapper's host
+    work, so that two builds are timed alike."""
+    rc = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           *q.shape, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                           scale, 1, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 raw launch: CUDA error {rc}")
+
+
+def phase_k1():
+    """K1 against its plain version: the main path's shapes (timed: kernel,
+    plain, SDPA, bound, and in turns the kernel built without the ping-pong
+    turns), the ragged and tile-edge N, D = 128, the encoder's fused-qkv
+    views, the trunk's q/k/v, and a batch whose keys and values are 100x its
+    neighbours' -> per-route totals for the `kernels` line."""
+    from hunyuanworld_mirror_tpu_torch.ops import _build
+    from hunyuanworld_mirror_tpu_torch.ops import attention as A
+    report = (_build.BUILD_DIR / "attention_fwd.ptxas.txt").read_text()
+    for line in report.splitlines():
+        if "Used" in line or "spill" in line or "C75" in line or "warning" in line:
+            log(f"  ptxas attention_fwd: {line.strip()}")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    if "C7508" in report or any(spills):
+        raise AssertionError("K1: setmaxnreg ignored (C7508) or registers spilled")
+
+    no_pingpong = k1_no_pingpong_lib()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    routes = {r: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+              for r in ("K1a", "K1b")}
+
+    def note_err(n, err):
+        routes[k1_route(n)]["err"] = max(routes[k1_route(n)]["err"], err)
+
     for label, shape, dtype, per_fwd in K1_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
+        note_err(shape[1], k1_check(label, q, k, v))
+        if not per_fwd:
+            continue
         scale = shape[-1] ** -0.5
-        out = A.attention(q, k, v, scale)
-        torch.cuda.synchronize()
-        ref = A.attention_plain(q, k, v, scale)
-        err = float((out.float() - ref.float()).abs().max())
-        band = K1_REL_BAND[dtype] * float(ref.float().abs().max())
-        if not (err <= band) or not torch.isfinite(out).all():
-            raise AssertionError(f"K1 {label} {shape}: max|d| {err} > {band}")
         ms = cuda_ms(lambda: A.attention(q, k, v, scale))
+        if dtype == torch.bfloat16:
+            # the two builds launched alike, in turns after a warm-up of
+            # both: port, no ping-pong, no ping-pong, port
+            o = torch.empty_like(q)
+            raw = lambda: k1_raw_run(A._library(), q, k, v, o, scale)
+            nopp = lambda: k1_raw_run(no_pingpong, q, k, v, o, scale)
+            cuda_ms(raw, reps=1, warmup=20)
+            cuda_ms(nopp, reps=1, warmup=20)
+            raw_ms = cuda_ms(raw, reps=20)
+            nopp_ms = (cuda_ms(nopp, reps=20) + cuda_ms(nopp, reps=20)) / 2
+            raw_ms = (raw_ms + cuda_ms(raw, reps=20)) / 2
         plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, scale), reps=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, scale=scale))
         bound = k1_bound_ms(shape, dtype)
-        log(f"K1 {label:12s} {str(tuple(shape)):22s} {str(dtype)[6:]:8s} "
-            f"max|d| {err:.3e} (band {band:.3e})  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms")
-        totals["err"] = max(totals["err"], err)
+        flops = 4.0 * shape[0] * shape[2] * shape[1] ** 2 * shape[3]
+        log(f"K1 {label:12s} kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s)  "
+            f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  kernel/sdpa "
+            f"{ms / lib_ms:.3f}  bound {bound:.4f} ms"
+            + (f"  launched alike: this build {raw_ms:.4f} ms, without the "
+               f"ping-pong turns {nopp_ms:.4f} ms" if dtype == torch.bfloat16 else ""))
+        tot = routes[k1_route(shape[1])]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", bound)):
-            totals[key] += per_fwd * val
-        del q, k, v, ref, out, qt, kt, vt
+            tot[key] += per_fwd * val
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return totals
+
+    # the encoder's q, k, v: views of one fused qkv, N-stride 3 C
+    x = torch.randn(4, 1374, 3, 16, 64, generator=gen, device="cuda").bfloat16()
+    note_err(1374, k1_check("fused_views", *x.unbind(2)))
+    # the trunk's: q and k normed and rotated (contiguous), v the strided view
+    note_err(1376, k1_check("trunk_qkv", *trunk_qkv(gen)))
+    # a read across the batch boundary would carry batch 1's 100x keys into
+    # batches 0 and 2 and leave their own bands (the 100x batch's error is
+    # left out of the kernels line's max_abs_err)
+    q, k, v = (torch.randn(3, 1374, 16, 64, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    k[1] *= 100
+    v[1] *= 100
+    k1_check("batch_bleed", q, k, v, per_batch=True)
+    del x, q, k, v
+    torch.cuda.empty_cache()
+    for name, r in routes.items():
+        log(f"K1 {name} per forward: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.2f} ms  "
+            f"sdpa {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  "
+            f"max|d| {r['err']:.3e}")
+    return routes
 
 
 # --- K2 ---------------------------------------------------------------------
@@ -373,19 +525,22 @@ def phase_main_path():
     imgs = np.random.default_rng(0).uniform(size=(1, S, HW, HW, 3)).astype(np.float32)
     cams = fixed_cameras(S)
     torch.cuda.reset_peak_memory_stats()
-    attention.launches = rasterizer_flat.rasterize_flat.launches = 0
+    attention.launches = attention.flash_route_launches = 0
+    rasterizer_flat.rasterize_flat.launches = 0
     t0 = time.time()
     preds = run(imgs, cfg, camera_params=cams)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"attention_fwd": attention.launches,
+                "attention_fwd_flash_route": attention.flash_route_launches,
                 "rasterize_flat_fwd": rasterizer_flat.rasterize_flat.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path run: {wall:.2f} s wall incl. model build and first use; "
         f"peak memory {peak_gb:.2f} GB; launches {launches}")
-    if launches != {"attention_fwd": 88, "rasterize_flat_fwd": 4}:
-        raise AssertionError(f"expected 88 attention and 4 rasterizer launches "
-                             f"per forward, got {launches}")
+    if launches != {"attention_fwd": 88, "attention_fwd_flash_route": 24,
+                    "rasterize_flat_fwd": 4}:
+        raise AssertionError(f"expected 88 attention launches (24 at N >= 4096) and "
+                             f"4 rasterizer launches per forward, got {launches}")
 
     # timing: one model, so no forward pays for a model build
     model = load_model(cfg, device="cuda")
@@ -931,13 +1086,20 @@ def main():
     k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
     k4_launches, k4 = timed("K4", phase_k4, preds)
     kernels = [
-        {"name": "attention_fwd", "route": "cuda",
-         "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "hunyuanworld_mirror_tpu/ops/attn_onepass.py:57; "
-                     "hunyuanworld_mirror_tpu/models/block.py:162",
-         "launches": launches["attention_fwd"], "max_abs_err": k1["err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": "operations", "library_ms": k1["library_ms"]},
+        {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
+         "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
+         "replaces": "hunyuanworld_mirror_tpu/ops/attn_onepass.py:57",
+         "launches": launches["attention_fwd"] - launches["attention_fwd_flash_route"],
+         "max_abs_err": k1["K1a"]["err"], "ms": k1["K1a"]["ms"],
+         "plain_ms": k1["K1a"]["plain_ms"], "bound_ms": k1["K1a"]["bound_ms"],
+         "bound_by": "operations", "library_ms": k1["K1a"]["library_ms"]},
+        {"name": "attention_fwd (N >= 4096: global)",
+         "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
+         "replaces": "hunyuanworld_mirror_tpu/models/block.py:162",
+         "launches": launches["attention_fwd_flash_route"],
+         "max_abs_err": k1["K1b"]["err"], "ms": k1["K1b"]["ms"],
+         "plain_ms": k1["K1b"]["plain_ms"], "bound_ms": k1["K1b"]["bound_ms"],
+         "bound_by": "operations", "library_ms": k1["K1b"]["library_ms"]},
         {"name": "rasterize_flat_fwd", "route": "cuda",
          "source": "hunyuanworld_mirror_tpu_torch/csrc/rasterize_flat_fwd.cu",
          "replaces": "hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py:337",

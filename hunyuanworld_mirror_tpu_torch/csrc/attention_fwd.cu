@@ -11,31 +11,50 @@
 // What bounds it on this card: operations. 4*N^2*D flops per (batch, head)
 // against (q + k + v + o) bytes gives hundreds of flops per byte at N ~ 1.4k,
 // far above the H100's ~295 bf16 flops/byte ridge, so the tensor cores are
-// the limit. The TPU kernel held a whole K/V row in ~16 MB of VMEM; a Hopper
-// block has at most 227 KB of shared memory, so this kernel streams 64-key
-// K/V tiles through shared memory with an online softmax (running max and
-// sum in f32) and never writes the (N, N) logits to device memory.
+// the limit, and beside them the exponentials: one ex2 per logit on the
+// SFU (16 a clock per SM) costs about as many cycles as the two products of
+// a 64-wide head on the tensor cores. The TPU kernel held a whole K/V row in
+// ~16 MB of VMEM; a Hopper block has at most 227 KB of shared memory, so
+// this kernel streams K/V tiles through shared memory with an online
+// softmax (running max and sum in f32) and never writes the (N, N) logits
+// to device memory.
 //
-// Design (bf16, D in {64, 128}), the FlashAttention-2 shape on mma.sync:
-// one block of 4 warps per (batch*head, 64-query tile); each warp owns 16
-// query rows, whose Q fragments stay in registers. K/V tiles of 64 keys are
-// double-buffered in shared memory with cp.async (zero-filled past N).
-// Per tile, each warp:
-//   S = Q K^T with mma.sync m16n8k16 (bf16 in, f32 accumulate), kept in
-//     registers; scaled, masked (key >= N -> -inf);
-//   the row max and sum update in f32 (a row lives in one lane quad);
-//   P = exp(S - m) is rounded to bf16 straight from the S accumulators into
-//     A fragments (the TPU kernel also rounds P to the input dtype before
-//     the PV product) and O += P V with V fragments from ldmatrix.trans;
-//   O stays in f32 registers, rescaled by exp(m_old - m_new).
-// wgmma, TMA and warp specialization are later work.
+// Design (bf16, D in {64, 128}), FlashAttention-3's shape. A persistent
+// grid, one block per SM, walks the work items (batch*head, 192-query
+// tile); a block is four warpgroups:
+//   warpgroup 0, the producer, gives up its registers (setmaxnreg.dec) and
+//     one thread issues TMA loads: an item's Q, then its K and V tiles (128
+//     keys at D = 64, 64 at D = 128) into a ring of STAGES shared-memory
+//     stages, each with a full and an empty mbarrier for K and for V; it
+//     runs ahead into the next item while the consumers finish one. The
+//     tensor maps are 4-D over (D, H, N, B) with the tensors' own strides,
+//     so strided q/k/v views go in without a copy, and a box past N reads
+//     TMA's zero fill, never the next batch. A 128-byte swizzle (64 bf16
+//     columns a box; D = 128 loads two boxes) is what wgmma reads.
+//   warpgroups 1-3, the consumers (setmaxnreg.inc), own 64 query rows
+//     each. Per K/V tile i: S_i = Q K_i^T as wgmma m64nBKk16 with both
+//     operands in shared memory (K-major), issued together with
+//     O += P_{i-1} V_{i-1}, so that the online softmax of S_i (f32, in
+//     registers; one FFMA and one ex2 a logit, the scale folded into the
+//     exponent's log2 units) runs while the PV product holds the tensor
+//     cores. P is rounded to bf16 straight from the S accumulators (the TPU
+//     kernel also rounds P to the input dtype before the PV product) and is
+//     the register A operand of wgmma m64nDk16, with V read MN-major from
+//     shared memory. Keys >= N are masked on the last tile only.
+//   The consumers take turns, round robin, to issue their products
+//     (FlashAttention-3's ping-pong), so that one's softmax overlaps the
+//     others' products on the tensor cores.
+//   Epilogue: O / l, rounded to bf16, stored for rows < N.
 //
 // f32 inputs (the camera head: N = S views, D = 128) take a scalar kernel:
 // one warp per query row, an f32 dot per key reduced by shuffles, the same
-// online softmax, f32 P.
+// online softmax, f32 P. At N = 4 its time is the launch.
 //
-// C interface: attention_fwd(...) returns cudaGetLastError() after launch.
+// C interface: attention_fwd(...) builds the tensor maps from the pointers
+// and strides (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so
+// the library needs no -lcuda) and returns a cudaError_t after launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -43,10 +62,30 @@
 
 namespace {
 
-constexpr int BQ = 64;       // queries per block
-constexpr int BK = 64;       // keys per K/V tile
-constexpr int WARPS = 4;     // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
+constexpr int CONSUMER_WGS = 3;  // consumer warpgroups, 64 query rows each
+constexpr int BQ = 64 * CONSUMER_WGS;
+constexpr int STAGES = 2;       // K/V ring depth
+constexpr int CHUNK = 64;       // bf16 columns per 128-byte swizzled box
+constexpr int ROW_BYTES = 128;  // one box row in shared memory
+constexpr int WG = 128;         // threads per warpgroup
+constexpr int THREADS = (1 + CONSUMER_WGS) * WG;
+constexpr int CONSUMERS = CONSUMER_WGS * WG;
+// registers a thread after setmaxnreg: of the SM's 64K the producer keeps a
+// few and the consumers take the rest (S 64 + O 32 + P 32 at D = 64)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 160;
+static_assert(PRODUCER_REGS * WG + CONSUMER_REGS * CONSUMERS <= 65536, "register file");
+constexpr int BAR_TURN = 1;     // ping-pong: named barriers 1.. (0 is __syncthreads)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// keys per K/V tile: 128 at D = 64; 64 at D = 128, where S, P and O of a
+// 128-key tile would not fit in a consumer's registers
+template <int D>
+constexpr int key_tile() { return D == 64 ? 128 : 64; }
+
+// f32 scalar kernel
+constexpr int F32_WARPS = 4;
+constexpr int F32_THREADS = F32_WARPS * 32;
 
 struct Strides {
   long long q_sb, q_sn, q_sh;
@@ -54,31 +93,183 @@ struct Strides {
   long long v_sb, v_sn, v_sh;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+// shared memory, from a 1024-byte aligned base: Q | K stages | V stages | barriers
+template <int D>
+struct Smem {
+  static constexpr int BK = key_tile<D>();
+  static constexpr int NC = D / CHUNK;                 // boxes per row
+  static constexpr int Q_BYTES = NC * BQ * ROW_BYTES;
+  static constexpr int KV_BYTES = NC * BK * ROW_BYTES;  // one K or V stage
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // full_q, empty_q, full_k[S], full_v[S], empty_k[S], empty_v[S]
+  static constexpr int BYTES = BAR_OFF + (2 + 4 * STAGES) * 8 + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy global -> shared; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+// --- mbarriers, TMA, named barriers -------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// true once the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
+// box {64, 1, rows, 1} at (d0, h, n0, b) of a (D, H, N, B) map -> shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int h, int n0, int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(n0), "r"(b),
+         "r"(bar)
+      : "memory");
+}
+
+// Ping-pong: the consumers take turns, round robin on named barriers 1..3,
+// to issue their products, so that one's softmax runs while another's
+// products hold the tensor cores; 3-4% faster at the main path's shapes
+// than leaving the order to the warp schedulers (PERF.md, PR 4), which a
+// build with -DK1_PINGPONG=0 does for chip_smoke.py's ablation.
+#ifndef K1_PINGPONG
+#define K1_PINGPONG 1
+#endif
+// consumer c waits for its turn / hands the turn to consumer c + 1 (round
+// robin); each barrier joins two warpgroups
+__device__ __forceinline__ void take_turn(int c) {
+  if (K1_PINGPONG)
+    asm volatile("bar.sync %0, %1;\n" :: "r"(BAR_TURN + c), "n"(2 * WG) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int c) {
+  if (K1_PINGPONG)
+    asm volatile("bar.arrive %0, %1;\n"
+                 :: "r"(BAR_TURN + (c + 1) % CONSUMER_WGS), "n"(2 * WG) : "memory");
+}
+
+// --- wgmma ------------------------------------------------------------------------
+
+// shared-memory matrix descriptor, 128-byte swizzle; SBO = 1024 B (8 rows of 128 B)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo_bytes >> 4) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma registers across
+// the asynchronous window (the asm statements stay in order)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3]) :: "memory");
+}
+
+#define ACC8(b)                                                                       \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),   \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define REGS32                                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define REGS64                                                                        \
+  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "   \
+         "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+         "%61, %62, %63"
+
+// d (64 x 64, f32) (+)= A (64 x 16, K-major smem) * B (16 x 64, K-major smem)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32 "}, %32, %33, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : ACC32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, K-major smem) * B (16 x 128, K-major smem)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64 "}, %64, %65, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : ACC64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, MN-major smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, MN-major smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64 "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+#undef ACC32
+#undef ACC64
+#undef REGS32
+#undef REGS64
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -86,196 +277,301 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [row0, row0 + rows) of a (N, D) bf16 slice -> a (rows, D + 8) tile
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long stride_n, int row0, int n_valid) {
-  constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < BK * VPR; idx += THREADS) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * 8;
-    const int n = row0 + r;
-    const bool valid = n < n_valid;
-    cp_async16(dst + r * LD + c, src + (valid ? n : 0) * stride_n + c, valid);
+// --- the bf16 kernel ----------------------------------------------------------------
+
+// accumulator layout of wgmma m64nN (per thread, warp w of the warpgroup,
+// lane = 4 g + t): d[4j + e] is row 16 w + g + 8 (e >> 1), column 8 j + 2 t + (e & 1)
+
+// S (64 x BK) = Q_rows K^T: D / 16 k-steps; a 128-byte row holds 64 columns,
+// so D = 128 steps into the second box after 4
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(s, sw128_desc(q_rows + (kk / 4) * BQ * ROW_BYTES + col, 16),
+             sw128_desc(k_tile + (kk / 4) * BK * ROW_BYTES + col, 16), kk > 0);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int N, int H, Strides st, float scale) {
-  constexpr int LD = D + 8;            // padded row: conflict-free fragment reads
-  constexpr int TILE = BK * LD;        // elements per K or V tile (BQ == BK)
-  constexpr int NT = D / 8;            // 8-wide output column tiles
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // stage s: K at smem + 2*s*TILE, V at smem + (2*s + 1)*TILE
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;   // fragment row group / thread in group
-
-  const __nv_bfloat16* qb = q + b * st.q_sb + h * st.q_sh;
-  const __nv_bfloat16* kb = k + b * st.k_sb + h * st.k_sh;
-  const __nv_bfloat16* vb = v + b * st.v_sb + h * st.v_sh;
-  const int n_tiles = (N + BK - 1) / BK;
-
-  // Q staged through stage 1's K buffer; tile 0 into stage 0
-  load_tile_async<D>(smem + 2 * TILE, qb, st.q_sn, q0, N);
-  load_tile_async<D>(smem, kb, st.k_sn, 0, N);
-  load_tile_async<D>(smem + TILE, vb, st.v_sn, 0, N);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* sq = smem + 2 * TILE + (warp * 16) * LD;
+// O (64 x D) += P (64 x BK, registers) V (BK x D): BK / 16 k-steps of 16 keys
+// (2048 bytes); the D / 64 boxes of a row lie BK rows apart (the LBO)
+template <int BK, int ND>
+__device__ __forceinline__ void issue_pv(float (&o)[ND], const uint32_t (&p)[BK / 16][4],
+                                         uint32_t v_tile) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(sq + g * LD + kk * 16 + 2 * t);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(sq + (g + 8) * LD + kk * 16 + 2 * t);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(sq + g * LD + kk * 16 + 8 + 2 * t);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(sq + (g + 8) * LD + kk * 16 + 8 + 2 * t);
-    }
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, p[kk], sw128_desc(v_tile + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
+}
+
+// P (bf16) as the A fragments of the PV product: k-slice kk is accumulator
+// columns 16 kk .. 16 kk + 15 (the TPU kernel also rounds P to the input
+// dtype before its PV product)
+template <int BK>
+__device__ __forceinline__ void to_bf16(uint32_t (&p)[BK / 16][4], const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
-  __syncthreads();  // stage 1 is free for the prefetch below
+}
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;   // rows g and g + 8
-  float l_lo = 0.f, l_hi = 0.f;               // this lane's partial row sums
+// the online softmax state of a thread's two rows (g and g + 8): the row
+// max m of the raw products q.k, and this thread's share of the row sum l
+struct Rows {
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  float l_lo = 0.f, l_hi = 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + 2 * (cur ^ 1) * TILE;
-      load_tile_async<D>(nxt, kb, st.k_sn, (it + 1) * BK, N);
-      load_tile_async<D>(nxt + TILE, vb, st.v_sn, (it + 1) * BK, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = smem + 2 * cur * TILE;
-    const __nv_bfloat16* sV = sK + TILE;
-    const int k0 = it * BK;
-
-    // S (16 x 64) = Q_w K^T
-    float s[BK / 8][4];
+  // S -> P = 2^((S - m) scale_log2) in place, one FFMA and one ex2 a logit
+  // (scale_log2 > 0, so the max commutes with the scaling); keys >= N are
+  // masked on the last tile only. Returns the factors that rescale O to the
+  // new row max.
+  template <int BK>
+  __device__ __forceinline__ float2 update(float (&s)[BK / 2], float scale_log2, int k0,
+                                           int N, int t) {
+    if (k0 + BK > N) {
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
+      for (int j = 0; j < BK / 8; ++j) {
+        const int key = k0 + 8 * j + 2 * t;
+        if (key >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (key + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
       }
     }
-
-    // scale, mask, online softmax (f32); a row's 64 values live in one quad
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+    float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-      const int key = k0 + j * 8 + 2 * t;
-      s[j][0] = key < N ? s[j][0] * scale : -INFINITY;
-      s[j][1] = key + 1 < N ? s[j][1] * scale : -INFINITY;
-      s[j][2] = key < N ? s[j][2] * scale : -INFINITY;
-      s[j][3] = key + 1 < N ? s[j][3] * scale : -INFINITY;
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
+    for (int off = 1; off < 4; off <<= 1) {   // a row lives in one lane quad
       mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
       mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
     }
-    // finite: key k0 is always < N
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = expf(m_lo - mn_lo), corr_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
+    // finite: key k0 < N on every tile; 2^-inf = 0 on the first
+    const float2 corr = make_float2(ex2((m_lo - mx_lo) * scale_log2),
+                                    ex2((m_hi - mx_hi) * scale_log2));
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    const float ms_lo = mx_lo * scale_log2, ms_hi = mx_hi * scale_log2;
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn_lo);
-      s[j][1] = expf(s[j][1] - mn_lo);
-      s[j][2] = expf(s[j][2] - mn_hi);
-      s[j][3] = expf(s[j][3] - mn_hi);
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
+      s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -ms_lo));
+      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -ms_lo));
+      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -ms_hi));
+      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -ms_hi));
+      sum_lo += s[4 * j] + s[4 * j + 1];
+      sum_hi += s[4 * j + 2] + s[4 * j + 3];
     }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= corr_lo;
-      acc[n][1] *= corr_lo;
-      acc[n][2] *= corr_hi;
-      acc[n][3] *= corr_hi;
-    }
+    l_lo = l_lo * corr.x + sum_lo;
+    l_hi = l_hi * corr.y + sum_hi;
+    return corr;
+  }
+};
 
-    // O (16 x D) += P (16 x 64, bf16) V (64 x D)
+// a ring position: stage and the parity of its current round
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Persistent: gridDim.x blocks walk the (batch*head, query tile) work items
+// in order, item = blockIdx.x + k gridDim.x, so the producer loads the next
+// item's Q and first K/V tiles while the consumers finish the last one.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 int N, int H, int items, float scale_log2) {
+  using L = Smem<D>;
+  constexpr int NC = L::NC, BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = base + L::K_OFF, sV = base + L::V_OFF;
+  const uint32_t full_q = base + L::BAR_OFF, empty_q = full_q + 8;
+  const uint32_t full_k = empty_q + 8, full_v = full_k + 8 * STAGES;
+  const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
+
+  const int wg = threadIdx.x / WG;
+  const int q_tiles = (N + BQ - 1) / BQ;
+  const int n_tiles = (N + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, CONSUMERS);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // matrix mi = lane / 8: keys kk*16 + (mi & 1)*8 + lane % 8, cols + (mi >> 1)*8
-      const int mi = lane >> 3;
-      const __nv_bfloat16* vrow =
-          sV + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, CONSUMERS);
+      mbar_init(empty_v + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 0) {
+      Ring r;
+      uint32_t q_phase = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int bh = item / q_tiles, q0 = (item % q_tiles) * BQ;
+        const int b = bh / H, h = bh % H;
+        mbar_wait(empty_q, q_phase ^ 1);   // round 0 passes at once
+        q_phase ^= 1;
+        mbar_expect_tx(full_q, BQ * D * 2);
 #pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(smem_addr(vrow + n * 8)));
-        mma_bf16(acc[n], pa, b0, b1);
-        mma_bf16(acc[n + 1], pa, b2, b3);
+        for (int c = 0; c < NC; ++c)
+          tma_load(sQ + c * BQ * ROW_BYTES, &tm_q, full_q, c * CHUNK, h, q0, b);
+        for (int i = 0; i < n_tiles; ++i, r.next()) {
+          const uint32_t k_dst = sK + r.stage * L::KV_BYTES, v_dst = sV + r.stage * L::KV_BYTES;
+          mbar_wait(empty_k + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(full_k + 8 * r.stage, BK * D * 2);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            tma_load(k_dst + c * BK * ROW_BYTES, &tm_k, full_k + 8 * r.stage, c * CHUNK, h,
+                     i * BK, b);
+          mbar_wait(empty_v + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(full_v + 8 * r.stage, BK * D * 2);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            tma_load(v_dst + c * BK * ROW_BYTES, &tm_v, full_v + 8 * r.stage, c * CHUNK, h,
+                     i * BK, b);
+        }
       }
     }
-    __syncthreads();  // every warp is done with stage `cur` before it refills
-  }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % WG;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_rows = sQ + c * 64 * ROW_BYTES;
+    Ring kr, vr;                                // V runs one tile behind K
+    uint32_t q_phase = 0;
 
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      float o_acc[D / 2];
+      uint32_t p[BK / 16][4];
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  const int n_lo = q0 + warp * 16 + g, n_hi = n_lo + 8;
-  __nv_bfloat16* o_lo = o + ((static_cast<long long>(b) * N + n_lo) * H + h) * D + 2 * t;
-  __nv_bfloat16* o_hi = o + ((static_cast<long long>(b) * N + n_hi) * H + h) * D + 2 * t;
+      for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+      Rows rows;
+
+      if (c == CONSUMER_WGS - 1) pass_turn(c);  // consumer 0 takes the first turn
+      mbar_wait(full_q, q_phase);
+      q_phase ^= 1;
+
+      // tile 0: S only
+      {
+        float s_acc[BK / 2];
+        mbar_wait(full_k + 8 * kr.stage, kr.phase);
+        take_turn(c);
+        wgmma_fence();
+        issue_qk<D, BK>(s_acc, q_rows, sK + kr.stage * L::KV_BYTES);
+        wgmma_commit();
+        pass_turn(c);
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+        mbar_arrive(empty_k + 8 * kr.stage);
+        kr.next();
+        if (n_tiles == 1) mbar_arrive(empty_q);
+        rows.update<BK>(s_acc, scale_log2, 0, N, t);
+        to_bf16<BK>(p, s_acc);
+      }
+      // tile i: S_i, then P_{i-1} V_{i-1}; the softmax of S_i overlaps the second
+      for (int i = 1; i < n_tiles; ++i) {
+        float s_acc[BK / 2];                    // no value carried over: scale-d 0 first
+        mbar_wait(full_k + 8 * kr.stage, kr.phase);
+        mbar_wait(full_v + 8 * vr.stage, vr.phase);
+        take_turn(c);
+        wgmma_fence();
+        issue_qk<D, BK>(s_acc, q_rows, sK + kr.stage * L::KV_BYTES);
+        wgmma_commit();
+        issue_pv<BK>(o_acc, p, sV + vr.stage * L::KV_BYTES);
+        wgmma_commit();
+        pass_turn(c);
+
+        wgmma_wait<1>();
+        fence_regs(s_acc);
+        mbar_arrive(empty_k + 8 * kr.stage);
+        kr.next();
+        if (i == n_tiles - 1) mbar_arrive(empty_q);   // Q is free for the next item
+        const float2 corr = rows.update<BK>(s_acc, scale_log2, i * BK, N, t);
+
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(p);                          // P_{i-1} stays live until its product is done
+        mbar_arrive(empty_v + 8 * vr.stage);
+        vr.next();
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    if (n_lo < N)
-      *reinterpret_cast<uint32_t*>(o_lo + n * 8) =
-          pack_bf16(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
-    if (n_hi < N)
-      *reinterpret_cast<uint32_t*>(o_hi + n * 8) =
-          pack_bf16(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
+        for (int j = 0; j < D / 8; ++j) {
+          o_acc[4 * j] *= corr.x;
+          o_acc[4 * j + 1] *= corr.x;
+          o_acc[4 * j + 2] *= corr.y;
+          o_acc[4 * j + 3] *= corr.y;
+        }
+        to_bf16<BK>(p, s_acc);
+      }
+      // the last tile's PV product; the last consumer hands no turn back
+      mbar_wait(full_v + 8 * vr.stage, vr.phase);
+      take_turn(c);
+      wgmma_fence();
+      issue_pv<BK>(o_acc, p, sV + vr.stage * L::KV_BYTES);
+      wgmma_commit();
+      if (c != CONSUMER_WGS - 1) pass_turn(c);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      fence_regs(p);
+      mbar_arrive(empty_v + 8 * vr.stage);
+      vr.next();
+
+      // O / l, rows < N
+      float l_lo = rows.l_lo, l_hi = rows.l_hi;
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+      }
+      const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+      const int bh = item / q_tiles;
+      const int b = bh / H, h = bh % H;
+      const int n_lo = (item % q_tiles) * BQ + c * 64 + warp * 16 + g, n_hi = n_lo + 8;
+      __nv_bfloat16* o_lo = o + ((static_cast<long long>(b) * N + n_lo) * H + h) * D + 2 * t;
+      __nv_bfloat16* o_hi = o + ((static_cast<long long>(b) * N + n_hi) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        if (n_lo < N)
+          *reinterpret_cast<uint32_t*>(o_lo + 8 * j) =
+              pack_bf16(o_acc[4 * j] * inv_lo, o_acc[4 * j + 1] * inv_lo);
+        if (n_hi < N)
+          *reinterpret_cast<uint32_t*>(o_hi + 8 * j) =
+              pack_bf16(o_acc[4 * j + 2] * inv_hi, o_acc[4 * j + 3] * inv_hi);
+      }
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32_THREADS)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 int N, int H, Strides st, float scale) {
   constexpr int PER = D / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * WARPS + warp;
+  const int n = blockIdx.x * F32_WARPS + warp;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   if (n >= N) return;  // no block-wide barrier below
@@ -313,26 +609,95 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = acc[i] * inv;
 }
 
+// --- host -------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D map over (D, H, N, B) with the tensor's own strides (elements), box
+// {64, 1, rows, 1}, 128-byte swizzle, zero fill past the edges
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int N, int H,
+              int D, long long sb, long long sn, long long sh, int rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(N), cuuint64_t(B)};
+  // a dimension of size 1 is never stepped along: any legal stride will do
+  const cuuint64_t strides[3] = {H > 1 ? cuuint64_t(sh) * 2 : 16,
+                                 N > 1 ? cuuint64_t(sn) * 2 : 16,
+                                 B > 1 ? cuuint64_t(sb) * 2 : 16};
+  const cuuint32_t box[4] = {CHUNK, 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// set up once per template instance and device: the raised shared-memory
+// limit, and the SM count that sizes the persistent grid
+template <int D>
+cudaError_t device_setup(int* sms) {
+  constexpr int MAX_DEVICES = 64;
+  static int cached[MAX_DEVICES] = {};   // the SM count once set up
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(attn_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<D>::BYTES);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < MAX_DEVICES) cached[dev] = *sms;
+  return err;
+}
+
+// scale >= 0 (the wrapper folds a negative scale into q); a zero scale runs
+// as 1e-30, where every weight rounds to 2^0 exactly, as 0 gives
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                         int N, int H, const Strides& st, float scale, cudaStream_t s) {
-  const size_t smem = size_t(4) * BK * (D + 8) * sizeof(__nv_bfloat16);  // 2 stages x K, V
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (!(scale >= 0.f)) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, encode, q, B, N, H, D, st.q_sb, st.q_sn, st.q_sh, BQ) ||
+      !make_map(&mk, encode, k, B, N, H, D, st.k_sb, st.k_sn, st.k_sh, Smem<D>::BK) ||
+      !make_map(&mv, encode, v, B, N, H, D, st.v_sb, st.v_sn, st.v_sh, Smem<D>::BK))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = device_setup<D>(&sms);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, B * H);
-  attn_bf16_kernel<D><<<grid, THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N, H, st,
-      scale);
+  const int items = B * H * ((N + BQ - 1) / BQ);
+  attn_bf16_kernel<D><<<items < sms ? items : sms, THREADS, Smem<D>::BYTES, s>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), N, H, items, fmaxf(scale * LOG2E, 1e-30f));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                        int N, int H, const Strides& st, float scale, cudaStream_t s) {
-  dim3 grid((N + WARPS - 1) / WARPS, B * H);
-  attn_f32_kernel<D><<<grid, THREADS, 0, s>>>(
+  dim3 grid((N + F32_WARPS - 1) / F32_WARPS, B * H);
+  attn_f32_kernel<D><<<grid, F32_THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), N, H, st, scale);
   return cudaGetLastError();

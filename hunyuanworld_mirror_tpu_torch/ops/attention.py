@@ -20,6 +20,10 @@ import torch
 from . import _build
 
 _SIGNATURE_SET = False
+# the JAX package's routes: the one-pass kernel for N <= 4095, the flash
+# kernel for N >= 4096 (models/block.py, WM_FLASH_MIN_N); one kernel serves
+# both here, and `attention.flash_route_launches` counts the second's share
+FLASH_MIN_N = 4096
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +63,7 @@ def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
-        # the bf16 kernel loads 16-byte vectors
+        # the bf16 kernel's TMA loads need a 16-byte aligned base and strides
         if q.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
             raise ValueError(f"{name} must be 16-byte aligned with strides "
@@ -82,6 +86,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
+    if scale < 0:   # the kernel takes scale >= 0; (-q) k^T |scale| is the same
+        q, scale = -q, -scale
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -92,7 +98,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error {rc}")
     attention.launches += 1
+    attention.flash_route_launches += N >= FLASH_MIN_N
     return o
 
 
 attention.launches = 0
+attention.flash_route_launches = 0

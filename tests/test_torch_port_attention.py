@@ -21,6 +21,10 @@ from hunyuanworld_mirror_tpu_torch.ops import attention as pattn
 from tools import convert_weights as cw
 
 SHAPES = [(n, d) for n in (5, 37, 130, 300) for d in (64, 128)]
+# the CUDA kernel's tile edges at D = 64: 128-key tiles, and 192-query
+# blocks (three consumer warpgroups of 64 rows)
+EDGE_N = (127, 128, 129, 193, 257)
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 
 
 def _qkv(n, d, seed, b=2, h=2):
@@ -69,7 +73,54 @@ def test_attention_module_matches_block_attention(qk_norm, use_rope):
 
 def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
     q, k, v = (t(a) for a in _qkv(37, 64, seed=5))
-    before = pattn.attention.launches
+    before = (pattn.attention.launches, pattn.attention.flash_route_launches)
     out = pattn.attention(q, k, v, 0.125)
-    assert pattn.attention.launches == before
+    assert (pattn.attention.launches, pattn.attention.flash_route_launches) == before
     assert torch.equal(out, pattn.attention_plain(q, k, v, 0.125))
+
+
+def _held_to_oracle(q, k, v, scale):
+    """attention_plain on (possibly strided) q, k, v against _einsum_ref on
+    the same values, at the file's band for their dtype."""
+    out = pattn.attention_plain(q, k, v, scale)
+    assert out.dtype == q.dtype
+    ref = _einsum_ref(*(jnp.asarray(x.float().contiguous().numpy())
+                        for x in (q, k, v)), scale)
+    close(out, ref, ATOL[q.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_plain_at_tile_edges(n, dtype):
+    q, k, v = (t(a).to(dtype) for a in _qkv(n, 64, seed=7 * n))
+    _held_to_oracle(q, k, v, 64 ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_past_flash_threshold(dtype):
+    # N >= 4096 is the JAX package's flash route (K1b); one head keeps the
+    # (N, N) logits at 67 MB
+    n = 4100
+    assert n >= pattn.FLASH_MIN_N
+    q, k, v = (t(a).to(dtype) for a in _qkv(n, 64, seed=11, b=1, h=1))
+    _held_to_oracle(q, k, v, 64 ** -0.5)
+
+
+def test_plain_on_fused_qkv_views():
+    # the encoder's layout: q, k, v are views of one (B, N, 3, H, D) tensor,
+    # N-stride 3 H D, as the kernel receives them without a copy
+    fused = t(normal(13, (2, 130, 3, 2, 64)))
+    fused[:, :, 2] *= 0.1
+    q, k, v = fused.unbind(2)
+    assert q.stride() == (130 * 3 * 128, 3 * 128, 64, 1) and not q.is_contiguous()
+    _held_to_oracle(q, k, v, 0.125)
+    assert torch.equal(pattn.attention(q, k, v, 0.125),
+                       pattn.attention_plain(q, k, v, 0.125))
+
+
+def test_negative_scale_folds_into_q():
+    # the wrapper hands the CUDA kernel (-q, -scale) for a negative scale
+    q, k, v = (t(a) for a in _qkv(37, 64, seed=17))
+    close(pattn.attention_plain(-q, k, v, 0.125),
+          pattn.attention_plain(q, k, v, -0.125), 1e-6)
+

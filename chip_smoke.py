@@ -5,13 +5,10 @@
 Phases (any failure exits non-zero before the last line is printed):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the five CUDA sources (csrc/*.cu) compiled from this checkout,
-     and K1 a second time without its ping-pong turns (-DK1_PINGPONG=0),
      the nvcc processes started together;
   3. K1 (attention_fwd) against its plain version: the ptxas report (no
      C7508, no spills); the main path's shapes, timed (kernel, plain, SDPA,
-     bound, and, both launched through the C entry alone, this build in
-     turns with K1 built without the ping-pong turns); the ragged and
-     tile-edge N (37, 127, 129, 130, 193, 4097), D = 128 bf16, the encoder's
+     bound); the ragged and tile-edge N (37, 127, 129, 130, 193, 4097), D = 128 bf16, the encoder's
      q/k/v as views of one fused qkv, the trunk's q/k (LayerNorm, RoPE) and
      strided v, and 3 batches whose middle one has 100x keys and values,
      each batch held to its own band;
@@ -147,24 +144,12 @@ def phase_device():
     return name, smi
 
 
-# K1 built without its ping-pong turns (-DK1_PINGPONG=0), for phase 3's ablation
-NO_PINGPONG_LIB = "libattention_fwd_no_pingpong.so"
-
-
 def phase_build():
     from hunyuanworld_mirror_tpu_torch.ops import _build
     t0 = time.time()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    no_pingpong = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-DK1_PINGPONG=0", "-o",
-         str(_build.BUILD_DIR / NO_PINGPONG_LIB), str(_build.CSRC / "attention_fwd.cu")],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
                             "rasterize_flat_bwd", "rasterize_flat_grouped_fwd",
                             "rasterize_binned_fwd"])
-    if no_pingpong.wait(timeout=600) != 0:
-        raise RuntimeError(f"nvcc failed for K1 without the ping-pong turns:\n"
-                           f"{no_pingpong.stderr.read()}")
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -257,32 +242,11 @@ def trunk_qkv(gen):
     return q, k, v
 
 
-def k1_no_pingpong_lib():
-    """K1 built with -DK1_PINGPONG=0 (phase_build), for the ablation."""
-    import ctypes
-    from hunyuanworld_mirror_tpu_torch.ops import _build
-    lib = ctypes.CDLL(str(_build.BUILD_DIR / NO_PINGPONG_LIB))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, i] + [ll] * 9 + [ctypes.c_float, i, p]
-    return lib
-
-
-def k1_raw_run(lib, q, k, v, o, scale):
-    """One bf16 launch of a K1 library's C entry, without the wrapper's host
-    work, so that two builds are timed alike."""
-    rc = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           *q.shape, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                           scale, 1, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 raw launch: CUDA error {rc}")
-
-
 def phase_k1():
     """K1 against its plain version: the main path's shapes (timed: kernel,
-    plain, SDPA, bound, and in turns the kernel built without the ping-pong
-    turns), the ragged and tile-edge N, D = 128, the encoder's fused-qkv
-    views, the trunk's q/k/v, and a batch whose keys and values are 100x its
-    neighbours' -> per-route totals for the `kernels` line."""
+    plain, SDPA, bound), the ragged and tile-edge N, D = 128, the encoder's
+    fused-qkv views, the trunk's q/k/v, and a batch whose keys and values
+    are 100x its neighbours' -> per-route totals for the `kernels` line."""
     from hunyuanworld_mirror_tpu_torch.ops import _build
     from hunyuanworld_mirror_tpu_torch.ops import attention as A
     report = (_build.BUILD_DIR / "attention_fwd.ptxas.txt").read_text()
@@ -293,7 +257,6 @@ def phase_k1():
     if "C7508" in report or any(spills):
         raise AssertionError("K1: setmaxnreg ignored (C7508) or registers spilled")
 
-    no_pingpong = k1_no_pingpong_lib()
     gen = torch.Generator(device="cuda").manual_seed(1)
     routes = {r: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
               for r in ("K1a", "K1b")}
@@ -309,17 +272,6 @@ def phase_k1():
             continue
         scale = shape[-1] ** -0.5
         ms = cuda_ms(lambda: A.attention(q, k, v, scale))
-        if dtype == torch.bfloat16:
-            # the two builds launched alike, in turns after a warm-up of
-            # both: port, no ping-pong, no ping-pong, port
-            o = torch.empty_like(q)
-            raw = lambda: k1_raw_run(A._library(), q, k, v, o, scale)
-            nopp = lambda: k1_raw_run(no_pingpong, q, k, v, o, scale)
-            cuda_ms(raw, reps=1, warmup=20)
-            cuda_ms(nopp, reps=1, warmup=20)
-            raw_ms = cuda_ms(raw, reps=20)
-            nopp_ms = (cuda_ms(nopp, reps=20) + cuda_ms(nopp, reps=20)) / 2
-            raw_ms = (raw_ms + cuda_ms(raw, reps=20)) / 2
         plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, scale), reps=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -328,9 +280,7 @@ def phase_k1():
         flops = 4.0 * shape[0] * shape[2] * shape[1] ** 2 * shape[3]
         log(f"K1 {label:12s} kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s)  "
             f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  kernel/sdpa "
-            f"{ms / lib_ms:.3f}  bound {bound:.4f} ms"
-            + (f"  launched alike: this build {raw_ms:.4f} ms, without the "
-               f"ping-pong turns {nopp_ms:.4f} ms" if dtype == torch.bfloat16 else ""))
+            f"{ms / lib_ms:.3f}  bound {bound:.4f} ms")
         tot = routes[k1_route(shape[1])]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", bound)):

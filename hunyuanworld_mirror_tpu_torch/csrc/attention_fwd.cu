@@ -152,19 +152,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 // Ping-pong: the consumers take turns, round robin on named barriers 1..3,
 // to issue their products, so that one's softmax runs while another's
 // products hold the tensor cores; 3-4% faster at the main path's shapes
-// than leaving the order to the warp schedulers (PERF.md, PR 4), which a
-// build with -DK1_PINGPONG=0 does for chip_smoke.py's ablation.
-#ifndef K1_PINGPONG
-#define K1_PINGPONG 1
-#endif
+// than leaving the order to the warp schedulers (false here; PERF.md, PR 4,
+// from tools/k1_ab.py).
+constexpr bool PINGPONG = true;
 // consumer c waits for its turn / hands the turn to consumer c + 1 (round
 // robin); each barrier joins two warpgroups
 __device__ __forceinline__ void take_turn(int c) {
-  if (K1_PINGPONG)
+  if (PINGPONG)
     asm volatile("bar.sync %0, %1;\n" :: "r"(BAR_TURN + c), "n"(2 * WG) : "memory");
 }
 __device__ __forceinline__ void pass_turn(int c) {
-  if (K1_PINGPONG)
+  if (PINGPONG)
     asm volatile("bar.arrive %0, %1;\n"
                  :: "r"(BAR_TURN + (c + 1) % CONSUMER_WGS), "n"(2 * WG) : "memory");
 }

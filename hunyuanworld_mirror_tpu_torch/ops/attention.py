@@ -36,14 +36,20 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnm,bmhd->bnhd", w.float(), v.float()).to(q.dtype)
 
 
+def declare(lib):
+    """Give a loaded build of csrc/attention_fwd.cu its C signature."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.attention_fwd.argtypes = ([p, p, p, p, i, i, i, i] + [ll] * 9
+                                  + [ctypes.c_float, i, p])
+    lib.attention_fwd.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _SIGNATURE_SET
     lib = _build.load("attention_fwd")
     if not _SIGNATURE_SET:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.attention_fwd.argtypes = ([p, p, p, p, i, i, i, i] + [ll] * 9
-                                      + [ctypes.c_float, i, p])
-        lib.attention_fwd.restype = ctypes.c_int
+        declare(lib)
         _SIGNATURE_SET = True
     return lib
 

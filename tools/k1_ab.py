@@ -3,7 +3,7 @@
     python3 tools/k1_ab.py
 
 Compiles hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu once as it is
-and once for each variant below (one constant or macro changed), loads each
+and once for each variant below (one constant changed), loads each
 build with ctypes, holds each against the plain version (max|d| within
 2^-6 max|plain|, phase 3's band of chip_smoke.py) and times them in
 alternating rounds at the main path's bf16 shapes, every build launched
@@ -25,15 +25,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from hunyuanworld_mirror_tpu_torch.ops import _build  # noqa: E402
 from hunyuanworld_mirror_tpu_torch.ops import attention as A  # noqa: E402
 
-# name -> (source substitutions, extra nvcc flags)
+# name -> (the source's line, its replacement), or None for the source as it is
 VARIANTS = {
-    "as built": ([], []),
-    "2 consumer warpgroups": ([("constexpr int CONSUMER_WGS = 3;",
-                                "constexpr int CONSUMER_WGS = 2;")], []),
-    "3 K/V stages": ([("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")], []),
-    "no ping-pong turns": ([], ["-DK1_PINGPONG=0"]),
+    "as built": None,
+    "2 consumer warpgroups": ("constexpr int CONSUMER_WGS = 3;",
+                              "constexpr int CONSUMER_WGS = 2;"),
+    "3 K/V stages": ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),
+    "no ping-pong turns": ("constexpr bool PINGPONG = true;",
+                           "constexpr bool PINGPONG = false;"),
 }
-SHAPES = [("encoder", (4, 1374, 16, 64)), ("global", (1, 5504, 16, 64))]
+SHAPES = [("encoder", (4, 1374, 16, 64)), ("frame", (4, 1376, 16, 64)),
+          ("global", (1, 5504, 16, 64))]
 ROUNDS, REPS = 6, 30
 
 
@@ -41,17 +43,17 @@ def build(out_dir: Path):
     """Compile every variant at once -> {name: loaded library}."""
     src = (_build.CSRC / "attention_fwd.cu").read_text()
     procs = {}
-    for i, (name, (subs, flags)) in enumerate(VARIANTS.items()):
+    for i, (name, sub) in enumerate(VARIANTS.items()):
         text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} is no longer in the source")
-            text = text.replace(old, new)
+        if sub is not None:
+            if sub[0] not in text:
+                raise RuntimeError(f"{name}: {sub[0]!r} is no longer in the source")
+            text = text.replace(*sub)
         path = out_dir / f"k1_ab_{i}.cu"
         path.write_text(text)
         lib = out_dir / f"libk1_ab_{i}.so"
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-o",
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
              str(lib), str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), lib)
     libs = {}
@@ -59,18 +61,10 @@ def build(out_dir: Path):
         report = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
-        regs, bf16 = [], False        # the bf16 kernels' lines, and any C75xx
-        for line in report.splitlines():
-            if "entry function" in line:
-                bf16 = "bf16" in line
-            elif "C75" in line or (bf16 and ("Used" in line or "spill" in line)):
-                regs.append(line.replace("ptxas info    :", "").strip())
-        print(f"{name}: {' | '.join(regs)}", flush=True)
-        handle = ctypes.CDLL(str(lib))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        handle.attention_fwd.argtypes = ([p, p, p, p, i, i, i, i] + [ll] * 9
-                                         + [ctypes.c_float, i, p])
-        libs[name] = handle
+        for line in report.splitlines():    # registers, spills, any C75xx warning
+            if "Used" in line or "spill" in line or "C75" in line:
+                print(f"{name}: {line.strip()}", flush=True)
+        libs[name] = A.declare(ctypes.CDLL(str(lib)))
     return libs
 
 

@@ -151,9 +151,9 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 
 // Ping-pong: the consumers take turns, round robin on named barriers 1..3,
 // to issue their products, so that one's softmax runs while another's
-// products hold the tensor cores; 3-4% faster at the main path's shapes
-// than leaving the order to the warp schedulers (false here; PERF.md, PR 4,
-// from tools/k1_ab.py).
+// products hold the tensor cores; ~3% faster at the main path's shapes
+// than leaving the order to the warp schedulers (false here; PERF.md section 6,
+// timed by tools/k1_ab.py).
 constexpr bool PINGPONG = true;
 // consumer c waits for its turn / hands the turn to consumer c + 1 (round
 // robin); each barrier joins two warpgroups

@@ -25,12 +25,16 @@ Phases (any failure exits non-zero before the last line is printed):
      intersection lists;
   6. the port on the card against the same port on the CPU (plain versions)
      for a small configuration whose heads are 64 wide;
-  7. K3 (rasterize_flat_bwd) against its plain version, with cotangents
-     drawn from a seeded generator, on the synthetic scene of phase 4 (f32
-     payload, 9 tiles per splat) and on the lists of the main path's splats
-     for its 4 cameras (f32 payload, 9 tiles per splat, 4096 per tile); K2's
-     two training planes (final T, last kept entry) are held against the
-     plain version there too;
+  7. K3 (rasterize_flat_bwd): its ptxas report (fails on a stack frame or
+     a spill) and the blocks an SM holds; then K3 against its plain
+     version, per-splat rows with and without the per-entry rows and the
+     per-entry rows themselves, with cotangents drawn from a seeded
+     generator, on the synthetic scene of phase 4 (f32 payload, 9 tiles
+     per splat) and on the lists of the main path's splats for its 4
+     cameras (f32 payload, 9 tiles per splat, 4096 per tile), its wrapper
+     and its C entry timed, and each list's walks (a tile's largest
+     last-kept index + 1: mean, p99, max); K2's two training planes (final
+     T, last kept entry) are held against the plain version there too;
   8. the training path at full size: phase 5's predictions written by
      `infer.export`, the trainer twin's `run()` for 2 iterations on that
      directory, then `optimize_splats` on the same splats, images and
@@ -78,8 +82,10 @@ tests pays TEST_FLOPS, and the pairs that pass the keep test pay
 K2_FLOPS_PER_KEPT or K3_FLOPS_PER_KEPT instead. K2 tests, per in-image
 pixel, the entries up to the one that ends its blend; K3 those up to the
 pixel's last kept one. K3's bytes are the list's entries read once (payload
-and id), the per-entry and per-splat grads written once, the cotangents and
-the T/last planes read once. In the `kernels` line every number of an
+and id), the per-splat grads written once, the cotangents and the T/last
+planes read once; the per-entry grads, which the kernel writes only when
+asked, are not counted (phase 7 prints the bound with them beside). In the
+`kernels` line every number of an
 inference kernel (K1, K2) is per forward of the main path: `launches` is
 the count from the one `run`, and `ms`, `plain_ms`, `library_ms` and
 `bound_ms` are totals over that forward's launches of the kernel, at its
@@ -322,11 +328,14 @@ def blend_pairs(packed, starts, counts, width, height, tile_size, d_col,
     the full arithmetic; `forward` pairs are those a front-to-back blend
     with early stop tests (entries up to the one that takes T to <= 1e-4,
     K2's work); `backward` pairs are those a back-to-front walk tests
-    (entries up to the pixel's last kept one, K3's work)."""
+    (entries up to the pixel's last kept one, K3's work); `warp_walked`
+    counts the (32-pixel warp, entry) steps of that walk (entries up to
+    the warp's largest last kept one), `warp_kept` those where a pixel of
+    the warp keeps the entry."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     tw = (width + tile_size - 1) // tile_size
     lin = torch.arange(tile_size * tile_size, device=packed.device)
-    n = dict(kept=0, forward=0, backward=0)
+    n = dict(kept=0, forward=0, backward=0, warp_walked=0, warp_kept=0)
     for b in R.blend_groups(packed, starts, counts, width, height, tile_size,
                             d_col, f16):
         g = b.g
@@ -339,6 +348,9 @@ def blend_pairs(packed, starts, counts, width, height, tile_size, d_col,
         n["forward"] += int(((b.t_before > R.T_EPS) & b.live[..., None]
                              & inside[:, None, :]).sum())
         n["backward"] += int((last + 1).sum())
+        G, K, P = kept.shape
+        n["warp_kept"] += int(kept.reshape(G, K, P // 32, 32).any(-1).sum())
+        n["warp_walked"] += int((last.reshape(G, P // 32, 32).amax(-1) + 1).sum())
     return n
 
 
@@ -357,12 +369,12 @@ def blend_bound(packed, starts, counts, W, H, d_col, f16, n_cams=1,
     (pixel, entry) pairs a front-to-back blend with early stop tests, over
     each camera's segments of the list."""
     n_tiles = starts.numel() // n_cams
-    pairs = dict(kept=0, forward=0, backward=0)
+    pairs = {}
     for c in range(n_cams):
         seg = slice(c * n_tiles, (c + 1) * n_tiles)
         for k, v in blend_pairs(packed, starts[seg], counts[seg], W, H, 16, d_col,
                                 f16).items():
-            pairs[k] += v
+            pairs[k] = pairs.get(k, 0) + v
     byts = (int(counts.sum()) * packed.shape[0] * 4 + 2 * counts.numel() * 4
             + n_cams * W * H * (d_col + 1) * 4 + extra_bytes)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
@@ -552,11 +564,12 @@ def phase_main_path():
 
 # --- K3 -----------------------------------------------------------------------
 
-# max|kernel - plain| of every output row (the 8 + D per-entry rows and the
-# per-splat rows they scatter to) <= this share of that row's max|plain|.
-# The sums run in another order than the plain version's: warp trees, then
-# shared-memory atomics whose order changes from run to run, and T is
-# recovered by division walking back instead of a cumulative product.
+# max|kernel - plain| of every output row (the 8 + D per-splat rows, and the
+# per-entry rows where asked) <= this share of that row's max|plain|. The
+# sums run in another order than the plain version's: a warp butterfly,
+# the warps in order, then global reductions into each splat's row whose
+# order changes from run to run, and T is recovered by division walking
+# back instead of a cumulative product.
 K3_REL_BAND = 1e-3
 # K2's final T against the plain replay (absolute), and the share of pixels
 # whose last kept entry may differ (an entry at the 1e-4 stop, decided in
@@ -565,9 +578,43 @@ K2_STATE_BAND = 2e-3
 K2_LAST_MISMATCH = 1e-3
 
 
+def k3_ptxas():
+    """K3's ptxas report (every D instance): registers, stack, spills, and
+    the blocks an SM holds at 16 x 16 tiles and D = 4 (65,536 registers
+    and 228 KB an SM, registers allocated 256 to a warp, 1 KB reserved a
+    block). Fails on a stack frame or a spill."""
+    from hunyuanworld_mirror_tpu_torch.ops import _build
+    report = (_build.BUILD_DIR / "rasterize_flat_bwd.ptxas.txt").read_text()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+    frames = [int(n) for n in re.findall(r"(\d+) bytes stack frame", report)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    lib = _build.load("rasterize_flat_bwd")
+    threads, smem = lib.rasterize_flat_bwd_threads(16), lib.rasterize_flat_bwd_smem(16, 4)
+    by_regs = 65536 // (math.ceil(max(regs) * 32 / 256) * 256 * (threads // 32))
+    blocks = min(2048 // threads, by_regs, (228 * 1024) // (smem + 1024))
+    log(f"K3 ptxas (D = 1..8): registers {regs}, stack frames {frames}, spills "
+        f"{spills}; {threads} threads and {smem} B of shared memory a block at "
+        f"D = 4; {blocks} blocks an SM")
+    if any(frames) or any(spills) or not regs:
+        raise AssertionError("K3: ptxas reports a stack frame or a spill")
+
+
+def tile_walks(last, W, H, tile_size=16):
+    """Each tile's walk, its pixels' largest last-kept index + 1 (float,
+    tile order), from K2's (H, W) last-kept plane."""
+    tw, th = -(-W // tile_size), -(-H // tile_size)
+    lp = torch.nn.functional.pad(last, (0, tw * tile_size - W, 0, th * tile_size - H),
+                                 value=-1)
+    lp = lp.reshape(th, tile_size, tw, tile_size).transpose(1, 2).reshape(tw * th, -1)
+    return (lp.amax(1) + 1).float()
+
+
 def k3_check(label, bins, W, H, d_col, n_gauss, gen):
-    """K3 vs its plain version on one sorted f32 list -> (err, ms, plain_ms,
-    bound_ms, bound_by)."""
+    """K3 vs its plain version on one sorted f32 list, with and without the
+    per-entry rows -> (err, ms, plain_ms, bound_ms, bound_by, entry_ms,
+    walks, counts). ms is the wrapper as RasterizeFlat.backward calls it
+    (no per-entry rows), entry_ms its C entry alone on outputs and a tile
+    order made once."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     fwd = (bins.packed, bins.starts, bins.counts, W, H, 16, d_col, False)
     _, _, t_fin, last = R.rasterize_flat(*fwd, with_state=True)
@@ -581,15 +628,18 @@ def k3_check(label, bins, W, H, d_col, n_gauss, gen):
     v_img = torch.randn(H, W, d_col, generator=gen, device=dev)
     v_alpha = torch.randn(H, W, 1, generator=gen, device=dev)
     list_args = (bins.packed, bins.starts, bins.counts, bins.gauss_ids, n_gauss)
-    kern = lambda: R.rasterize_flat_bwd(*list_args, v_img, v_alpha, t_fin, last,
-                                        W, H, 16, d_col)
+    kern = lambda entries: R.rasterize_flat_bwd(*list_args, v_img, v_alpha, t_fin,
+                                                last, W, H, 16, d_col,
+                                                with_entries=entries)
     plain = lambda: R.rasterize_flat_bwd_plain(*list_args, v_img, v_alpha, W, H,
                                                16, d_col)
-    entry, splat = kern()
+    entry, splat = kern(True)
     torch.cuda.synchronize()
     entry_p, splat_p = plain()
+    _, splat_only = kern(False)
     err = 0.0
-    for name, a, b in (("entry", entry, entry_p), ("splat", splat, splat_p)):
+    for name, a, b in (("entry", entry, entry_p), ("splat", splat, splat_p),
+                       ("splat without entry rows", splat_only, splat_p)):
         if not torch.isfinite(a).all():
             raise AssertionError(f"K3 {label}: {name} grads not finite")
         d = (a - b).abs().amax(dim=1)
@@ -598,25 +648,40 @@ def k3_check(label, bins, W, H, d_col, n_gauss, gen):
             raise AssertionError(f"K3 {label}: {name} rows max|d| {d.tolist()} > "
                                  f"band {band.tolist()}")
         err = max(err, float(d.max()))
-    ms = cuda_ms(kern, reps=5, warmup=1)
+    del entry, entry_p
+    ms = cuda_ms(lambda: kern(False), reps=5, warmup=1)
+    out = torch.zeros(n_gauss, R.splat_cols(d_col), device=dev)
+    order = R.longest_first(bins.counts)
+    entry_ms = cuda_ms(lambda: R.rasterize_flat_bwd_launch(
+        bins.packed, bins.starts, bins.counts, bins.gauss_ids, v_img, v_alpha, t_fin,
+        last, out, None, W, H, 16, d_col, order), reps=5, warmup=1)
     plain_ms = cuda_ms(plain, reps=1, warmup=0)
     k2_state_ms = cuda_ms(lambda: R.rasterize_flat(*fwd, with_state=True))
     n_entries = int(bins.counts.sum())
     rows = R.grad_rows(d_col)
     pairs = blend_pairs(*fwd)
-    byts = (n_entries * (bins.packed.shape[0] + 1 + rows) * 4 + n_gauss * rows * 4
+    # the list's entries (payload, id) read once, the per-splat rows written
+    # once, the cotangents and K2's T / last planes read once, starts, counts
+    byts = (n_entries * (bins.packed.shape[0] + 1) * 4 + n_gauss * rows * 4
             + W * H * ((d_col + 1) * 4 + 8) + 2 * bins.counts.numel() * 4)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    # the same with the per-entry rows written, which the training path skips
+    t_bytes_entries = (byts + n_entries * rows * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ms(pairs, pairs["backward"], K3_FLOPS_PER_KEPT)
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes > t_ops else "operations"
+    walks, counts = tile_walks(last, W, H), bins.counts.float()
     log(f"K3 {label:24s} entries {n_entries}  pairs tested {pairs['backward']} "
         f"kept {pairs['kept']}  max|d| {err:.3e} (rows within {K3_REL_BAND:.0e} "
         f"of max|plain|)  K2 state max|dT| {t_err:.1e} last differs "
-        f"{last_bad:.1e}  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  bound "
-        f"{bound:.4f} ms ({by}; bytes {t_bytes:.4f}, operations {t_ops:.4f})  "
-        f"K2 with the training planes {k2_state_ms:.4f} ms")
-    return err, ms, plain_ms, bound, by
+        f"{last_bad:.1e}  wrapper {ms:.4f} ms  C entry {entry_ms:.4f} ms  plain "
+        f"{plain_ms:.2f} ms  bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, "
+        f"operations {t_ops:.4f}; with the per-entry rows {max(t_bytes_entries, t_ops):.4f})"
+        f"  walks mean {float(walks.mean()):.1f} p99 "
+        f"{float(torch.quantile(walks, 0.99)):.1f} max {float(walks.max()):.0f} "
+        f"(counts max {float(counts.max()):.0f})  K2 with the training planes "
+        f"{k2_state_ms:.4f} ms")
+    return err, ms, plain_ms, bound, by, entry_ms, walks, counts
 
 
 def phase_k3_synthetic(gen):
@@ -631,27 +696,39 @@ def phase_k3_synthetic(gen):
 def k3_cameras(label, means, quats_xyzw, scales, opac, sh, w2c, Ks, HW,
                max_per_tile, gen):
     """k3_check on each camera's f32 list (9 tiles per splat), binned as the
-    training step bins -> totals over the cameras."""
+    training step bins -> totals over the cameras, and the walks of all
+    their tiles."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer
-    k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, by=set())
+    k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, by=set(), entry_ms=0.0)
+    walks, counts = [], []
     for c in range(w2c.shape[0]):
         bins = rasterizer.bin_camera(means, quats_xyzw, scales, opac, sh, w2c[c],
                                      Ks[c], HW, HW, 16, max_per_tile, 9, False,
                                      with_ids=True)
-        err, ms, plain_ms, bound, by = k3_check(
+        err, ms, plain_ms, bound, by, entry_ms, w, n = k3_check(
             f"{label} camera {c}", bins, HW, HW, 4, means.shape[0], gen)
         k3["err"] = max(k3["err"], err)
         k3["ms"] += ms
         k3["plain_ms"] += plain_ms
         k3["bound_ms"] += bound
         k3["by"].add(by)
+        k3["entry_ms"] += entry_ms
+        walks.append(w)
+        counts.append(n)
         del bins
         torch.cuda.empty_cache()
+    w, n = torch.cat(walks), torch.cat(counts)
+    log(f"K3 {label}: walks over {w.numel()} tiles mean {float(w.mean()):.1f} "
+        f"p99 {float(torch.quantile(w, 0.99)):.1f} max {float(w.max()):.0f} "
+        f"(longest / mean {float(w.max() / w.mean()):.2f}); counts mean "
+        f"{float(n.mean()):.1f} max {float(n.max()):.0f}")
     return k3
 
 
 def phase_k3(preds):
-    """K3 on the synthetic scene and on the lists of the main path's splats."""
+    """K3's ptxas report, then K3 on the synthetic scene and on the lists of
+    the main path's splats."""
+    k3_ptxas()
     gen = torch.Generator(device="cuda").manual_seed(7)
     phase_k3_synthetic(gen)
     means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
@@ -773,9 +850,9 @@ def phase_train(preds, imgs):
         k3[label] = k3_cameras(f"training {label}", means, quats[:, [1, 2, 3, 0]],
                                scales, opac, sh, w2c, Ks_t, HW, cfg.max_per_tile,
                                gen)
-        log(f"K3 per training step on the lists of {label}: kernel "
-            f"{k3[label]['ms']:.4f} ms  plain {k3[label]['plain_ms']:.2f} ms  "
-            f"bound {k3[label]['bound_ms']:.4f} ms")
+        log(f"K3 per training step on the lists of {label}: wrapper "
+            f"{k3[label]['ms']:.4f} ms  C entry {k3[label]['entry_ms']:.4f} ms  "
+            f"plain {k3[label]['plain_ms']:.2f} ms  bound {k3[label]['bound_ms']:.4f} ms")
     return steps[0]["k3"], k3["after refine 29"], (splats, gt, c2w, Ks, depths)
 
 

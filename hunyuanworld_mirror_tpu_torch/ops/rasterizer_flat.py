@@ -203,15 +203,25 @@ def grad_rows(d_col: int) -> int:
     return 8 + d_col
 
 
+def splat_cols(d_col: int) -> int:
+    """Columns of the kernel's per-splat output (n_gauss, splat_cols): the
+    grad_rows rounded up to 4, one 16-byte reduction per 4 rows."""
+    return -(-grad_rows(d_col) // 4) * 4
+
+
 def rasterize_flat_bwd_plain(packed: torch.Tensor, starts: torch.Tensor,
                              counts: torch.Tensor, gauss_ids: torch.Tensor,
                              n_gauss: int, v_img: torch.Tensor,
                              v_alpha: torch.Tensor, width: int, height: int,
-                             tile_size: int, d_col: int):
+                             tile_size: int, d_col: int,
+                             with_entries: bool = True):
     """Gradient of rasterize_flat (f32 payload) for the cotangents v_img
     (H, W, d_col) and v_alpha (H, W, 1) -> (per-entry rows (8 + d_col, M),
-    per-splat rows (8 + d_col, n_gauss)), rows as grad_rows names them;
-    the last two are the AbsGS absgrad, sum over pixels of |d means2d|.
+    or None without `with_entries`, per-splat rows (8 + d_col, n_gauss)),
+    rows as grad_rows names them; the last two are the AbsGS absgrad, sum
+    over pixels of |d means2d|. An entry's rows are zero unless a pixel of
+    its tile keeps it, so the splat rows are the scatter of each tile's
+    walked entries alone.
 
     The blend is replayed per tile group; S_i = sum_{j>i} w_j g_j is a
     reversed exclusive cumulative sum over each tile's entries."""
@@ -248,7 +258,7 @@ def rasterize_flat_bwd_plain(packed: torch.Tensor, starts: torch.Tensor,
         entry[:, b.idx[b.live]] = rows[:, b.live]
     splat = torch.zeros(grad_rows(d_col), n_gauss, device=dev)
     splat.index_add_(1, gauss_ids.long(), entry)
-    return entry, splat
+    return (entry if with_entries else None), splat
 
 
 # --- camera-batched and grouped lists (K2m, K5) ----------------------------
@@ -318,7 +328,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL, _I]
 _MULTI_ARGS = [_P] * 5 + [_I] * 7 + [_LL]
 _GROUPED_ARGS = [_P] * 7 + [_I] * 7 + [_LL, _I]
-_BWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL]
+_BWD_ARGS = [_P] * 11 + [_I] * 6 + [_LL]
 
 
 def launch(source: str, fn: str, argtypes, dev: torch.device, *args) -> None:
@@ -469,27 +479,58 @@ def rasterize_flat_grouped(packed: torch.Tensor, starts: torch.Tensor,
 rasterize_flat_grouped.launches = 0
 
 
+def longest_first(counts: torch.Tensor) -> torch.Tensor:
+    """The tiles by falling count (int64): K3's blocks take the longest
+    lists first, so that the last ones to start are short."""
+    return torch.argsort(counts, descending=True)
+
+
+def rasterize_flat_bwd_launch(packed, starts, counts, gauss_ids, v_img, v_alpha,
+                              t_final, last, splat, entry, width: int,
+                              height: int, tile_size: int, d_col: int,
+                              order=None) -> None:
+    """Launch K3's C entry on the outputs the caller allocated and zeroed:
+    splat (n_gauss, splat_cols(d_col)) and entry (8 + d_col, M) or None.
+    `order` (n_tiles,) int64, or None, is the order in which the blocks take
+    the tiles. Every tensor must be contiguous on one card; rasterize_flat_bwd
+    checks them."""
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    launch("rasterize_flat_bwd", "rasterize_flat_bwd", _BWD_ARGS, packed.device,
+           packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+           gauss_ids.data_ptr(), v_img.data_ptr(), v_alpha.data_ptr(),
+           t_final.data_ptr(), last.data_ptr(), _ptr(order), splat.data_ptr(),
+           _ptr(entry), width, height, tile_size, tw, tw * th, d_col,
+           packed.shape[1])
+
+
 def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
                        counts: torch.Tensor, gauss_ids: torch.Tensor,
                        n_gauss: int, v_img: torch.Tensor, v_alpha: torch.Tensor,
                        t_final: torch.Tensor, last: torch.Tensor, width: int,
-                       height: int, tile_size: int, d_col: int):
+                       height: int, tile_size: int, d_col: int,
+                       with_entries: bool = True):
     """Gradient of rasterize_flat on an f32 list -> (per-entry rows
-    (8 + d_col, M), per-splat rows (8 + d_col, n_gauss)); see
-    rasterize_flat_bwd_plain. t_final and last are the forward's
-    `with_state` planes.
+    (8 + d_col, M) or None without `with_entries`, per-splat rows
+    (8 + d_col, n_gauss)); see rasterize_flat_bwd_plain. t_final and last
+    are the forward's `with_state` planes.
 
     A CPU tensor takes rasterize_flat_bwd_plain (which replays the blend and
-    needs neither plane); a CUDA tensor launches the kernel (counted in
-    `rasterize_flat_bwd.launches`), then scatters the entry rows to splats
-    with index_add_, or raises. f16-pair payloads are refused.
+    needs neither plane); a CUDA tensor launches kernel K3 (counted in
+    `rasterize_flat_bwd.launches`), which adds each tile's rows into the
+    splats' rows itself, or raises. On the card the splat rows are a view
+    of the kernel's (n_gauss, splat_cols) output, and the per-entry rows
+    (for finding where a fault lies) cost a zeroed (8 + d_col, M) buffer.
+    f16-pair payloads and tiles other than 16 x 16 are refused.
     """
     if check_device(packed, "rasterize_flat_bwd"):
         return rasterize_flat_bwd_plain(packed, starts, counts, gauss_ids,
                                         n_gauss, v_img, v_alpha, width, height,
-                                        tile_size, d_col)
-    tw, th = _check_list(packed, starts, counts, width, height, tile_size,
-                         d_col, payload_rows(d_col, False))
+                                        tile_size, d_col, with_entries)
+    _check_list(packed, starts, counts, width, height, tile_size, d_col,
+                payload_rows(d_col, False))
+    if tile_size != 16:
+        raise ValueError(f"K3 takes 16 x 16 tiles, got tile_size={tile_size}")
     M, dev = packed.shape[1], packed.device
     planes = (("gauss_ids", gauss_ids, torch.int32, (M,)),
               ("v_img", v_img, torch.float32, (height, width, d_col)),
@@ -499,19 +540,15 @@ def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
     for name, x, dtype, shape in planes:
         if x is None or x.dtype != dtype or tuple(x.shape) != shape or x.device != dev:
             raise ValueError(f"{name} must be {dtype} {shape} on {dev}")
-    packed, starts, counts, v_img, v_alpha, t_final, last = (
-        x.contiguous() for x in (packed, starts, counts, v_img, v_alpha,
-                                 t_final, last))
-    entry = torch.zeros(grad_rows(d_col), M, dtype=torch.float32, device=dev)
-    launch("rasterize_flat_bwd", "rasterize_flat_bwd", _BWD_ARGS, dev,
-           packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-           v_img.data_ptr(), v_alpha.data_ptr(), t_final.data_ptr(),
-           last.data_ptr(), entry.data_ptr(), width, height, tile_size, tw,
-           tw * th, d_col, M)
+    tensors = [x.contiguous() for x in (packed, starts, counts, gauss_ids, v_img,
+                                        v_alpha, t_final, last)]
+    splat = torch.zeros(n_gauss, splat_cols(d_col), dtype=torch.float32, device=dev)
+    entry = (torch.zeros(grad_rows(d_col), M, dtype=torch.float32, device=dev)
+             if with_entries else None)
+    rasterize_flat_bwd_launch(*tensors, splat, entry, width, height, tile_size,
+                              d_col, longest_first(counts))
     rasterize_flat_bwd.launches += 1
-    splat = torch.zeros(grad_rows(d_col), n_gauss, dtype=torch.float32, device=dev)
-    splat.index_add_(1, gauss_ids, entry)
-    return entry, splat
+    return entry, splat[:, :grad_rows(d_col)].T
 
 
 rasterize_flat_bwd.launches = 0

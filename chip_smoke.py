@@ -12,8 +12,11 @@ Phases (any failure exits non-zero before the last line is printed):
      q/k/v as views of one fused qkv, the trunk's q/k (LayerNorm, RoPE) and
      strided v, and 3 batches whose middle one has 100x keys and values,
      each batch held to its own band;
-  4. K2 (rasterize_flat_fwd) against its plain version on a synthetic 518 px
-     scene of ~500k splats, f32 and f16-pair payloads;
+  4. K2 (rasterize_flat_fwd): its ptxas report (fails on a stack frame or a
+     spill) and the blocks an SM holds; then K2 against its plain version on
+     a synthetic 518 px scene of ~500k splats, f32 and f16-pair payloads,
+     with the share of (warp, entry) steps its warps cull and the pairs it
+     still tests;
   5. the main path through the CLI's `run(...)`: the `large` preset (ViT-L
      trunk, width 1024, 24 + 24 blocks, all five heads, the Gaussian render)
      at B=1, S=4, 518 px, random weights from a seed, fixed cameras: one
@@ -21,8 +24,11 @@ Phases (any failure exits non-zero before the last line is printed):
      them at N >= 4096, and 4 rasterizer launches) and the peak memory;
      then one model from `load_model`, one warm-up and 7 timed forwards
      through `reconstruct`, with the per-phase
-     time; then K2 against its plain version on the main path's own
-     intersection lists;
+     time; then, on the same model, one forward of 4 landscape images at
+     518 x 392 (the CLI's crop of a 4:3 photo: a 28 x 37 patch grid, 825
+     tiles): finite outputs, the same launch counts, and K2 against its
+     plain version on its 4 lists; then K2 against its plain version on the
+     main path's own intersection lists;
   6. the port on the card against the same port on the CPU (plain versions)
      for a small configuration whose heads are 64 wide;
   7. K3 (rasterize_flat_bwd): its ptxas report (fails on a stack frame or
@@ -76,13 +82,17 @@ card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32; the
 H100 SXM data sheet). K1 has two entries in the `kernels` line, one per
 JAX route it replaces: N <= 4095 (the one-pass kernel: encoder, frame
 layers, camera head) and N >= 4096 (the flash kernel: global layers). The
-rasterizers' operations are counted on the plain
-replay of this run's list (blend_pairs): every (pixel, entry) pair the blend
-tests pays TEST_FLOPS, and the pairs that pass the keep test pay
-K2_FLOPS_PER_KEPT or K3_FLOPS_PER_KEPT instead. K2 tests, per in-image
-pixel, the entries up to the one that ends its blend; K3 those up to the
-pixel's last kept one. K3's bytes are the list's entries read once (payload
-and id), the per-splat grads written once, the cotangents and the T/last
+rasterizers' work is counted on the plain replay of this run's list
+(blend_pairs), for the culled walk the kernels run: every (pixel, entry)
+pair the walk tests pays TEST_FLOPS, and the pairs that pass the keep test
+pay K2_FLOPS_PER_KEPT or K3_FLOPS_PER_KEPT instead; a pair is tested only
+where the entry's keep box reaches the pixel's warp of 8 x 4 pixels (the
+forward kernels from the entry that ends the pixel's blend on, K3 past the
+pixel's last kept entry, test nothing); each (warp, entry) step of the walk
+pays BOX_TEST_FLOPS, and each entry a tile stages KEEP_BOX_FLOPS for its
+box. The bytes count the entries a tile stages (up to the one that ends
+its last pixel, for K3 its largest last kept one), read once. K3's bytes
+are those entries (payload and id), the per-splat grads written once, the cotangents and the T/last
 planes read once; the per-entry grads, which the kernel writes only when
 asked, are not counted (phase 7 prints the bound with them beside). In the
 `kernels` line every number of an
@@ -121,6 +131,13 @@ K2_FLOPS_PER_KEPT = 25
 # d alpha, S, d sigma, d op, two mean grads, three conic grads, 4 colour
 # grads, two |.|, and the 12 rows' share of the sums over pixels
 K3_FLOPS_PER_KEPT = 60
+# a warp's test of one staged entry's keep box against its rectangle of
+# pixel centres: four compares
+BOX_TEST_FLOPS = 4
+# one staged entry's keep box (raster_common.cuh keep_box): 255 op, its log,
+# + 1e-3, det C, 0.01 ca cc, three compares, the clamp, 2.02 s, and for each
+# axis a product, a division, a square root and + 0.01, then the four edges
+KEEP_BOX_FLOPS = 24
 
 
 def log(*a):
@@ -327,15 +344,29 @@ def blend_pairs(packed, starts, counts, width, height, tile_size, d_col,
     counted on the plain replay: `kept` pairs pass the keep test and carry
     the full arithmetic; `forward` pairs are those a front-to-back blend
     with early stop tests (entries up to the one that takes T to <= 1e-4,
-    K2's work); `backward` pairs are those a back-to-front walk tests
-    (entries up to the pixel's last kept one, K3's work); `warp_walked`
-    counts the (32-pixel warp, entry) steps of that walk (entries up to
-    the warp's largest last kept one), `warp_kept` those where a pixel of
-    the warp keeps the entry."""
+    K2's work without the cull); `backward` pairs are those a back-to-front
+    walk tests (entries up to the pixel's last kept one, K3's work);
+    `warp_walked` counts the (32-pixel warp, entry) steps of that walk
+    (entries up to the warp's largest last kept one), `warp_kept` those
+    where a pixel of the warp keeps the entry. For the forward kernels'
+    warps of 8 x 4 pixels: `fwd_warp_walked` counts the (warp, entry) steps
+    of the front-to-back walk (entries up to the one that ends the warp's
+    last pixel), `fwd_warp_hit` those whose keep box reaches the warp (the
+    rest are culled), `fwd_tested` the forward pairs the kernel still
+    tests, those whose box reaches the pixel's warp, and `fwd_entries` the
+    entries a tile stages (up to the one that ends its last pixel). The
+    same for K3's warps of 8 x 4 pixels and back-to-front walk:
+    `bwd_warp_walked` (entries up to the warp's largest last kept one),
+    `bwd_tested` (the backward pairs whose box reaches the pixel's warp)
+    and `bwd_entries` (entries up to the tile's largest last kept one)."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     tw = (width + tile_size - 1) // tile_size
     lin = torch.arange(tile_size * tile_size, device=packed.device)
-    n = dict(kept=0, forward=0, backward=0, warp_walked=0, warp_kept=0)
+    mx, my = R.decode_payload(packed, d_col, f16)[:2]
+    rx0, rx1, ry0, ry1 = R.warp_rects(tile_size, packed.device)
+    n = dict(kept=0, forward=0, backward=0, warp_walked=0, warp_kept=0,
+             fwd_warp_walked=0, fwd_warp_hit=0, fwd_tested=0, fwd_entries=0,
+             bwd_warp_walked=0, bwd_tested=0, bwd_entries=0)
     for b in R.blend_groups(packed, starts, counts, width, height, tile_size,
                             d_col, f16):
         g = b.g
@@ -344,30 +375,52 @@ def blend_pairs(packed, starts, counts, width, height, tile_size, d_col,
         kept = (b.w > 0) & inside[:, None, :]
         k = torch.arange(kept.shape[1], device=packed.device)[None, :, None]
         last = torch.where(kept, k, -1).amax(dim=1)                    # (G, P)
+        fwd = (b.t_before > R.T_EPS) & b.live[..., None] & inside[:, None, :]
         n["kept"] += int(kept.sum())
-        n["forward"] += int(((b.t_before > R.T_EPS) & b.live[..., None]
-                             & inside[:, None, :]).sum())
+        n["forward"] += int(fwd.sum())
         n["backward"] += int((last + 1).sum())
         G, K, P = kept.shape
         n["warp_kept"] += int(kept.reshape(G, K, P // 32, 32).any(-1).sum())
         n["warp_walked"] += int((last.reshape(G, P // 32, 32).amax(-1) + 1).sum())
+        x0, x1, y0, y1 = (v[..., None] for v in R.keep_box(
+            mx[b.idx], my[b.idx], *(v[..., 0] for v in b.params)))     # (G, K, 1)
+        gx = ((g % tw) * tile_size).float()[:, None, None]
+        gy = ((g // tw) * tile_size).float()[:, None, None]
+        hit = ~((x1 < gx + rx0) | (x0 > gx + rx1) | (y1 < gy + ry0) | (y0 > gy + ry1))
+        n["fwd_tested"] += int((fwd & hit).sum())
+        n["fwd_entries"] += int(fwd.any(-1).sum())
+        # pixels (row-major) -> (warp rows, 4, warp columns, 8)
+        shape = (G, K, tile_size // R.WARP_H, R.WARP_H, tile_size // R.WARP_W, R.WARP_W)
+        walked = fwd.reshape(shape).any(5).any(3)
+        n["fwd_warp_walked"] += int(walked.sum())
+        n["fwd_warp_hit"] += int((walked & hit.reshape(shape)[:, :, :, 0, :, 0]).sum())
+        n["bwd_tested"] += int(((k <= last[:, None, :]) & hit).sum())
+        n["bwd_entries"] += int((last.amax(-1) + 1).sum())
+        n["bwd_warp_walked"] += int((last.reshape(shape[:1] + shape[2:]).amax(4).amax(2)
+                                     + 1).sum())
     return n
 
 
-def ops_ms(pairs, walked, flops_per_kept):
-    """Time at the f32 peak for `walked` tested pairs, of which pairs["kept"]
-    carry `flops_per_kept` operations and the rest only the keep test."""
+def ops_ms(pairs, way, flops_per_kept):
+    """Time at the f32 peak for a culled walk's operations, way "fwd" (K2's
+    loop) or "bwd" (K3's): the pairs it tests, of which pairs["kept"] carry
+    `flops_per_kept` operations and the rest only the keep test, its warps'
+    box tests, and the keep box of each entry it stages."""
     kept = pairs["kept"]
-    return (kept * flops_per_kept + (walked - kept) * TEST_FLOPS) / F32_FLOPS * 1e3
+    flops = (kept * flops_per_kept + (pairs[f"{way}_tested"] - kept) * TEST_FLOPS
+             + pairs[f"{way}_warp_walked"] * BOX_TEST_FLOPS
+             + pairs[f"{way}_entries"] * KEEP_BOX_FLOPS)
+    return flops / F32_FLOPS * 1e3
 
 
 def blend_bound(packed, starts, counts, W, H, d_col, f16, n_cams=1,
-                extra_bytes=0):
-    """A forward blend's bound on this list -> (bound_ms, bound_by, pairs):
-    the list's entries read once, starts and counts, the image and alpha
-    written once (plus `extra_bytes`), against the operations of the
-    (pixel, entry) pairs a front-to-back blend with early stop tests, over
-    each camera's segments of the list."""
+                extra_bytes=0, id_bytes=0):
+    """A forward blend's bound on this list -> (bound_ms, bound_by, pairs,
+    bytes ms, operations ms): the entries the blend stages read once (plus
+    `id_bytes` each), starts and counts, the image and alpha written once
+    (plus `extra_bytes`), against the operations of the culled front-to-back
+    walk with early stop (ops_ms), over each camera's segments of the
+    list."""
     n_tiles = starts.numel() // n_cams
     pairs = {}
     for c in range(n_cams):
@@ -375,10 +428,10 @@ def blend_bound(packed, starts, counts, W, H, d_col, f16, n_cams=1,
         for k, v in blend_pairs(packed, starts[seg], counts[seg], W, H, 16, d_col,
                                 f16).items():
             pairs[k] = pairs.get(k, 0) + v
-    byts = (int(counts.sum()) * packed.shape[0] * 4 + 2 * counts.numel() * 4
+    byts = (pairs["fwd_entries"] * (packed.shape[0] * 4 + id_bytes) + 2 * counts.numel() * 4
             + n_cams * W * H * (d_col + 1) * 4 + extra_bytes)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ms(pairs, pairs["forward"], K2_FLOPS_PER_KEPT)
+    t_ops = ops_ms(pairs, "fwd", K2_FLOPS_PER_KEPT)
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
             pairs, t_bytes, t_ops)
 
@@ -395,23 +448,42 @@ def check_blend(label, kern, plain):
     return err
 
 
+def check_order(label, order, counts):
+    """The tile order K2's C entry sorted (counts in bins max / 1023 wide)
+    against its plain version, longest_first: a permutation whose counts
+    lie, place by place, within one bin of the exact descending sort."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    n = counts.numel()
+    perm = torch.equal(order.sort().values, torch.arange(n, device=order.device))
+    got, want = counts[order].long(), counts[R.longest_first(counts)].long()
+    width = int(counts.max()) // 1023 + 1
+    if not (perm and int((got - want).abs().max()) <= width):
+        raise AssertionError(f"{label}: the tile order is not a permutation or not "
+                             f"longest first within {width}")
+
+
 def k2_check(label, bins, W, H, d_col, f16):
-    """K2 vs its plain version on one sorted list -> (err, ms, plain_ms,
-    bound_ms)."""
+    """K2 vs its plain version on one sorted list, and the tile order it
+    sorted -> (err, ms, plain_ms, bound_ms, bound_by, pairs)."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     args = (bins.packed, bins.starts, bins.counts, W, H, 16, d_col, f16)
-    err = check_blend(f"K2 {label}", lambda: R.rasterize_flat(*args),
+    order = torch.empty(bins.counts.shape, dtype=torch.int64, device=bins.counts.device)
+    err = check_blend(f"K2 {label}", lambda: R.rasterize_flat(*args, order_out=order),
                       lambda: R.rasterize_flat_plain(*args))
+    check_order(f"K2 {label}", order, bins.counts)
     ms = cuda_ms(lambda: R.rasterize_flat(*args))
     plain_ms = cuda_ms(lambda: R.rasterize_flat_plain(*args), reps=2, warmup=1)
     n_entries = int(bins.counts.sum())
     bound, by, pairs, t_bytes, t_ops = blend_bound(bins.packed, bins.starts,
                                                    bins.counts, W, H, d_col, f16)
+    culled = 1 - pairs["fwd_warp_hit"] / max(pairs["fwd_warp_walked"], 1)
     log(f"K2 {label:24s} payload {'f16' if f16 else 'f32'}  entries {n_entries}  "
-        f"pairs tested {pairs['forward']} kept {pairs['kept']}  max|d| {err:.3e} "
+        f"pairs walked {pairs['forward']} kept {pairs['kept']}, tested after the "
+        f"cull {pairs['fwd_tested']}; (warp, entry) steps {pairs['fwd_warp_walked']}, "
+        f"culled {culled:.3f}  max|d| {err:.3e} "
         f"(band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
         f"bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, operations {t_ops:.4f})")
-    return err, ms, plain_ms, bound, by
+    return err, ms, plain_ms, bound, by, pairs
 
 
 def synthetic_scene():
@@ -438,7 +510,9 @@ def synthetic_scene():
 
 
 def phase_k2_synthetic():
+    """K2's ptxas report, then K2 on the synthetic scene, both payloads."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    ptxas_check("rasterize_flat_fwd", "K2 / K2m")
     m2d, con, col, opac, rad, dep = synthetic_scene()
     for f16 in (False, True):
         bins = rasterizer.bin_splats(m2d, con, col, opac, rad, dep, 16, 33, 33,
@@ -466,11 +540,13 @@ RENDER_MPT, RENDER_TPG = 4096, 4
 def main_path_scene(preds):
     """Phase 5's compacted splats (quats xyzw) and its 4 predicted cameras
     (world->cam, intrinsics) -> (means, quats, scales, opacities, sh, w2c,
-    Ks, HW)."""
+    Ks, HW), HW the images' height (their width too, but for the landscape
+    forward)."""
     from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
     HW = preds["depth"].shape[2]
     sp = preds["splats"]
-    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0], (HW, HW))
+    ext, intr = cam_utils.vector_to_camera_matrices(preds["camera_params"][0],
+                                                    tuple(preds["depth"].shape[2:4]))
     return (sp["means"][0], sp["quats"][0][:, [1, 2, 3, 0]], sp["scales"][0],
             sp["opacities"][0], sp["sh"][0], cam_utils.to_homogeneous(ext), intr, HW)
 
@@ -524,6 +600,7 @@ def phase_main_path():
         f"min {min(totals):.2f}, max {max(totals):.2f} over {len(totals)}; "
         f"peak memory with the bf16 model resident "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    landscape_forward(model, cams)
     del model
 
     for k in ("camera_params", "depth", "pts3d", "normals", "gs_depth",
@@ -552,14 +629,54 @@ def phase_main_path():
     for c in range(S):
         bins = rasterizer.bin_camera(means, quats, scales, opac, sh, w2c[c], intr[c],
                                      HW, HW, 16, RENDER_MPT, RENDER_TPG, True)
-        err, ms, plain_ms, bound, by = k2_check(f"main path camera {c}", bins,
-                                                HW, HW, 4, True)
+        err, ms, plain_ms, bound, by, _ = k2_check(f"main path camera {c}", bins,
+                                                   HW, HW, 4, True)
         k2["err"] = max(k2["err"], err)
         k2["ms"] += ms
         k2["plain_ms"] += plain_ms
         k2["bound_ms"] += bound
         k2["by"].add(by)
     return launches, k2, preds, imgs
+
+
+# a 4:3 photo as the CLI's default crop mode makes it: 518 wide, 392 tall
+# (a 28 x 37 patch grid; 33 x 25 = 825 tiles, the bottom row partial)
+LANDSCAPE_HW = (392, 518)
+
+
+def landscape_forward(model, cams):
+    """One forward of phase 5's model on S = 4 landscape images: finite
+    outputs of the landscape's shape, 88 K1 launches (24 at N >= 4096) and 4
+    K2 launches, then K2 against its plain version on its 4 lists."""
+    from hunyuanworld_mirror_tpu_torch.infer import reconstruct
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer, rasterizer_flat
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
+    H, W = LANDSCAPE_HW
+    S = cams.shape[1]
+    imgs = np.random.default_rng(2).uniform(size=(1, S, H, W, 3)).astype(np.float32)
+    attention.launches = attention.flash_route_launches = 0
+    rasterizer_flat.rasterize_flat.launches = 0
+    preds = reconstruct(model, imgs, cams)
+    torch.cuda.synchronize()
+    launches = (attention.launches, attention.flash_route_launches,
+                rasterizer_flat.rasterize_flat.launches)
+    log(f"landscape {W}x{H} forward: launches (K1, K1 at N >= 4096, K2) {launches}; "
+        f"intersections {preds['render_n_isects'].tolist()}  mean alpha "
+        f"{float(preds['rendered_alphas'].mean()):.4f}")
+    if launches != (88, 24, 4):
+        raise AssertionError(f"landscape forward: launches {launches} != (88, 24, 4)")
+    for k, shp in (("depth", (1, S, H, W, 1)), ("rendered_colors", (1, S, H, W, 3)),
+                   ("pts3d", (1, S, H, W, 3))):
+        if tuple(preds[k].shape) != shp or not torch.isfinite(preds[k]).all():
+            raise AssertionError(f"landscape forward: {k} {tuple(preds[k].shape)} "
+                                 f"not finite or != {shp}")
+    means, quats, scales, opac, sh, w2c, intr, _ = main_path_scene(preds)
+    for c in range(S):
+        bins = rasterizer.bin_camera(means, quats, scales, opac, sh, w2c[c], intr[c],
+                                     W, H, 16, RENDER_MPT, RENDER_TPG, True)
+        if bins.starts.numel() != 825:
+            raise AssertionError(f"landscape list: {bins.starts.numel()} tiles")
+        k2_check(f"{W}x{H} camera {c}", bins, W, H, 4, True)
 
 
 # --- K3 -----------------------------------------------------------------------
@@ -578,25 +695,31 @@ K2_STATE_BAND = 2e-3
 K2_LAST_MISMATCH = 1e-3
 
 
-def k3_ptxas():
-    """K3's ptxas report (every D instance): registers, stack, spills, and
-    the blocks an SM holds at 16 x 16 tiles and D = 4 (65,536 registers
-    and 228 KB an SM, registers allocated 256 to a warp, 1 KB reserved a
-    block). Fails on a stack frame or a spill."""
+def ptxas_check(source, label):
+    """A rasterizer source's ptxas report (every kernel instance):
+    registers, stack, spills, and the blocks an SM holds at 16 x 16 tiles
+    and D = 4 (the D = 4 instance's registers; 65,536 registers and 228 KB
+    an SM, registers allocated 256 to a warp, 1 KB reserved a block, at
+    most 32 blocks and 2,048 threads). Fails on a stack frame or a spill."""
     from hunyuanworld_mirror_tpu_torch.ops import _build
-    report = (_build.BUILD_DIR / "rasterize_flat_bwd.ptxas.txt").read_text()
+    report = (_build.BUILD_DIR / f"{source}.ptxas.txt").read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
     frames = [int(n) for n in re.findall(r"(\d+) bytes stack frame", report)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
-    lib = _build.load("rasterize_flat_bwd")
-    threads, smem = lib.rasterize_flat_bwd_threads(16), lib.rasterize_flat_bwd_smem(16, 4)
-    by_regs = 65536 // (math.ceil(max(regs) * 32 / 256) * 256 * (threads // 32))
-    blocks = min(2048 // threads, by_regs, (228 * 1024) // (smem + 1024))
-    log(f"K3 ptxas (D = 1..8): registers {regs}, stack frames {frames}, spills "
-        f"{spills}; {threads} threads and {smem} B of shared memory a block at "
-        f"D = 4; {blocks} blocks an SM")
+    # each entry function's name (D = 4: template argument "ILi4E") and registers
+    entries = re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) registers",
+                         report, re.S)
+    regs4 = [int(r) for name, r in entries if "ILi4E" in name] or regs
+    lib = _build.load(source)
+    threads = getattr(lib, f"{source}_threads")(16)
+    smem = getattr(lib, f"{source}_smem")(16, 4)
+    by_regs = 65536 // (math.ceil(max(regs4) * 32 / 256) * 256 * (threads // 32))
+    blocks = min(32, 2048 // threads, by_regs, (228 * 1024) // (smem + 1024))
+    log(f"{label} ptxas: registers {regs} ({max(regs4)} at D = 4), stack frames "
+        f"{frames}, spills {spills}; {threads} threads and {smem} B of shared "
+        f"memory a block at D = 4; {blocks} blocks an SM ({blocks * threads} threads)")
     if any(frames) or any(spills) or not regs:
-        raise AssertionError("K3: ptxas reports a stack frame or a spill")
+        raise AssertionError(f"{label}: ptxas reports a stack frame or a spill")
 
 
 def tile_walks(last, W, H, tile_size=16):
@@ -660,19 +783,20 @@ def k3_check(label, bins, W, H, d_col, n_gauss, gen):
     n_entries = int(bins.counts.sum())
     rows = R.grad_rows(d_col)
     pairs = blend_pairs(*fwd)
-    # the list's entries (payload, id) read once, the per-splat rows written
-    # once, the cotangents and K2's T / last planes read once, starts, counts
-    byts = (n_entries * (bins.packed.shape[0] + 1) * 4 + n_gauss * rows * 4
+    # the entries the walks stage (payload, id) read once, the per-splat rows
+    # written once, the cotangents and K2's T / last planes read once,
+    # starts, counts
+    byts = (pairs["bwd_entries"] * (bins.packed.shape[0] + 1) * 4 + n_gauss * rows * 4
             + W * H * ((d_col + 1) * 4 + 8) + 2 * bins.counts.numel() * 4)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     # the same with the per-entry rows written, which the training path skips
     t_bytes_entries = (byts + n_entries * rows * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ms(pairs, pairs["backward"], K3_FLOPS_PER_KEPT)
+    t_ops = ops_ms(pairs, "bwd", K3_FLOPS_PER_KEPT)
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes > t_ops else "operations"
     walks, counts = tile_walks(last, W, H), bins.counts.float()
-    log(f"K3 {label:24s} entries {n_entries}  pairs tested {pairs['backward']} "
-        f"kept {pairs['kept']}  max|d| {err:.3e} (rows within {K3_REL_BAND:.0e} "
+    log(f"K3 {label:24s} entries {n_entries}  pairs walked {pairs['backward']}, tested "
+        f"after the box skip {pairs['bwd_tested']}, kept {pairs['kept']}  max|d| {err:.3e} (rows within {K3_REL_BAND:.0e} "
         f"of max|plain|)  K2 state max|dT| {t_err:.1e} last differs "
         f"{last_bad:.1e}  wrapper {ms:.4f} ms  C entry {entry_ms:.4f} ms  plain "
         f"{plain_ms:.2f} ms  bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, "
@@ -728,7 +852,7 @@ def k3_cameras(label, means, quats_xyzw, scales, opac, sh, w2c, Ks, HW,
 def phase_k3(preds):
     """K3's ptxas report, then K3 on the synthetic scene and on the lists of
     the main path's splats."""
-    k3_ptxas()
+    ptxas_check("rasterize_flat_bwd", "K3 (D = 1..8)")
     gen = torch.Generator(device="cuda").manual_seed(7)
     phase_k3_synthetic(gen)
     means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
@@ -1043,8 +1167,8 @@ def phase_k4(preds):
         starts = (torch.cumsum(bins.counts.long(), 0) - bins.counts).to(torch.int32)
         n_live = int(bins.counts.sum())
         bound, by, pairs, t_bytes, t_ops = blend_bound(
-            packed, starts, bins.counts, HW, HW, 4, False,
-            extra_bytes=n_live * 4 - bins.counts.numel() * 4)
+            packed, starts, bins.counts, HW, HW, 4, False, id_bytes=4,
+            extra_bytes=-bins.counts.numel() * 4)
         log(f"K4 camera {c}: live slots {n_live}, n_dropped {int(bins.n_dropped)}  "
             f"pairs tested {pairs['forward']} kept {pairs['kept']}  max|d| {err:.3e} "
             f"(band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "

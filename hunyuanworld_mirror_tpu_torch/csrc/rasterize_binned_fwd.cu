@@ -19,10 +19,11 @@
 // The TPU route first gathered a (n_tiles, max_per_tile, 6 + D) staging
 // copy of the table through the ids (178 MB per camera at 4096 per tile),
 // because an XLA gather beat a per-row DMA from inside its kernel. This
-// kernel needs no such copy: it is K2's structure with one indirection. A
-// block of tile_size^2 threads per tile stages a batch of blockDim entries
-// in shared memory, each thread reading one id and then that splat's 40-byte
-// row, and every thread walks the batch for its pixel. What bounds it on
+// kernel needs no such copy: it is K2's loop with one indirection. A block
+// of tile_size^2 threads per tile stages a batch of blockDim entries in
+// shared memory, each thread reading one id and then that splat's 40-byte
+// row (and computing its keep box), and each warp of 8 x 4 pixels walks the
+// entries whose box reaches it. What bounds it on
 // this card: K2's per-pair arithmetic on the FP32 pipes, against 4 bytes of
 // id plus one (6 + D)-float row per live entry; the rows are scattered
 // reads, so the byte side costs whole 32-byte sectors.
@@ -33,30 +34,26 @@
 
 namespace {
 
+template <int D>
 __global__ void raster_binned_kernel(const float* __restrict__ table,
                                      const int* __restrict__ ids,
                                      const int* __restrict__ counts,
                                      float* __restrict__ out, float* __restrict__ alpha_out,
                                      int width, int height, int tile_size, int tiles_x,
-                                     int d_col, int max_per_tile) {
-  extern __shared__ float sm[];
+                                     int max_per_tile) {
+  extern __shared__ __align__(16) float sm[];
   const raster::Batch b(sm, blockDim.x);
   const int t = blockIdx.x;
-  raster::Pixel pixel;
-  const long long p = pixel.init(t, tiles_x, tile_size, width, height);
+  raster::Pixel<D> pixel;
+  const long long p = pixel.init(t, threadIdx.x >> 5, tiles_x, tile_size, width, height);
   const int* tile_ids = ids + static_cast<long long>(t) * max_per_tile;
-  const int row_len = 6 + d_col;
-  raster::blend_tile(b, min(counts[t], max_per_tile), d_col, pixel, [&](int j, int s) {
+  constexpr int row_len = 6 + D;
+  raster::blend_tile(b, min(counts[t], max_per_tile), pixel, [&](int j, int s) {
     const float* row = table + static_cast<long long>(tile_ids[j]) * row_len;
-    b.mx[s] = row[0];
-    b.my[s] = row[1];
-    b.ca[s] = row[2];
-    b.cb[s] = row[3];
-    b.cc[s] = row[4];
-    b.op[s] = row[5];
-    for (int c = 0; c < d_col; ++c) b.col[c * b.nthr + s] = row[6 + c];
+    b.put(s, {row[0], row[1], row[2], row[3], row[4], row[5]});
+    for (int c = 0; c < D; ++c) b.col[c * b.nthr + s] = row[6 + c];
   });
-  if (p >= 0) pixel.write(p, d_col, out, alpha_out, nullptr, nullptr);
+  if (p >= 0) pixel.write(p, out, alpha_out, nullptr, nullptr);
 }
 
 }  // namespace
@@ -66,13 +63,17 @@ extern "C" int rasterize_binned_fwd(const void* table, const void* ids, const vo
                                     int tile_size, int tiles_x, int n_tiles, int d_col,
                                     int max_per_tile, void* stream) {
   const int nthr = tile_size * tile_size;
-  if (d_col < 1 || d_col > raster::MAX_D || nthr > 1024 || n_tiles < 1 || max_per_tile < 1)
+  if (d_col < 1 || d_col > raster::MAX_D || !raster::tile_fits(tile_size, 1024) ||
+      n_tiles < 1 || max_per_tile < 1)
     return int(cudaErrorInvalidValue);
-  raster_binned_kernel<<<n_tiles, nthr, raster::batch_smem(nthr, d_col),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(ids),
-      static_cast<const int*>(counts), static_cast<float*>(out),
-      static_cast<float*>(alpha_out), width, height, tile_size, tiles_x, d_col,
-      max_per_tile);
-  return int(cudaGetLastError());
+  return raster::with_d_col(d_col, [&](auto d) {
+    raster_binned_kernel<decltype(d)::value>
+        <<<n_tiles, nthr, raster::batch_smem(nthr, d_col),
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(table), static_cast<const int*>(ids),
+            static_cast<const int*>(counts), static_cast<float*>(out),
+            static_cast<float*>(alpha_out), width, height, tile_size, tiles_x,
+            max_per_tile);
+    return int(cudaGetLastError());
+  });
 }

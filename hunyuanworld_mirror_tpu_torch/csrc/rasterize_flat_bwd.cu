@@ -194,27 +194,15 @@ raster_flat_bwd_kernel(const float* __restrict__ packed, const int* __restrict__
     __syncthreads();
     if (BBOX) {
       for (int i = tid; i < nb; i += nthr) {
-        // op e^-sigma >= 1/255 needs sigma <= lim = ln(255 op) (+ 1e-3, ~1000x
-        // the rounding of logf, expf and the product). sigma = x^T C x / 2
-        // <= s holds |dx| <= sqrt(2 s cc / det C), |dy| <= sqrt(2 s ca /
-        // det C). With det C >= ca cc / 100, sigma's rounding is < 1e-4 of
-        // sigma, far inside the 1% on s, and 0.01 px covers the rounding of
-        // dx, dy: the box never drops a pair the exact test keeps. Otherwise
-        // (or NaN) the box is infinite.
-        const float lim = logf(255.f * s_pl[5 * BATCH + i]) + 1e-3f;
-        const float ca = s_pl[2 * BATCH + i], cb = s_pl[3 * BATCH + i];
-        const float cc = s_pl[4 * BATCH + i];
-        const float det = ca * cc - cb * cb;
-        float rx = __int_as_float(0x7f800000), ry = rx;  // +inf
-        if (ca > 0.f && cc > 0.f && det >= 0.01f * ca * cc) {
-          const float s2 = 2.02f * fmaxf(lim, 0.f);
-          rx = sqrtf(s2 * cc / det) + 0.01f;
-          ry = sqrtf(s2 * ca / det) + 0.01f;
-        }
-        s_box[i] = s_pl[i] - rx;
-        s_box[BATCH + i] = s_pl[i] + rx;
-        s_box[2 * BATCH + i] = s_pl[BATCH + i] - ry;
-        s_box[3 * BATCH + i] = s_pl[BATCH + i] + ry;
+        // K2's keep box (raster_common.cuh): no pair the keep test keeps
+        // lies outside it
+        const float4 box =
+            raster::keep_box(s_pl[i], s_pl[BATCH + i], s_pl[2 * BATCH + i],
+                             s_pl[3 * BATCH + i], s_pl[4 * BATCH + i], s_pl[5 * BATCH + i]);
+        s_box[i] = box.x;
+        s_box[BATCH + i] = box.y;
+        s_box[2 * BATCH + i] = box.z;
+        s_box[3 * BATCH + i] = box.w;
       }
       __syncthreads();
     }

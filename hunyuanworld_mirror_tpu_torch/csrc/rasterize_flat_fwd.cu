@@ -6,8 +6,8 @@
 // (public entry rasterize_flat_pallas): one camera. K2m
 // (rasterize_flat_multi_fwd) is its launch with n_tiles != 0 from
 // _forward_flat_multi (public entry rasterize_flat_pallas_multi): C cameras
-// binned into one sorted list by ops/tiles.bin_gaussians_packed_multi, block
-// b blending camera b / n_tiles, tile b % n_tiles. Input is a (tile | depth)-
+// binned into one sorted list by ops/tiles.bin_gaussians_packed_multi,
+// segment s being camera s / n_tiles, tile s % n_tiles. Input is a (tile | depth)-
 // sorted, component-major intersection list: list segment s owns entries
 // [starts[s], starts[s] + counts[s]) of packed (V, M).
 //
@@ -21,16 +21,40 @@
 // two agree to f32 reassociation.
 //
 // What bounds it on this card: the per-(pixel, entry) arithmetic on the FP32
-// pipes, the keep test (~10 operations) for each of 256 pixels per entry and
-// ~25 for the few pairs kept, against 24-40 bytes of payload per entry read
-// once by one block; early termination cuts both.
-// Design (the gsplat forward structure): one block of tile_size^2 threads
-// per tile, one thread per pixel. The block stages a batch of blockDim
-// entries into shared memory cooperatively (one entry per thread, decoded to
-// f32 there), then every thread walks the batch with its own transmittance.
-// The block leaves as soon as __syncthreads_count says every pixel is done.
+// pipes, the keep test (~10 operations) for each pixel and entry and ~25 for
+// the few pairs kept (~3% of the pairs an unculled walk tests at 518 px),
+// against 24-40 bytes of payload per entry read once; early termination
+// cuts both. Design (raster_common.cuh): one block of 256 threads per tile,
+// one thread per pixel, each warp a block of 8 x 4 pixels; the block stages
+// a batch of blockDim entries into shared memory cooperatively (one entry
+// per thread, decoded to f32, with the box outside which the entry passes
+// no pixel's keep test), then each warp tests 32 of the staged boxes
+// against its own pixels in one step and walks only the entries that hit (a
+// ballot, in ascending order, two hits a step with their keep tests
+// interleaved), each thread with its own transmittance. The block leaves as
+// soon as __syncthreads_count says every pixel is done. What each piece
+// does about the bound:
+//   * the cull leaves the keep test only the (warp, entry) steps whose box
+//     reaches the warp's pixels (~21% of them on the main path's lists); a
+//     skipped entry is one no pixel of the warp keeps, so every pixel
+//     blends exactly what it blended without it;
+//   * the blocks take the tiles longest first, so that the last wave is
+//     short: before the blend, one block of ORDER_BINS threads buckets the
+//     tiles by count (a counting sort, a few microseconds, where
+//     torch.argsort took ~28) and writes the order, which the training path
+//     hands on to K3;
+//   * one instance per colour width D (raster::with_d_col): the colour
+//     loops of the kept pairs unrolled, no accumulator for an absent
+//     channel, 47 registers at D = 4 instead of 64, so 5 blocks an SM;
+//   * each staged entry one float4 (mx, my, ca, cb) and one float2
+//     (cc, op), so that a pair's keep test takes two shared loads, not six.
+// (Measured and dropped, tools/k2_ab.py --variants: a tile split over 2 or
+// 4 blocks, which wait at fewer warps' barriers but stage and box every
+// entry 2 or 4 times; warps of 16 x 2 pixels; a serial box check; a cap on
+// the registers for more blocks an SM.)
 // K2m differs only in its grid: all C cameras' tiles in one launch, the
-// camera's image at offset camera * height * width of the output.
+// camera's image at offset camera * height * width of the output, the
+// segments taken in the order the wrapper gives over all cameras.
 //
 // Payload: f32 or f16 pairs (raster_common.cuh stage_list_entry); the f16
 // decode keeps the JAX decode's flush-to-zero of subnormals. K2m takes the
@@ -48,63 +72,138 @@
 
 namespace {
 
-__global__ void raster_flat_kernel(const float* __restrict__ packed,
-                                   const int* __restrict__ starts,
-                                   const int* __restrict__ counts,
-                                   float* __restrict__ out, float* __restrict__ alpha_out,
-                                   float* __restrict__ t_final, int* __restrict__ last_out,
-                                   int width, int height, int tile_size, int tiles_x,
-                                   int n_tiles, int d_col, long long M, int f16) {
-  extern __shared__ float sm[];
-  const raster::Batch b(sm, blockDim.x);
-  const int seg = blockIdx.x;
-  const int cam = seg / n_tiles;
-  raster::Pixel pixel;
-  const long long p = pixel.init(seg - cam * n_tiles, tiles_x, tile_size, width, height);
-  const long long start = starts[seg];
-  raster::blend_tile(b, counts[seg], d_col, pixel, [&](int j, int s) {
-    raster::stage_list_entry(b, s, packed, M, start + j, d_col, f16);
-  });
-  if (p >= 0)
-    pixel.write(static_cast<long long>(cam) * width * height + p, d_col, out, alpha_out,
-                t_final, last_out);
+// A block's threads at most: one per pixel of a 16 x 16 tile.
+constexpr int MAX_THREADS = 256;
+constexpr int ORDER_BINS = 1024;
+
+// The segments longest first, into order (n,): one block of ORDER_BINS
+// threads puts each segment in one of ORDER_BINS bins by count (the longest
+// in bin 0, bins max count / (ORDER_BINS - 1) wide), scans the bins' sizes
+// and scatters each segment's index to its bin's next free slot. Within a
+// bin the order is the atomics' (it does not change what a tile blends).
+__global__ void __launch_bounds__(ORDER_BINS)
+longest_first_kernel(const int* __restrict__ counts, int n, long long* __restrict__ order) {
+  __shared__ int s_bin[ORDER_BINS];
+  __shared__ int s_warp[ORDER_BINS / 32];
+  __shared__ int s_top;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int top = 0;
+  for (int i = tid; i < n; i += ORDER_BINS) top = max(top, counts[i]);
+  top = __reduce_max_sync(raster::FULL_MASK, top);
+  if (tid == 0) s_top = 1;
+  s_bin[tid] = 0;
+  __syncthreads();
+  if (lane == 0) atomicMax(&s_top, top);
+  __syncthreads();
+  const long long scale = s_top;
+  const auto bin_of = [&](int c) {
+    return ORDER_BINS - 1 - int(static_cast<long long>(max(c, 0)) * (ORDER_BINS - 1) / scale);
+  };
+  for (int i = tid; i < n; i += ORDER_BINS) atomicAdd(&s_bin[bin_of(counts[i])], 1);
+  __syncthreads();
+  // exclusive scan of the bins' sizes: in each warp, then over the warps
+  const int size = s_bin[tid];
+  int x = size;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(raster::FULL_MASK, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = s_warp[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(raster::FULL_MASK, w, o);
+      if (lane >= o) w += y;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  s_bin[tid] = x - size + (warp > 0 ? s_warp[warp - 1] : 0);
+  __syncthreads();
+  for (int i = tid; i < n; i += ORDER_BINS) order[atomicAdd(&s_bin[bin_of(counts[i])], 1)] = i;
 }
 
-int launch(const void* packed, const void* starts, const void* counts, void* out,
-           void* alpha_out, void* t_final, void* last_out, int width, int height,
-           int tile_size, int tiles_x, int n_tiles, int n_cams, int d_col, long long M,
-           int f16, void* stream) {
+template <int D>
+__global__ void __launch_bounds__(MAX_THREADS)
+raster_flat_kernel(const float* __restrict__ packed, const int* __restrict__ starts,
+                   const int* __restrict__ counts, const long long* __restrict__ order,
+                   float* __restrict__ out, float* __restrict__ alpha_out,
+                   float* __restrict__ t_final, int* __restrict__ last_out, int width,
+                   int height, int tile_size, int tiles_x, int n_tiles, long long M,
+                   int f16) {
+  extern __shared__ __align__(16) float sm[];
+  const raster::Batch b(sm, blockDim.x);
+  const int seg = order != nullptr ? int(order[blockIdx.x]) : blockIdx.x;
+  const int cam = seg / n_tiles;
+  raster::Pixel<D> pixel;
+  const long long p = pixel.init(seg - cam * n_tiles, threadIdx.x >> 5, tiles_x, tile_size,
+                                 width, height);
+  const long long start = starts[seg];
+  raster::blend_tile(b, counts[seg], pixel, [&](int j, int s) {
+    raster::stage_list_entry(b, s, packed, M, start + j, D, f16);
+  });
+  if (p >= 0)
+    pixel.write(static_cast<long long>(cam) * width * height + p, out, alpha_out, t_final,
+                last_out);
+}
+
+int launch(const void* packed, const void* starts, const void* counts, void* order,
+           void* out, void* alpha_out, void* t_final, void* last_out, int width,
+           int height, int tile_size, int tiles_x, int n_tiles, int n_cams, int d_col,
+           long long M, int f16, void* stream) {
   const int nthr = tile_size * tile_size;
-  if (d_col < 1 || d_col > raster::MAX_D || nthr > 1024 || n_tiles < 1 || n_cams < 1)
+  if (d_col < 1 || d_col > raster::MAX_D || !raster::tile_fits(tile_size, MAX_THREADS) ||
+      n_tiles < 1 || n_cams < 1)
     return int(cudaErrorInvalidValue);
-  raster_flat_kernel<<<n_tiles * n_cams, nthr, raster::batch_smem(nthr, d_col),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(packed), static_cast<const int*>(starts),
-      static_cast<const int*>(counts), static_cast<float*>(out),
-      static_cast<float*>(alpha_out), static_cast<float*>(t_final),
-      static_cast<int*>(last_out), width, height, tile_size, tiles_x, n_tiles, d_col, M,
-      f16);
-  return int(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (order != nullptr)
+    longest_first_kernel<<<1, ORDER_BINS, 0, s>>>(static_cast<const int*>(counts),
+                                                 n_tiles * n_cams,
+                                                 static_cast<long long*>(order));
+  return raster::with_d_col(d_col, [&](auto d) {
+    raster_flat_kernel<decltype(d)::value>
+        <<<n_tiles * n_cams, nthr, raster::batch_smem(nthr, d_col), s>>>(
+            static_cast<const float*>(packed), static_cast<const int*>(starts),
+            static_cast<const int*>(counts), static_cast<const long long*>(order),
+            static_cast<float*>(out), static_cast<float*>(alpha_out),
+            static_cast<float*>(t_final), static_cast<int*>(last_out), width, height,
+            tile_size, tiles_x, n_tiles, M, f16);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
+// order (n_tiles,) int64 receives the tiles longest first, the order in which
+// the blocks take them; null: the blocks take them in index order.
 extern "C" int rasterize_flat_fwd(const void* packed, const void* starts, const void* counts,
-                                  void* out, void* alpha_out, void* t_final,
-                                  void* last_out, int width, int height,
+                                  void* order, void* out, void* alpha_out,
+                                  void* t_final, void* last_out, int width, int height,
                                   int tile_size, int tiles_x, int n_tiles, int d_col,
                                   long long M, int f16, void* stream) {
-  return launch(packed, starts, counts, out, alpha_out, t_final, last_out, width, height,
-                tile_size, tiles_x, n_tiles, 1, d_col, M, f16, stream);
+  return launch(packed, starts, counts, order, out, alpha_out, t_final, last_out, width,
+                height, tile_size, tiles_x, n_tiles, 1, d_col, M, f16, stream);
 }
 
 // out (n_cams, height, width, d_col), alpha_out (n_cams, height, width);
-// starts / counts camera-major, n_cams * n_tiles long.
+// starts / counts camera-major, n_cams * n_tiles long; order, or null, as
+// rasterize_flat_fwd's over those n_cams * n_tiles segments.
 extern "C" int rasterize_flat_multi_fwd(const void* packed, const void* starts,
-                                        const void* counts, void* out, void* alpha_out,
-                                        int width, int height, int tile_size, int tiles_x,
-                                        int n_tiles, int n_cams, int d_col, long long M,
-                                        void* stream) {
-  return launch(packed, starts, counts, out, alpha_out, nullptr, nullptr, width, height,
-                tile_size, tiles_x, n_tiles, n_cams, d_col, M, 0, stream);
+                                        const void* counts, void* order, void* out,
+                                        void* alpha_out, int width, int height,
+                                        int tile_size, int tiles_x, int n_tiles,
+                                        int n_cams, int d_col, long long M, void* stream) {
+  return launch(packed, starts, counts, order, out, alpha_out, nullptr, nullptr, width,
+                height, tile_size, tiles_x, n_tiles, n_cams, d_col, M, 0, stream);
+}
+
+// Threads a block (a tile's pixels), and its dynamic shared memory in bytes
+// (for occupancy arithmetic).
+extern "C" int rasterize_flat_fwd_threads(int tile_size) { return tile_size * tile_size; }
+
+extern "C" int rasterize_flat_fwd_smem(int tile_size, int d_col) {
+  return static_cast<int>(raster::batch_smem(tile_size * tile_size, d_col));
 }

@@ -1,13 +1,15 @@
 """DINOv2-style ViT encoder (patch-feature extractor).
 
 Port of hunyuanworld_mirror_tpu/models/dinov2.py `forward_features`: conv
-patchify, cls + register tokens, learned pos embed, pre-LN blocks (no
-QK-norm, LayerScale, LayerNorm eps 1e-6), final LayerNorm; returns the
-normalized patch tokens. State-dict names follow the reference DINOv2
+patchify, cls + register tokens, learned pos embed (resampled to the image's patch
+grid as `interpolate_pos_embed` does), pre-LN blocks (no QK-norm,
+LayerScale, LayerNorm eps 1e-6), final LayerNorm; returns the normalized
+patch tokens. State-dict names follow the reference DINOv2
 (`patch_embed.proj`, `cls_token`, `register_tokens`, `pos_embed`,
 `mask_token`, `blocks.{i}`, `norm`).
 """
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -36,6 +38,66 @@ VIT_FACTORIES = {
     "dinov2_vitb14_reg": DinoViTConfig(embed_dim=768, depth=12, num_heads=12),
     "dinov2_vitl14_reg": DinoViTConfig(embed_dim=1024, depth=24, num_heads=16),
 }
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """The Keys cubic kernel at a = -0.5 (jax.image's "bicubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of jax.image.resize(..., "bicubic",
+    antialias=True) along one axis, in its own f32 arithmetic
+    (jax.image.scale.compute_weight_mat at translation 0): sample centres at
+    (i + 0.5) / scale - 0.5, the kernel widened by 1 / scale when
+    downsampling, each output's weights normalised, and zero for a sample
+    centre outside the input."""
+    f32 = torch.float32
+    inv = 1.0 / torch.tensor(n_out / n_in, dtype=f32)
+    kernel_scale = torch.clamp_min(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=f32) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=f32)[:, None]).abs() / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(f32).eps
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_weights_on(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """resize_weights on `device`, built once per (sizes, device): the CLI's
+    crop makes every photo of one aspect the same grid."""
+    return resize_weights(n_in, n_out).to(device)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, patch_size: int, h: int,
+                          w: int) -> torch.Tensor:
+    """The (1, N + 1, D) pos embed for an (h / p, w / p) patch grid: the
+    (m, m) grid of N = m^2 positions resampled in f32 with
+    jax.image.resize's antialiased bicubic, one (in, out) weight matrix per
+    axis that changes size, then cast back to the embed's dtype behind the
+    unchanged cls row. Port of hunyuanworld_mirror_tpu/models/dinov2.py
+    `interpolate_pos_embed`; torch's own bicubic (a = -0.75, another
+    antialias) computes another function."""
+    n = pos_embed.shape[1] - 1
+    h0, w0 = h // patch_size, w // patch_size
+    if n == h0 * w0 and h == w:
+        return pos_embed
+    m = int(round(n ** 0.5))
+    grid = pos_embed[0, 1:].reshape(m, m, -1).float()
+    dev = pos_embed.device
+    if h0 != m:
+        grid = torch.einsum("hwd,ho->owd", grid, _resize_weights_on(m, h0, dev))
+    if w0 != m:
+        grid = torch.einsum("hwd,wo->hod", grid, _resize_weights_on(m, w0, dev))
+    patch = grid.reshape(1, h0 * w0, -1).to(pos_embed.dtype)
+    return torch.cat([pos_embed[:, :1], patch], dim=1)
 
 
 class PatchEmbed(nn.Module):
@@ -75,24 +137,14 @@ class DinoVisionTransformer(nn.Module):
         trunc_normal_(self.pos_embed, 0.02, gen)
         nn.init.zeros_(self.mask_token)
 
-    def _pos_embed(self, h: int, w: int):
-        n = self.pos_embed.shape[1] - 1
-        p = self.cfg.patch_size
-        if n == (h // p) * (w // p) and h == w:
-            return self.pos_embed
-        # the JAX package resamples with jax.image.resize bicubic + antialias
-        # (Keys a = -0.5); torch's bicubic uses a = -0.75, so it is not ported
-        raise NotImplementedError(
-            f"pos-embed resampling from {n} positions to a {h // p}x{w // p} "
-            "grid is not ported; use the configured img_size")
-
     def forward_features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) ImageNet-normalized images -> (B, h*w, D) tokens."""
         B, H, W, _ = images.shape
         dtype = images.dtype
         x = self.patch_embed(images)
         cls = self.cls_token.to(dtype).expand(B, 1, -1)
-        x = torch.cat([cls, x], dim=1) + self._pos_embed(H, W).to(dtype)
+        pos = interpolate_pos_embed(self.pos_embed, self.cfg.patch_size, H, W)
+        x = torch.cat([cls, x], dim=1) + pos.to(dtype)
         regs = self.register_tokens.to(dtype).expand(B, -1, -1)
         x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
         for blk in self.blocks:

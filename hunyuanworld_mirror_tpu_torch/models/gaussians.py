@@ -38,7 +38,7 @@ class GSRendererConfig:
     enable_compact: bool = True
     max_per_tile: int = 4096
     max_tiles_per_gauss: int = 4
-    tile_size: int = 16
+    tile_size: int = 16   # 8 or 16 on the card (ops.rasterizer_flat.KERNEL_TILE_SIZES)
     payload_f16: bool = True
 
     @property

@@ -23,9 +23,9 @@ import torch
 from .. import resolve_device
 from ..utils import sh as sh_utils
 from . import projection, tiles
-from .rasterizer_flat import (group_windows, pack_f16_pairs, rasterize_flat,
-                              rasterize_flat_bwd, rasterize_flat_grouped,
-                              rasterize_flat_multi)
+from .rasterizer_flat import (group_windows, longest_first, pack_f16_pairs,
+                              rasterize_flat, rasterize_flat_bwd,
+                              rasterize_flat_grouped, rasterize_flat_multi)
 
 
 def _colors(colors, means, viewmat):
@@ -104,17 +104,21 @@ def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
 
 def blend_flat(bins: tiles.FlatBins, width: int, height: int, tile_size: int,
                d_col: int, f16: bool, max_per_tile: int,
-               with_state: bool = False):
+               with_state: bool = False, order_out=None):
     """The flat forward of one camera's list, K2 or, with WM_RASTER_GROUP =
     G > 1, K5 on the segments clamped to their group windows ->
     (rasterize_flat's outputs, the starts and counts blended, n_dropped
-    including the entries the windows cut). WM_RASTER_GROUP is read at every
-    call, as rasterizer_pallas._flat_fwd reads it."""
+    including the entries the windows cut). `order_out` receives the order
+    in which K2's blocks took the tiles (longest_first(counts) on the K5
+    route). WM_RASTER_GROUP is read at every call, as
+    rasterizer_pallas._flat_fwd reads it."""
     group = int(os.environ.get("WM_RASTER_GROUP", "1"))
     if group <= 1:
         outs = rasterize_flat(bins.packed, bins.starts, bins.counts, width,
-                              height, tile_size, d_col, f16, with_state)
+                              height, tile_size, d_col, f16, with_state, order_out)
         return outs, bins.starts, bins.counts, bins.n_dropped
+    if order_out is not None:
+        order_out.copy_(longest_first(bins.counts))
     starts, counts, extra = group_windows(bins.starts, bins.counts, group,
                                           max_per_tile, bins.packed.shape[1])
     outs = rasterize_flat_grouped(bins.packed, starts, counts, width, height,
@@ -141,6 +145,10 @@ class RasterizeFlat(torch.autograd.Function):
     JAX backward re-bins with the unclamped counts, so the two agree only
     where no group overflows its window.
 
+    K2 sorts the tiles by falling count and its blocks take them in that
+    order; forward saves the order, and K3's blocks take the tiles in it
+    too.
+
     backward holds no per-entry buffer: K3 walks each tile back to front
     (its pixels over 4 blocks, a warp to 8 x 4 pixels, the tiles longest
     first), skips for a whole warp the entries whose alpha >= 1/255 ellipse
@@ -164,11 +172,13 @@ class RasterizeFlat(torch.autograd.Function):
                           tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
                           False, with_ids=True)
         d = colors.shape[-1]
+        order = torch.empty(bins.counts.shape, dtype=torch.int64,
+                            device=bins.counts.device)
         (img, alpha, t_fin, last), starts, counts, n_dropped = blend_flat(
             bins, width, height, tile_size, d, False, max_per_tile,
-            with_state=True)
+            with_state=True, order_out=order)
         ctx.save_for_backward(bins.packed, starts, counts, bins.gauss_ids,
-                              t_fin, last)
+                              t_fin, last, order)
         ctx.dims = (width, height, tile_size, d, means2d.shape[0])
         n_isects = counts.sum()
         ctx.mark_non_differentiable(n_dropped, n_isects)
@@ -176,11 +186,11 @@ class RasterizeFlat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, v_img, v_alpha, _drop, _isect):
-        packed, starts, counts, ids, t_fin, last = ctx.saved_tensors
+        packed, starts, counts, ids, t_fin, last, order = ctx.saved_tensors
         width, height, tile_size, d, n = ctx.dims
         _, g = rasterize_flat_bwd(packed, starts, counts, ids, n, v_img,
                                   v_alpha, t_fin, last, width, height,
-                                  tile_size, d, with_entries=False)
+                                  tile_size, d, with_entries=False, order=order)
         absgrad = g[6 + d:8 + d].T if ctx.needs_input_grad[4] else None
         return (g[0:2].T, g[2:5].T, g[6:6 + d].T, g[5], absgrad,
                 None, None, None, None, None, None, None)

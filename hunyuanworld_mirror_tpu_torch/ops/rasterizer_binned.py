@@ -15,8 +15,8 @@ import torch
 
 from . import tiles
 from .rasterizer_flat import (ALPHA_THRESHOLD, T_EPS, _from_tiles,
-                              check_device, forward_outputs, launch,
-                              tile_groups)
+                              check_device, check_kernel_dims, forward_outputs,
+                              launch, tile_groups)
 
 # the C entry's arguments before the trailing stream
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
@@ -89,8 +89,7 @@ def _check_bins(table, bins, width, height, tile_size, d_col):
                          f"{tuple(counts.shape)}")
     if ids.device != table.device or counts.device != table.device:
         raise ValueError(f"the bins must lie on {table.device}")
-    if not (1 <= d_col <= 8) or tile_size * tile_size > 1024:
-        raise ValueError(f"unsupported d_col={d_col} / tile_size={tile_size}")
+    check_kernel_dims(tile_size, d_col)
     return tw, th
 
 

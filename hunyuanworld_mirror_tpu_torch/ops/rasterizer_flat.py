@@ -72,6 +72,38 @@ def decode_payload(packed: torch.Tensor, d_col: int, f16: bool):
     return packed[0], packed[1], ca, cb, cc, op, torch.stack(cols[:d_col])
 
 
+# --- the keep box ------------------------------------------------------------
+
+def keep_box(mx, my, ca, cb, cc, op):
+    """Each entry's keep box as the kernels compute it in f32
+    (csrc/raster_common.cuh keep_box) -> (x0, x1, y0, y1): every pixel
+    centre where op e^-sigma >= 1/255 lies inside it (1% margin on sigma,
+    0.01 px); infinite where det C < ca cc / 100 or C is not positive. The
+    forward kernels skip, for a whole warp, the entries whose box misses
+    the warp's pixels, and K3 does the same."""
+    lim = torch.log(255.0 * op) + 1e-3
+    det = ca * cc - cb * cb
+    ok = (ca > 0) & (cc > 0) & (det >= 0.01 * ca * cc)
+    s2 = 2.02 * torch.clamp_min(torch.where(torch.isnan(lim), 0.0, lim), 0.0)
+    inf = torch.full_like(mx, float("inf"))
+    rx = torch.where(ok, torch.sqrt(s2 * cc / det) + 0.01, inf)
+    ry = torch.where(ok, torch.sqrt(s2 * ca / det) + 0.01, inf)
+    return mx - rx, mx + rx, my - ry, my + ry
+
+
+WARP_W, WARP_H = 8, 4   # the forward kernels' warp: 8 x 4 pixels
+
+
+def warp_rects(tile_size: int, device=None):
+    """The centres of the corner pixels of each pixel's warp, for the pixels
+    of a tile in row-major order -> (x0, x1, y0, y1) (tile_size^2,) f32
+    offsets within the tile."""
+    lin = torch.arange(tile_size * tile_size, device=device)
+    x0 = ((lin % tile_size) // WARP_W * WARP_W).float() + 0.5
+    y0 = ((lin // tile_size) // WARP_H * WARP_H).float() + 0.5
+    return x0, x0 + (WARP_W - 1), y0, y0 + (WARP_H - 1)
+
+
 # --- plain version ----------------------------------------------------------
 
 class Blend(NamedTuple):
@@ -325,8 +357,8 @@ rasterize_flat_grouped_plain = rasterize_flat_plain
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each C entry's arguments before the trailing stream
-_FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL, _I]
-_MULTI_ARGS = [_P] * 5 + [_I] * 7 + [_LL]
+_FWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL, _I]
+_MULTI_ARGS = [_P] * 6 + [_I] * 7 + [_LL]
 _GROUPED_ARGS = [_P] * 7 + [_I] * 7 + [_LL, _I]
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_LL]
 
@@ -366,9 +398,25 @@ def _check_list(packed, starts, counts, width, height, tile_size, d_col, V,
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != packed.device:
             raise ValueError(f"{name} must lie on {packed.device}")
-    if not (1 <= d_col <= 8) or tile_size * tile_size > 1024:
-        raise ValueError(f"unsupported d_col={d_col} / tile_size={tile_size}")
+    check_kernel_dims(tile_size, d_col)
     return tw, th
+
+
+# the tiles the forward kernels take: whole warps of WARP_W x WARP_H pixels,
+# one thread a pixel, at most 256 threads a block (K2's bound)
+KERNEL_TILE_SIZES = (8, 16)
+
+
+def check_kernel_dims(tile_size: int, d_col: int) -> None:
+    """Raise unless the rasterizer kernels take this tile size and colour
+    width."""
+    if not 1 <= d_col <= 8:
+        raise ValueError(f"the rasterizer kernels take d_col 1..8, got {d_col}")
+    if tile_size not in KERNEL_TILE_SIZES:
+        raise ValueError(f"the rasterizer kernels take tile_size "
+                         f"{' or '.join(map(str, KERNEL_TILE_SIZES))} (whole "
+                         f"{WARP_W} x {WARP_H}-pixel warps, at most 256 threads a "
+                         f"block), got {tile_size}")
 
 
 def forward_outputs(lead: Tuple[int, ...], height: int, width: int, d_col: int,
@@ -389,27 +437,45 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _check_order(order: torch.Tensor, counts: torch.Tensor) -> None:
+    if (order.dtype != torch.int64 or order.shape != counts.shape
+            or order.device != counts.device or not order.is_contiguous()):
+        raise ValueError(f"order must be contiguous int64 {tuple(counts.shape)} on "
+                         f"{counts.device}, got {order.dtype} {tuple(order.shape)} on "
+                         f"{order.device}")
+
+
 def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
                    counts: torch.Tensor, width: int, height: int,
                    tile_size: int, d_col: int, f16: bool,
-                   with_state: bool = False):
+                   with_state: bool = False, order_out=None):
     """Blend one camera's sorted intersection list -> (img (H, W, d_col),
     alpha (H, W, 1)), both f32; `with_state` adds the final transmittance
     (H, W) and last kept entry (H, W) int32 that the backward reads.
 
     A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches kernel
-    K2 (counted in `rasterize_flat.launches`) or raises.
+    K2 (counted in `rasterize_flat.launches`) or raises. K2's blocks take
+    the tiles longest first, in an order its C entry sorts (by count, in
+    bins); `order_out`, an (n_tiles,) int64 tensor, receives that order
+    (on the CPU: longest_first(counts)), so that K3 can take the same one.
+    Tiles must be 16 x 16 on the card.
     """
+    if order_out is not None:
+        _check_order(order_out, counts)
     if check_device(packed, "rasterize_flat"):
+        if order_out is not None:
+            order_out.copy_(longest_first(counts))
         return rasterize_flat_plain(packed, starts, counts, width, height,
                                     tile_size, d_col, f16, with_state)
     tw, th = _check_list(packed, starts, counts, width, height, tile_size,
                          d_col, payload_rows(d_col, f16))
     packed, starts, counts = (x.contiguous() for x in (packed, starts, counts))
+    order = (torch.empty(counts.shape, dtype=torch.int64, device=counts.device)
+             if order_out is None else order_out)
     img, alpha, t_fin, last = forward_outputs((), height, width, d_col,
                                               packed.device, with_state)
     launch("rasterize_flat_fwd", "rasterize_flat_fwd", _FWD_ARGS, packed.device,
-           packed.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+           packed.data_ptr(), starts.data_ptr(), counts.data_ptr(), order.data_ptr(),
            img.data_ptr(), alpha.data_ptr(), _ptr(t_fin), _ptr(last), width,
            height, tile_size, tw, tw * th, d_col, packed.shape[1], int(f16))
     rasterize_flat.launches += 1
@@ -426,7 +492,8 @@ def rasterize_flat_multi(packed: torch.Tensor, starts: torch.Tensor,
     -> (img (C, H, W, d_col), alpha (C, H, W, 1)), both f32.
 
     A CPU tensor takes rasterize_flat_multi_plain; a CUDA tensor launches
-    kernel K2m (counted in `rasterize_flat_multi.launches`) or raises.
+    kernel K2m (counted in `rasterize_flat_multi.launches`), its blocks
+    taking all cameras' tiles longest first as K2's do, or raises.
     """
     if check_device(packed, "rasterize_flat_multi"):
         return rasterize_flat_multi_plain(packed, starts, counts, n_cams, width,
@@ -434,12 +501,13 @@ def rasterize_flat_multi(packed: torch.Tensor, starts: torch.Tensor,
     tw, th = _check_list(packed, starts, counts, width, height, tile_size,
                          d_col, payload_rows(d_col, False), n_cams)
     packed, starts, counts = (x.contiguous() for x in (packed, starts, counts))
+    order = torch.empty(counts.shape, dtype=torch.int64, device=counts.device)
     img, alpha, _, _ = forward_outputs((n_cams,), height, width, d_col,
                                        packed.device)
     launch("rasterize_flat_fwd", "rasterize_flat_multi_fwd", _MULTI_ARGS,
            packed.device, packed.data_ptr(), starts.data_ptr(),
-           counts.data_ptr(), img.data_ptr(), alpha.data_ptr(), width, height,
-           tile_size, tw, tw * th, n_cams, d_col, packed.shape[1])
+           counts.data_ptr(), order.data_ptr(), img.data_ptr(), alpha.data_ptr(),
+           width, height, tile_size, tw, tw * th, n_cams, d_col, packed.shape[1])
     rasterize_flat_multi.launches += 1
     return img, alpha
 
@@ -480,8 +548,10 @@ rasterize_flat_grouped.launches = 0
 
 
 def longest_first(counts: torch.Tensor) -> torch.Tensor:
-    """The tiles by falling count (int64): K3's blocks take the longest
-    lists first, so that the last ones to start are short."""
+    """The tiles by falling count (int64): the blocks of K2, K2m and K3 take
+    the longest lists first, so that the last ones to start are short (K2
+    and K2m sort the counts themselves, in bins; this is their plain
+    version and K3's order where none is given)."""
     return torch.argsort(counts, descending=True)
 
 
@@ -509,7 +579,7 @@ def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
                        n_gauss: int, v_img: torch.Tensor, v_alpha: torch.Tensor,
                        t_final: torch.Tensor, last: torch.Tensor, width: int,
                        height: int, tile_size: int, d_col: int,
-                       with_entries: bool = True):
+                       with_entries: bool = True, order=None):
     """Gradient of rasterize_flat on an f32 list -> (per-entry rows
     (8 + d_col, M) or None without `with_entries`, per-splat rows
     (8 + d_col, n_gauss)); see rasterize_flat_bwd_plain. t_final and last
@@ -521,7 +591,9 @@ def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
     splats' rows itself, or raises. On the card the splat rows are a view
     of the kernel's (n_gauss, splat_cols) output, and the per-entry rows
     (for finding where a fault lies) cost a zeroed (8 + d_col, M) buffer.
-    f16-pair payloads and tiles other than 16 x 16 are refused.
+    `order` (n_tiles,) int64 is the order in which K3's blocks take the
+    tiles: the forward's (rasterize_flat's `order_out`), or None to sort the
+    counts here. f16-pair payloads and tiles other than 16 x 16 are refused.
     """
     if check_device(packed, "rasterize_flat_bwd"):
         return rasterize_flat_bwd_plain(packed, starts, counts, gauss_ids,
@@ -545,8 +617,11 @@ def rasterize_flat_bwd(packed: torch.Tensor, starts: torch.Tensor,
     splat = torch.zeros(n_gauss, splat_cols(d_col), dtype=torch.float32, device=dev)
     entry = (torch.zeros(grad_rows(d_col), M, dtype=torch.float32, device=dev)
              if with_entries else None)
+    if order is None:
+        order = longest_first(counts)
+    _check_order(order, counts)
     rasterize_flat_bwd_launch(*tensors, splat, entry, width, height, tile_size,
-                              d_col, longest_first(counts))
+                              d_col, order)
     rasterize_flat_bwd.launches += 1
     return entry, splat[:, :grad_rows(d_col)].T
 

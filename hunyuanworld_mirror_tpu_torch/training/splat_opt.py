@@ -46,7 +46,7 @@ class SplatOptConfig:
     lr_quats: float = 1e-3
     lr_opacities: float = 5e-2
     lr_sh: float = 2.5e-3
-    tile_size: int = 16
+    tile_size: int = 16   # 16 on the card (K3 takes 16 x 16 tiles only)
     max_per_tile: int = 4096
     # disparity-space depth L1 against the inference depth maps
     depth_loss: bool = False

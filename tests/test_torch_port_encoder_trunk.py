@@ -5,6 +5,7 @@ init through tools/convert_weights.py, so the reference state-dict names
 are checked on the way."""
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -57,11 +58,49 @@ def test_dinov2_forward_features():
     close(out, ref, ATOL)
 
 
-def test_dinov2_rejects_pos_embed_resampling():
-    vit = pdino.DinoVisionTransformer(
-        pdino.DinoViTConfig(img_size=56, embed_dim=96, depth=1, num_heads=3))
-    with pytest.raises(NotImplementedError):
-        vit.forward_features(torch.zeros(1, 70, 70, 3))
+# (m, (h0, w0)): the pos embed's m x m grid -> an h0 x w0 patch grid, up and
+# down, square and not; 37 -> 28 x 37 is a 4:3 photo at 518 px
+RESAMPLE_GRIDS = [(4, (3, 4)), (4, (5, 3)), (4, (6, 6)), (37, (28, 37))]
+
+
+@pytest.mark.parametrize("m,grid", RESAMPLE_GRIDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_interpolate_pos_embed_matches_jax(m, grid, dtype):
+    """The hand-written antialiased Keys bicubic against jax.image.resize
+    through the JAX interpolate_pos_embed, D = 8: f32 within 1e-5; bf16
+    parameters (both sides resample in f32 and cast back) within one bf16
+    ulp of the reference value."""
+    p = 14
+    h, w = grid[0] * p, grid[1] * p
+    pe = normal(4, (1, m * m + 1, 8), 0.5)
+    ref = jdino.interpolate_pos_embed(jnp.asarray(pe, dtype=dtype),
+                                      jdino.DinoViTConfig(patch_size=p), h, w)
+    out = pdino.interpolate_pos_embed(t(pe).to(getattr(torch, dtype)), p, h, w)
+    assert out.shape == ref.shape == (1, grid[0] * grid[1] + 1, 8)
+    assert out.dtype == getattr(torch, dtype)
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        close(out, ref, 1e-5)
+    else:
+        np.testing.assert_array_less(np.abs(out.float().numpy() - ref),
+                                     2.0 ** -7 * np.abs(ref) + 1e-30)
+
+
+@pytest.mark.parametrize("hw", [(70, 70), (42, 56)])
+def test_dinov2_forward_features_resampled(hw):
+    """forward_features on an image whose patch grid is not the configured
+    4 x 4 one (5 x 5, and 3 x 4 from a landscape image) against the JAX
+    forward_features, which resamples the pos embed."""
+    cfg_p = pdino.DinoViTConfig(img_size=56, embed_dim=96, depth=2, num_heads=3)
+    cfg_j = jdino.DinoViTConfig(img_size=56, embed_dim=96, depth=2, num_heads=3)
+    vit = _init(pdino.DinoVisionTransformer(cfg_p), 1)
+    params = cw.convert_dinov2(state_dict_np(vit))
+    x = normal(2, (2, *hw, 3))
+    with torch.no_grad():
+        out = vit.forward_features(t(x))
+    ref = jdino.forward_features(params, cfg_j, jnp.asarray(x), dtype=jnp.float32)
+    assert out.shape == (2, (hw[0] // 14) * (hw[1] // 14), 96)
+    close(out, ref, ATOL)
 
 
 @pytest.mark.parametrize("patch_embed,dim,heads", [

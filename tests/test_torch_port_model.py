@@ -36,6 +36,10 @@ TINY = dict(img_size=56, patch_size=14, embed_dim=64, gs_dim=32,
             patch_embed="conv", trunk_depth=4, trunk_heads=4,
             intermediate_idxs=(0, 1, 2, 3), dpt_features=32,
             dpt_out_channels=(32, 48, 64, 64))
+# TINY with the DINOv2 ViT-S/14 encoder, whose pos embed is resampled to a
+# patch grid other than the configured 4 x 4
+TINY_DINO = dict(TINY, patch_embed="dinov2_vits14_reg", embed_dim=384,
+                 trunk_heads=6)
 
 
 def _port_model(cfg_kw, params):
@@ -58,15 +62,20 @@ def _ragged_splats(preds):
             for k in ("means", "quats", "scales", "opacities", "sh")}
 
 
-def test_forward_matches_jax():
-    model = pwm.WorldMirror(pwm.WorldMirrorConfig(**TINY), device="cpu")
+@pytest.mark.parametrize("cfg_kw,hw", [(TINY, (56, 56)), (TINY_DINO, (42, 56))],
+                         ids=["conv", "dinov2_42x56"])
+def test_forward_matches_jax(cfg_kw, hw):
+    """The whole tiny forward, render included; the DINOv2 case runs a
+    landscape 42 x 56 image (3 x 4 patches: a resampled pos embed, RoPE on
+    a non-square grid, W != H in the DPT heads and the render)."""
+    model = pwm.WorldMirror(pwm.WorldMirrorConfig(**cfg_kw), device="cpu")
     # random init can relu the fov to 0 (an inf focal): bias it positive, as
     # test_full_model_parity does for the reference
     with torch.no_grad():
         model.cam_head.param_predictor.fc2.bias[7:] += 0.4
     params = cw.convert_worldmirror(state_dict_np(model))
-    cfg_j = jwm.WorldMirrorConfig(**TINY)
-    imgs = uniform(0, (1, 2, 56, 56, 3))
+    cfg_j = jwm.WorldMirrorConfig(**cfg_kw)
+    imgs = uniform(0, (1, 2, *hw, 3))
     ref = jax.jit(lambda p, v: jwm.forward(p, cfg_j, v, render=True,
                                            trunk_dtype=jnp.float32))(
         params, {"img": jnp.asarray(imgs)})
@@ -94,9 +103,7 @@ def _flat_shapes(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("cfg_kw", [
-    TINY, dict(TINY, patch_embed="dinov2_vits14_reg", embed_dim=384,
-               trunk_heads=6)], ids=["conv", "dinov2"])
+@pytest.mark.parametrize("cfg_kw", [TINY, TINY_DINO], ids=["conv", "dinov2"])
 def test_converter_roundtrip(cfg_kw):
     port = pwm.WorldMirror(pwm.WorldMirrorConfig(**cfg_kw), device="cpu")
     sd = state_dict_np(port)
@@ -184,6 +191,26 @@ def test_cli_run_and_export(tmp_path):
     assert (out / "camera_params.json").exists()
     for name in ("points.ply", "gaussians.ply"):
         assert (out / name).read_bytes().startswith(b"ply\nformat binary_little_endian")
+
+
+def test_cli_run_landscape_png(tmp_path):
+    """A 4:3 photo through the CLI's loader (crop mode, 56 px: 56 x 42, a
+    3 x 4 patch grid) and run + export on the CPU with a DINOv2 encoder,
+    whose pos embed is resampled to that grid."""
+    from PIL import Image
+    rgb = (uniform(6, (60, 80, 3)) * 255).astype(np.uint8)
+    (tmp_path / "views").mkdir()
+    for i in range(2):
+        Image.fromarray(np.roll(rgb, 7 * i, axis=1)).save(tmp_path / "views" / f"{i}.png")
+    imgs = io_images.load_inputs(str(tmp_path / "views"), target_size=56)
+    assert imgs.shape == (1, 2, 42, 56, 3)
+    preds = infer.run(imgs, pwm.WorldMirrorConfig(**TINY_DINO), device="cpu")
+    assert preds["rendered_colors"].shape == (1, 2, 42, 56, 3)
+    assert preds["depth"].shape == (1, 2, 42, 56, 1)
+    assert all(bool(torch.isfinite(preds[k]).all())
+               for k in ("depth", "pts3d", "rendered_colors"))
+    infer.export(preds, imgs, tmp_path / "out")
+    assert np.load(tmp_path / "out" / "depth_001.npy").shape == (42, 56)
 
 
 def test_entry_points_without_device_raise(monkeypatch):

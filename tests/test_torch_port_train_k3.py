@@ -148,28 +148,16 @@ def test_k3_without_entry_rows():
         assert torch.equal(got[1], splat)
 
 
-def _keep_box(mx, my, ca, cb, cc, op):
-    """The bounding box csrc/rasterize_flat_bwd.cu gives each entry before a
-    batch is walked (BBOX), in f32 as the kernel rounds it: the ellipse
-    op e^-sigma >= 1/255 with a 1% margin on sigma and 0.01 px, infinite
-    where det C < ca cc / 100."""
-    f = np.float32
-    lim = np.log(f(255) * op) + f(1e-3)
-    det = ca * cc - cb * cb
-    ok = (ca > 0) & (cc > 0) & (det >= f(0.01) * ca * cc)
-    s2 = f(2.02) * np.maximum(np.nan_to_num(lim, nan=0.0), f(0))
-    with np.errstate(divide="ignore", invalid="ignore"):
-        rx = np.where(ok, np.sqrt(s2 * cc / det) + f(0.01), np.inf).astype(f)
-        ry = np.where(ok, np.sqrt(s2 * ca / det) + f(0.01), np.inf).astype(f)
-    return mx - rx, mx + rx, my - ry, my + ry
-
-
+@pytest.mark.parametrize("payload_f16", [False, True], ids=["f32", "f16"])
 @pytest.mark.parametrize("case", ["scene", "multi_chunk", "opaque", "thin"])
-def test_k3_keep_box_holds_every_kept_pair(case):
-    """The kernel skips, for a whole warp, the entries whose box misses the
+def test_k3_keep_box_holds_every_kept_pair(case, payload_f16):
+    """K3 and the forward kernels skip, for a whole warp, the entries whose
+    keep box (rasterizer_flat.keep_box, csrc/raster_common.cuh) misses the
     warp's pixels: no pixel the plain blend keeps may lie outside its
-    entry's box. "thin" holds needle-like ellipses at det C = ca cc / 100,
-    the edge of the box's use, with opacities up to 1."""
+    entry's box, on the training path's f32 payload and on the f16-pair
+    payload the main path's K2 lists carry (the box taken from the decoded
+    values, as the kernels take it). "thin" holds needle-like ellipses at
+    det C = ca cc / 100, the edge of the box's use, with opacities up to 1."""
     if case == "thin":
         rng = np.random.default_rng(9)
         m = 300
@@ -185,13 +173,15 @@ def test_k3_keep_box_holds_every_kept_pair(case):
     else:
         s, (w, h), mpt, tpg = _case(case)
     d = 4
-    bins = _bins(s, w, h, mpt, tpg)
+    bins = prast.bin_splats(t(s["m2d"]), t(s["con"]), t(s["col"]), t(s["op"]),
+                            torch.tensor(s["rad"]), t(s["dep"]), TILE,
+                            -(-w // TILE), -(-h // TILE), tpg, mpt, payload_f16)
+    rows = pflat.decode_payload(bins.packed, d, payload_f16)[:6]
     tw = -(-w // TILE)
     n_kept = 0
     for b in pflat.blend_groups(bins.packed, bins.starts, bins.counts, w, h, TILE,
-                                d, False):
-        x0, x1, y0, y1 = (torch.tensor(v) for v in _keep_box(
-            *(np_(bins.packed[r][b.idx]) for r in range(6))))
+                                d, payload_f16):
+        x0, x1, y0, y1 = pflat.keep_box(*(r[b.idx] for r in rows))
         lin = torch.arange(TILE * TILE)
         px = ((b.g % tw) * TILE)[:, None].float() + (lin % TILE).float() + 0.5
         py = ((b.g // tw) * TILE)[:, None].float() + (lin // TILE).float() + 0.5

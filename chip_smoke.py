@@ -27,10 +27,18 @@ Phases (any failure exits non-zero before the last line is printed):
      time; then, on the same model, one forward of 4 landscape images at
      518 x 392 (the CLI's crop of a 4:3 photo: a 28 x 37 patch grid, 825
      tiles): finite outputs, the same launch counts, and K2 against its
-     plain version on its 4 lists; then K2 against its plain version on the
-     main path's own intersection lists;
+     plain version on its 4 lists; then, on the same model, the prior path:
+     one forward with all three priors, cond (1, 1, 1) (the fixed cameras
+     as 4 x 4 camera-to-world poses and their K, the no-prior forward's
+     depth as the depth map): finite outputs, the same launch counts,
+     outputs that differ from the no-prior forward's, K2 against its plain
+     version on its 4 lists, and 7 timed forwards split into phases (a
+     `priors` phase before `encoder`) with the peak memory; then K2 against
+     its plain version on the main path's own intersection lists;
   6. the port on the card against the same port on the CPU (plain versions)
-     for a small configuration whose heads are 64 wide;
+     for a small configuration whose heads are 64 wide: the default path,
+     the prior path (cond 1, 1, 1), `gs_position_from="gsdepth+gtcamera"`,
+     `head_dtype="bfloat16"` and `head_chunk=1`;
   7. K3 (rasterize_flat_bwd): its ptxas report (fails on a stack frame or
      a spill) and the blocks an SM holds; then K3 against its plain
      version, per-splat rows with and without the per-entry rows and the
@@ -585,23 +593,11 @@ def phase_main_path():
     reconstruct(model, imgs, cams)                                # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    totals = []
-    for i in range(7):
-        marks = []
-        out = reconstruct(model, imgs, cams, marks=marks)
-        torch.cuda.synchronize()
-        ph = {name: marks[j - 1][1].elapsed_time(ev)
-              for j, (name, ev) in enumerate(marks) if j}
-        totals.append(sum(ph.values()))
-        log(f"main path forward {i}: " + "  ".join(f"{k} {v:.2f} ms" for k, v in ph.items())
-            + f"  total {totals[-1]:.2f} ms")
-        del out
-    log(f"main path forward total: median {float(np.median(totals)):.2f} ms, "
-        f"min {min(totals):.2f}, max {max(totals):.2f} over {len(totals)}; "
-        f"peak memory with the bf16 model resident "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out = timed_forwards("main path", lambda marks: reconstruct(model, imgs, cams,
+                                                                 marks=marks))
     landscape_forward(model, cams)
-    del model
+    prior_forward(model, imgs, cams, out)
+    del model, out
 
     for k in ("camera_params", "depth", "pts3d", "normals", "gs_depth",
               "rendered_colors", "rendered_depths", "rendered_alphas"):
@@ -637,6 +633,86 @@ def phase_main_path():
         k2["bound_ms"] += bound
         k2["by"].add(by)
     return launches, k2, preds, imgs
+
+
+def timed_forwards(label, forward, n=7):
+    """n forwards, each split into its phases by the CUDA events the model
+    records (`marks`), after a reset of the peak memory -> the last output."""
+    torch.cuda.reset_peak_memory_stats()
+    totals = []
+    for i in range(n):
+        marks = []
+        out = forward(marks)
+        torch.cuda.synchronize()
+        ph = {name: marks[j - 1][1].elapsed_time(ev)
+              for j, (name, ev) in enumerate(marks) if j}
+        totals.append(sum(ph.values()))
+        log(f"{label} forward {i}: " + "  ".join(f"{k} {v:.2f} ms" for k, v in ph.items())
+            + f"  total {totals[-1]:.2f} ms")
+        if i < n - 1:
+            del out
+    log(f"{label} forward total: median {float(np.median(totals)):.2f} ms, "
+        f"min {min(totals):.2f}, max {max(totals):.2f} over {len(totals)}; "
+        f"peak memory with the bf16 model resident "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+def prior_views(cams, HW, depth):
+    """Priors for S views: the cameras of `cams` (1, S, 9) as 4 x 4
+    camera-to-world poses and their K, and `depth` (1, S, H, W)."""
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    ext, K = cam_utils.vector_to_camera_matrices(torch.as_tensor(cams).to(depth.device), HW)
+    return {"camera_pose": cam_utils.se3_inverse(cam_utils.to_homogeneous(ext)),
+            "camera_intrinsics": K, "depthmap": depth}
+
+
+def prior_forward(model, imgs, cams, ref):
+    """Phase 5's model with all three priors, cond (1, 1, 1): the phase's
+    cameras as poses and intrinsics, the no-prior forward's depth as the
+    depth map. Finite outputs, the no-prior launch counts (88 K1, 24 of them
+    at N >= 4096, 4 K2), outputs that differ from the no-prior forward `ref`
+    by more than 1e-4 and ten times the spread of a repeated no-prior forward
+    (the prior tokens reached the trunk), K2 against its plain version on
+    its 4 lists, then 7 timed forwards with the phase split."""
+    from hunyuanworld_mirror_tpu_torch.infer import reconstruct
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer, rasterizer_flat
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
+    S, HW = imgs.shape[1], imgs.shape[2]
+    priors = prior_views(cams, (HW, HW), ref["depth"][..., 0].float())
+    attention.launches = attention.flash_route_launches = 0
+    rasterizer_flat.rasterize_flat.launches = 0
+    preds = reconstruct(model, imgs, cams, priors=priors, cond_flags=(1, 1, 1))
+    torch.cuda.synchronize()
+    launches = (attention.launches, attention.flash_route_launches,
+                rasterizer_flat.rasterize_flat.launches)
+    again = reconstruct(model, imgs, cams)
+    keys = ("camera_params_pred", "depth", "pts3d", "normals", "gs_depth")
+    diffs = {k: float((preds[k].float() - ref[k].float()).abs().max()) for k in keys}
+    noise = {k: float((again[k].float() - ref[k].float()).abs().max()) for k in keys}
+    del again
+    log(f"prior forward (cond 1,1,1): launches (K1, K1 at N >= 4096, K2) {launches}; "
+        f"max|prior - no prior| {json.dumps(diffs)}; max|no prior - no prior| "
+        f"{json.dumps(noise)}; intersections {preds['render_n_isects'].tolist()}  "
+        f"mean alpha {float(preds['rendered_alphas'].mean()):.4f}")
+    if launches != (88, 24, 4):
+        raise AssertionError(f"prior forward: launches {launches} != (88, 24, 4)")
+    for k in ("camera_params_pred", "depth", "pts3d", "normals", "gs_depth",
+              "rendered_colors", "rendered_alphas"):
+        if not torch.isfinite(preds[k]).all():
+            raise AssertionError(f"prior forward: {k} is not finite")
+    if not all(diffs[k] > max(1e-4, 10 * noise[k]) for k in keys):
+        raise AssertionError(f"prior forward: outputs do not differ from the no-prior "
+                             f"forward's beyond 1e-4 and 10x its run-to-run spread: "
+                             f"{diffs} vs {noise}")
+    means, quats, scales, opac, sh, w2c, intr, _ = main_path_scene(preds)
+    for c in range(S):
+        bins = rasterizer.bin_camera(means, quats, scales, opac, sh, w2c[c], intr[c],
+                                     HW, HW, 16, RENDER_MPT, RENDER_TPG, True)
+        k2_check(f"prior camera {c}", bins, HW, HW, 4, True)
+    del preds
+    timed_forwards("prior path", lambda marks: reconstruct(
+        model, imgs, cams, marks=marks, priors=priors, cond_flags=(1, 1, 1)))
 
 
 # a 4:3 photo as the CLI's default crop mode makes it: 518 wide, 392 tall
@@ -1180,23 +1256,21 @@ def phase_k4(preds):
 
 # --- the card against the CPU ------------------------------------------------
 
-def phase_cpu_reference():
-    """A 64-wide-head configuration, f32 trunk: the kernels on the card vs
-    the plain versions on the CPU, same weights and inputs."""
-    from hunyuanworld_mirror_tpu_torch.models.worldmirror import (WorldMirror,
-                                                                  WorldMirrorConfig)
-    cfg = WorldMirrorConfig(img_size=112, embed_dim=512, trunk_heads=8,
-                            patch_embed="conv", trunk_depth=2, gs_dim=32,
-                            intermediate_idxs=(0, 1, 1, 1), dpt_features=32,
-                            dpt_out_channels=(32, 48, 64, 64))
-    cpu = WorldMirror(cfg, device="cpu", seed=3)
+def card_vs_cpu(label, cfg, cpu_state, imgs, cams, priors=None, cond_flags=(0, 0, 0)):
+    """One forward of `cfg` with the weights `cpu_state` on the CPU (plain
+    versions) and on the card, f32 trunk, the cameras substituted: the
+    dense heads within 5e-3 of each other relative to 1 + |CPU|, the
+    renders' median |d| below 5e-3 with under 5% of pixels past 5e-2."""
+    from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirror
+    cpu = WorldMirror(cfg, device="cpu")
+    cpu.load_state_dict(cpu_state)
     gpu = WorldMirror(cfg, device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
-    imgs = np.random.default_rng(1).uniform(size=(1, 2, 112, 112, 3)).astype(np.float32)
-    cams = fixed_cameras(2)
-    kw = dict(trunk_dtype=torch.float32, camera_params=torch.tensor(cams))
-    ref = cpu({"img": torch.tensor(imgs)}, **kw)
-    out = gpu({"img": torch.tensor(imgs, device="cuda")},
+    gpu.load_state_dict(cpu_state)
+    views = {"img": torch.tensor(imgs), **(priors or {})}
+    kw = dict(trunk_dtype=torch.float32, camera_params=torch.tensor(cams),
+              cond_flags=cond_flags)
+    ref = cpu(views, **kw)
+    out = gpu({k: v.cuda() for k, v in views.items()},
               **{**kw, "camera_params": kw["camera_params"].cuda()})
     worst = {}
     for k in ("camera_params_pred", "depth", "pts3d", "normals", "gs_depth"):
@@ -1204,14 +1278,41 @@ def phase_cpu_reference():
         d = float(((a - b).abs() / (1 + b.abs())).max())
         worst[k] = d
         if not d <= 5e-3:
-            raise AssertionError(f"card vs CPU: {k} rel max|d| {d} > 5e-3")
+            raise AssertionError(f"card vs CPU, {label}: {k} rel max|d| {d} > 5e-3")
     d = (out["rendered_colors"].cpu() - ref["rendered_colors"]).abs()
     worst["rendered_colors_median"] = float(d.median())
     worst["rendered_colors_frac_gt_5e-2"] = float((d > 5e-2).float().mean())
     if not (worst["rendered_colors_median"] < 5e-3
             and worst["rendered_colors_frac_gt_5e-2"] < 0.05):
-        raise AssertionError(f"card vs CPU: renders differ {worst}")
-    log(f"card vs CPU (plain versions), small config: {json.dumps(worst)}")
+        raise AssertionError(f"card vs CPU, {label}: renders differ {worst}")
+    log(f"card vs CPU (plain versions), small config, {label}: {json.dumps(worst)}")
+    return ref
+
+
+def phase_cpu_reference():
+    """A 64-wide-head configuration, f32 trunk: the kernels on the card vs
+    the plain versions on the CPU, same weights and inputs; then the prior
+    path (cond 1, 1, 1: the cameras as poses and intrinsics, the first
+    forward's depth as the depth map), the splat means from the given
+    cameras (gsdepth+gtcamera), bf16 heads and the heads in frame groups of
+    one."""
+    from dataclasses import replace
+    from hunyuanworld_mirror_tpu_torch.models.worldmirror import (WorldMirror,
+                                                                  WorldMirrorConfig)
+    cfg = WorldMirrorConfig(img_size=112, embed_dim=512, trunk_heads=8,
+                            patch_embed="conv", trunk_depth=2, gs_dim=32,
+                            intermediate_idxs=(0, 1, 1, 1), dpt_features=32,
+                            dpt_out_channels=(32, 48, 64, 64))
+    state = WorldMirror(cfg, device="cpu", seed=3).state_dict()
+    imgs = np.random.default_rng(1).uniform(size=(1, 2, 112, 112, 3)).astype(np.float32)
+    cams = fixed_cameras(2)
+    ref = card_vs_cpu("no priors", cfg, state, imgs, cams)
+    priors = prior_views(cams, (112, 112), ref["depth"][..., 0])
+    card_vs_cpu("priors, cond 1,1,1", cfg, state, imgs, cams, priors, (1, 1, 1))
+    card_vs_cpu("gsdepth+gtcamera", replace(cfg, gs_position_from="gsdepth+gtcamera"),
+                state, imgs, cams, priors)
+    card_vs_cpu("bf16 heads", replace(cfg, head_dtype="bfloat16"), state, imgs, cams)
+    card_vs_cpu("head_chunk 1", replace(cfg, head_chunk=1), state, imgs, cams)
 
 
 def timed(name, fn, *args):

@@ -140,15 +140,19 @@ def _dpt(sd: StateDict, pre: str, p) -> None:
 
 
 def from_jax_params(params) -> StateDict:
-    """The full JAX WorldMirror pytree (numpy leaves) -> a state dict with
-    the reference torch names, loadable by models.worldmirror.WorldMirror."""
+    """The JAX WorldMirror pytree (numpy leaves) -> a state dict with the
+    reference torch names, loadable by models.worldmirror.WorldMirror. A
+    head switched off in the config is absent from both."""
     sd: StateDict = {}
     _vgt(sd, "visual_geometry_transformer.", params["vgt"])
-    _camera_head(sd, "cam_head.", params["cam_head"])
+    if "cam_head" in params:
+        _camera_head(sd, "cam_head.", params["cam_head"])
     for name in ("depth_head", "pts_head", "norm_head", "gs_head"):
-        _dpt(sd, f"{name}.", params[name])
-    _conv(sd, "gs_renderer.gs_head.0", params["gs_renderer"]["conv1"])
-    _conv(sd, "gs_renderer.gs_head.2", params["gs_renderer"]["conv2"])
+        if name in params:
+            _dpt(sd, f"{name}.", params[name])
+    if "gs_renderer" in params:
+        _conv(sd, "gs_renderer.gs_head.0", params["gs_renderer"]["conv1"])
+        _conv(sd, "gs_renderer.gs_head.2", params["gs_renderer"]["conv2"])
     return sd
 
 

@@ -2,32 +2,42 @@
 
     python -m hunyuanworld_mirror_tpu_torch.infer <images dir | stack.npy> -o out
         [--preset large|base|small|tiny] [--size 518] [--ckpt params.npz]
+        [--mode crop|pad] [--cond 0,0,0] [--no-gs] [--conf-percent 20]
 
-Runs the default path of the JAX package's CLI: no priors, all five heads,
-the Gaussians rendered back into the input views, bf16 parameters (as the
-JAX CLI casts them), bf16 trunk and f32 heads. Writes points.ply,
-depth_XXX.npy, camera_params.json and gaussians.ply. --ckpt takes an npz
-checkpoint of the JAX package; without it the weights are random, made from
-a seed (layout and IO testing only).
+Runs the JAX package's CLI on the port: all heads (the Gaussian head off
+with --no-gs), the Gaussians rendered back into the input views, bf16
+parameters (as the JAX CLI casts them), bf16 trunk and f32 heads. Writes
+points.ply, depth_XXX.png / .npy, normal_XXX.png, camera_params.json,
+gaussians.ply and gaussians.splat, and a COLMAP model in sparse/. --cond
+sets the cond flags as the JAX CLI does, which feeds the model the images
+only (a flag without its prior gives the zero token); priors reach the model
+through the Python API, `reconstruct(model, images, priors=...)`. --ckpt
+takes an npz checkpoint of the JAX package; without it the weights are
+random, made from a seed (layout and IO testing only).
 
-PNG, .splat, COLMAP and GLB exports, video input, --video and --ba are not
-ported yet.
+Not ported yet: GLB export (--glb, --glb-mesh), video input (--fps),
+--video and --effect, --mask-sky, --ba, --rasterizer jax and --fast-binning.
 """
 
 import argparse
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import resolve_device
 from .convert import from_jax_params, load_npz
+from .io import colmap as io_colmap
 from .io import images as io_images
 from .io import ply as io_ply
 from .models.worldmirror import WorldMirror, WorldMirrorConfig
+from .utils import geometry
 from .utils.profiling import mark
+
+# views keys of the priors, in cond-flag order (pose, depth, rays)
+PRIOR_KEYS = ("camera_pose", "depthmap", "camera_intrinsics")
 
 PRESETS = {
     "large": {},
@@ -51,79 +61,124 @@ def load_model(cfg: WorldMirrorConfig, params=None,
 
 def reconstruct(model: WorldMirror, images: np.ndarray,
                 camera_params: Optional[np.ndarray] = None,
-                marks: Optional[List] = None) -> Dict[str, torch.Tensor]:
+                marks: Optional[List] = None,
+                priors: Optional[Dict[str, np.ndarray]] = None,
+                cond_flags: Optional[Sequence[int]] = None
+                ) -> Dict[str, torch.Tensor]:
     """One forward of `model` with the render on (1, S, H, W, 3) images in
     [0, 1], on the model's device -> the prediction dict.
 
     camera_params: optional (1, S, 9) camera vectors that replace the camera
     head's prediction for the splats and the render.
+    priors: optional arrays under PRIOR_KEYS: camera_pose (1, S, 4, 4)
+    camera-to-world, depthmap (1, S, H, W), camera_intrinsics (1, S, 3, 3)
+    in the images' pixels. cond_flags: (pose, depth, rays); by default
+    1 for each prior given.
     marks: a list to receive a CUDA event before the forward ("start") and
     after each phase (see models/worldmirror.py).
     """
     dev = next(model.parameters()).device
-    views = {"img": torch.as_tensor(images, dtype=torch.float32, device=dev)}
+    views = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+             for k, v in {"img": images, **(priors or {})}.items()}
+    if cond_flags is None:
+        cond_flags = tuple(int(k in views) for k in PRIOR_KEYS)
     mark(marks, "start")
-    return model(views, render=True, camera_params=camera_params, marks=marks)
+    return model(views, cond_flags=cond_flags, render=True,
+                 camera_params=camera_params, marks=marks)
 
 
 def run(images: np.ndarray, cfg: WorldMirrorConfig, params=None, device=None,
-        camera_params: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        camera_params: Optional[np.ndarray] = None,
+        priors: Optional[Dict[str, np.ndarray]] = None,
+        cond_flags: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
     """Build the model and reconstruct (1, S, H, W, 3) images in [0, 1]:
     returns the prediction dict (tensors on the device). Runs on CUDA unless
     `device` names another; without a GPU, device=None raises."""
     model = load_model(cfg, params, resolve_device(device))
-    return reconstruct(model, images, camera_params)
+    return reconstruct(model, images, camera_params, priors=priors,
+                       cond_flags=cond_flags)
 
 
 def export(preds: Dict[str, torch.Tensor], images: np.ndarray, out_dir: Path,
            conf_percent: float = 20.0) -> None:
-    """Write points.ply, depth_XXX.npy, camera_params.json, gaussians.ply."""
+    """Write points.ply, depth_XXX.png / .npy, normal_XXX.png,
+    camera_params.json, gaussians.ply / .splat (with the Gaussian head) and
+    the COLMAP model sparse/, as the JAX package's CLI writes them."""
     out_dir.mkdir(parents=True, exist_ok=True)
     p = {k: v.float().cpu().numpy() for k, v in preds.items()
          if isinstance(v, torch.Tensor)}
-    S = images.shape[1]
+    S, H, W = images.shape[1:4]
     pts = p["pts3d"][0].reshape(-1, 3)
     conf = p["pts3d_conf"][0].reshape(-1)
     thresh = np.percentile(conf, conf_percent)
     io_ply.save_points_ply(out_dir / "points.ply", pts,
                            images[0].reshape(-1, 3), conf >= thresh)
     for s in range(S):
+        io_ply.save_depth_png(out_dir / f"depth_{s:03d}.png", p["depth"][0, s, ..., 0])
         io_ply.save_depth_npy(out_dir / f"depth_{s:03d}.npy",
                               p["depth"][0, s, ..., 0])
-    io_ply.save_camera_params(p["camera_poses"][0], p["camera_intrs"][0],
-                              out_dir)
-    sp = {k: v.float().cpu().numpy() for k, v in preds["splats"].items()}
-    alive = sp["opacities"][0] > 1e-4
-    op = np.clip(sp["opacities"][0], 1e-6, 1 - 1e-6)
-    io_ply.save_gs_ply(out_dir / "gaussians.ply", sp["means"][0][alive],
-                       sp["scales"][0][alive], sp["quats"][0][alive],
-                       sp["sh"][0][:, 0][alive], np.log(op / (1 - op))[alive])
+        if "normals" in p:
+            io_ply.save_normal_png(out_dir / f"normal_{s:03d}.png", p["normals"][0, s])
+    c2w, K = p["camera_poses"][0], p["camera_intrs"][0]
+    io_ply.save_camera_params(c2w, K, out_dir)
+    if "splats" in preds:
+        sp = {k: v.float().cpu().numpy() for k, v in preds["splats"].items()}
+        alive = sp["opacities"][0] > 1e-4
+        op = np.clip(sp["opacities"][0], 1e-6, 1 - 1e-6)
+        io_ply.save_gs_ply(out_dir / "gaussians.ply", sp["means"][0][alive],
+                           sp["scales"][0][alive], sp["quats"][0][alive],
+                           sp["sh"][0][:, 0][alive], np.log(op / (1 - op))[alive])
+        io_ply.gs_ply_to_splat(out_dir / "gaussians.ply", out_dir / "gaussians.splat")
+
+    # COLMAP: the point head's points at every 4th pixel, the bottom
+    # conf_percent left out
+    stride = 4
+    pix = geometry.create_pixel_coordinate_grid(S, H, W).numpy()[:, ::stride, ::stride]
+    keep_conf = p["pts3d_conf"][0][:, ::stride, ::stride].reshape(-1)
+    keep = keep_conf >= np.percentile(keep_conf, conf_percent)
+    colors = (images[0][:, ::stride, ::stride].reshape(-1, 3) * 255).astype(np.uint8)
+    io_colmap.export_reconstruction(
+        str(out_dir / "sparse"),
+        p["pts3d"][0][:, ::stride, ::stride].reshape(-1, 3)[keep],
+        pix.reshape(-1, 3)[keep], colors[keep], np.linalg.inv(c2w), K, (W, H))
 
 
-def main():
+def main(argv: Optional[List[str]] = None, device=None):
+    """The CLI; `device` as for run() (CUDA unless named)."""
     ap = argparse.ArgumentParser(description="WorldMirror inference (GPU)")
     ap.add_argument("input_path", help="image directory or a .npy image stack")
     ap.add_argument("-o", "--output", default="outputs", help="output dir")
     ap.add_argument("--ckpt", default=None, help="npz checkpoint of the JAX package")
     ap.add_argument("--size", type=int, default=518)
+    ap.add_argument("--mode", choices=["crop", "pad"], default="crop")
+    ap.add_argument("--cond", default="0,0,0",
+                    help="cond flags pose,depth,rays e.g. 1,0,1")
+    ap.add_argument("--no-gs", action="store_true", help="skip gaussian head")
     ap.add_argument("--preset", choices=sorted(PRESETS), default="large")
     ap.add_argument("--conf-percent", type=float, default=20.0,
                     help="drop bottom X%% confidence points in the point PLY")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
-    imgs = io_images.load_inputs(args.input_path, target_size=args.size)
-    cfg = WorldMirrorConfig(img_size=args.size, **PRESETS[args.preset])
+    imgs = io_images.load_inputs(args.input_path, target_size=args.size,
+                                 strategy=args.mode)
+    cfg = WorldMirrorConfig(img_size=args.size, enable_gs=not args.no_gs,
+                            **PRESETS[args.preset])
     params = load_npz(args.ckpt) if args.ckpt else None
     if params is None:
         print("WARNING: no --ckpt given; using random weights (IO test mode)")
+    cond_flags = tuple(int(x) for x in args.cond.split(","))
+    dev = resolve_device(device)
+    model = load_model(cfg, params, dev)
     t0 = time.time()
-    preds = run(imgs, cfg, params)
-    torch.cuda.synchronize()
+    preds = reconstruct(model, imgs, cond_flags=cond_flags)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     print(f"{imgs.shape[1]} views at {imgs.shape[2]}x{imgs.shape[3]}: "
           f"forward done in {time.time() - t0:.1f}s")
-    nd = int(preds["splats"]["n_compact_dropped"].max())
-    if nd > 0:
-        print(f"WARNING: static compaction cap dropped {nd} live splats")
+    if "splats" in preds:
+        nd = int(preds["splats"]["n_compact_dropped"].max())
+        if nd > 0:
+            print(f"WARNING: static compaction cap dropped {nd} live splats")
     export(preds, imgs, Path(args.output), args.conf_percent)
     print(f"wrote {args.output}")
 

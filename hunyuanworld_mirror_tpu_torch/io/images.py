@@ -7,6 +7,9 @@ width `target_size` keeping aspect (height rounded to a patch multiple),
 center-crop or white-pad to square, mixed sizes padded to one size. A `.npy`
 file of (S, H, W, 3) or (1, S, H, W, 3) floats in [0, 1] is accepted as
 is, for machines without PIL. Video input is not ported yet.
+`crop_with_intrinsics` / `rescale_with_intrinsics` bring a caller's
+intrinsics along with its own crop or resize of an image (cv2 for the
+resize), for the intrinsics prior.
 
 Output is NHWC float32 in [0, 1], shape (1, S, H, W, 3).
 """
@@ -100,3 +103,30 @@ def load_inputs(path: str, target_size: int = 518,
     for ext in IMAGE_EXTS:
         frame_paths.extend(glob.glob(os.path.join(path, ext)))
     return prepare_images(sorted(set(frame_paths)), target_size, strategy)
+
+
+def crop_with_intrinsics(image: np.ndarray, K: np.ndarray,
+                         crop_box) -> Tuple[np.ndarray, np.ndarray]:
+    """Crop (y0, x0, y1, x1) and shift the principal point accordingly."""
+    y0, x0, y1, x1 = crop_box
+    out = image[y0:y1, x0:x1]
+    K2 = np.array(K, np.float64).copy()
+    K2[0, 2] -= x0
+    K2[1, 2] -= y0
+    return out, K2.astype(K.dtype if hasattr(K, "dtype") else np.float32)
+
+
+def rescale_with_intrinsics(image: np.ndarray, K: np.ndarray,
+                            new_hw) -> Tuple[np.ndarray, np.ndarray]:
+    """Resize to (H', W') (area when shrinking, cubic when growing) and
+    scale the focal lengths and principal point."""
+    import cv2
+
+    H, W = image.shape[:2]
+    nh, nw = new_hw
+    out = cv2.resize(image, (nw, nh), interpolation=cv2.INTER_AREA
+                     if nw < W else cv2.INTER_CUBIC)
+    K2 = np.array(K, np.float64).copy()
+    K2[0] *= nw / W
+    K2[1] *= nh / H
+    return out, K2.astype(np.float32)

@@ -1,12 +1,13 @@
-"""Binary-PLY, depth and camera exporters of the CLI, and the PLY reader of
-the splat trainer (numpy only).
+"""Binary-PLY, .splat, PNG, depth and camera exporters of the CLI, and the
+PLY reader of the splat trainer (numpy; PIL for the PNGs).
 
 A copy of the writers the CLI uses, and of `read_ply`, from
 hunyuanworld_mirror_tpu/io/ply.py
-(the port imports nothing of the JAX package): point clouds as x/y/z f4 +
-red/green/blue u1; 3DGS splats as x/y/z/nx/ny/nz/f_dc_0..2/opacity (logit)/
-scale_0..2 (log)/rot_0..3 (wxyz), all f4, after the 95th-percentile
-max-scale filter.
+(the port imports nothing of the JAX package), writing the same bytes:
+point clouds as x/y/z f4 + red/green/blue u1; 3DGS splats as
+x/y/z/nx/ny/nz/f_dc_0..2/opacity (logit)/scale_0..2 (log)/rot_0..3 (wxyz),
+all f4, after the 95th-percentile max-scale filter; .splat records of 32
+bytes (pos f32 x3, scale f32 x3, rgba u8, rot u8 wxyz), largest first.
 """
 
 import json
@@ -14,6 +15,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+SH_C0 = 0.28209479177387814
 
 
 def _write_ply(path, arrays, names, types):
@@ -93,6 +96,86 @@ def save_gs_ply(path, means: np.ndarray, scales: np.ndarray,
             + [log_scales[:, i] for i in range(3)]
             + [rotations[:, i] for i in range(4)])
     _write_ply(path, cols, names, ["f4"] * len(names))
+
+
+def _splat_records(means, scales, rgba8, rot8) -> bytes:
+    """(N, 32) .splat records: pos f32 x3 | scale f32 x3 | rgba u8 | rot u8."""
+    rec = np.empty((len(means), 32), np.uint8)
+    rec[:, 0:12] = np.ascontiguousarray(means, "<f4").view(np.uint8).reshape(-1, 12)
+    rec[:, 12:24] = np.ascontiguousarray(scales, "<f4").view(np.uint8).reshape(-1, 12)
+    rec[:, 24:28] = rgba8
+    rec[:, 28:32] = rot8
+    return rec.tobytes()
+
+
+def save_splat(path, means: np.ndarray, scales: np.ndarray,
+               quats_wxyz: np.ndarray, opacities: np.ndarray,
+               sh_dc: np.ndarray) -> str:
+    """ACTIVATED splats (linear scales, opacities in [0, 1], SH degree-0
+    coefficients) -> a .splat file, non-finite splats dropped, sorted by
+    scale volume x opacity, largest first."""
+    means = np.asarray(means, np.float32).reshape(-1, 3)
+    scales = np.asarray(scales, np.float32).reshape(-1, 3)
+    quats = np.asarray(quats_wxyz, np.float32).reshape(-1, 4)
+    op = np.asarray(opacities, np.float32).reshape(-1)
+    sh_dc = np.asarray(sh_dc, np.float32).reshape(-1, 3)
+    ok = np.isfinite(means).all(1) & np.isfinite(scales).all(1)
+    means, scales, quats, op, sh_dc = (means[ok], scales[ok], quats[ok],
+                                       op[ok], sh_dc[ok])
+    order = np.argsort(-(scales.prod(axis=-1) * op))
+    means, scales, quats, op, sh_dc = (means[order], scales[order],
+                                       quats[order], op[order], sh_dc[order])
+    quats = quats / np.maximum(
+        np.linalg.norm(quats, axis=-1, keepdims=True), 1e-12)
+    rgba = np.concatenate([0.5 + SH_C0 * sh_dc, op[:, None]], -1)
+    rgba8 = (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
+    rot8 = np.clip(quats * 128 + 128, 0, 255).astype(np.uint8)
+    with open(str(path), "wb") as f:
+        f.write(_splat_records(means, scales, rgba8, rot8))
+    return str(path)
+
+
+def gs_ply_to_splat(ply_path, splat_path) -> str:
+    """A 3DGS PLY (as save_gs_ply writes it) -> a .splat file, sorted by
+    scale volume x opacity, largest first."""
+    data = read_ply(ply_path)
+    order = np.argsort(
+        -np.exp(data["scale_0"] + data["scale_1"] + data["scale_2"])
+        / (1 + np.exp(-data["opacity"])))
+    pos = np.stack([data["x"], data["y"], data["z"]], -1).astype(np.float32)[order]
+    scale = np.exp(np.stack([data[f"scale_{i}"] for i in range(3)], -1)
+                   ).astype(np.float32)[order]
+    rot = np.stack([data[f"rot_{i}"] for i in range(4)], -1).astype(np.float32)[order]
+    color = np.stack([0.5 + SH_C0 * data[f"f_dc_{i}"] for i in range(3)]
+                     + [1 / (1 + np.exp(-data["opacity"]))], -1)[order]
+    rot = rot / np.linalg.norm(rot, axis=-1, keepdims=True)
+    rgba = (color * 255).clip(0, 255).astype(np.uint8)
+    rot8 = (rot * 128 + 128).clip(0, 255).astype(np.uint8)
+    with open(str(splat_path), "wb") as f:
+        f.write(_splat_records(pos, scale, rgba, rot8))
+    return str(splat_path)
+
+
+def save_image_png(path, image: np.ndarray) -> None:
+    from PIL import Image
+    img = (np.clip(np.asarray(image), 0, 1) * 255).astype(np.uint8)
+    Image.fromarray(img).save(str(path))
+
+
+def save_depth_png(path, depth: np.ndarray) -> None:
+    """A depth map min-max scaled to 8-bit grey."""
+    from PIL import Image
+    d = np.asarray(depth, np.float32)
+    d = d - d.min()
+    d = d / (d.max() + 1e-9)
+    Image.fromarray((np.clip(d, 0, 1) * 255).astype(np.uint8), mode="L").save(str(path))
+
+
+def save_normal_png(path, normal_hwc: np.ndarray) -> None:
+    """Unit normals in [-1, 1] -> 8-bit RGB."""
+    from PIL import Image
+    n = (np.asarray(normal_hwc) + 1.0) * 0.5
+    Image.fromarray((np.clip(n, 0, 1) * 255).astype(np.uint8)).save(str(path))
 
 
 def save_depth_npy(path, depth: np.ndarray) -> None:

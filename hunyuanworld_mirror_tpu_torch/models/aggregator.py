@@ -2,12 +2,11 @@
 
 Port of hunyuanworld_mirror_tpu/models/aggregator.py. DINOv2 (or conv)
 patch encoder, per-frame special tokens (camera + registers, frame 0
-distinct), zero pose/ray tokens under `enable_cond`, 2D RoPE, `depth` pairs
-of (frame, global) blocks run as a Python loop over two ModuleLists, and
-capture of concat(frame_out, global_out) at `intermediate_idxs`.
-
-Prior prompting (cond flags other than (0, 0, 0)) is not ported yet: its
-parameters exist (so checkpoints load) and forward raises.
+distinct), prior prompting under `enable_cond` (a pose token and a ray
+token, zero when their flag is off or their prior absent, and depth-prior
+tokens added to the patch tokens), 2D RoPE, `depth` pairs of (frame,
+global) blocks run as a Python loop over two ModuleLists, and capture of
+concat(frame_out, global_out) at `intermediate_idxs`.
 """
 
 from dataclasses import dataclass, replace
@@ -74,6 +73,11 @@ class PatchEmbedMlp(nn.Module):
             Mlp(in_chans * patch_size ** 2, 4 * embed_dim, embed_dim),
             _Permute(0, 3, 1, 2))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) -> (B, h*w, embed_dim); the channel order of
+        F.pixel_unshuffle, as the JAX patch_embed_mlp lays it out."""
+        return self.proj(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+
 
 class VisualGeometryTransformer(nn.Module):
     def __init__(self, cfg: VGTConfig):
@@ -113,15 +117,16 @@ class VisualGeometryTransformer(nn.Module):
                        token[:, 1:2].expand(b, s - 1, *token.shape[2:])], dim=1)
         return t.reshape(b * s, *token.shape[2:]).to(dtype)
 
-    def forward(self, images: torch.Tensor,
+    def forward(self, images: torch.Tensor, priors: Optional[Tuple] = None,
                 cond_flags: Sequence[int] = (0, 0, 0),
                 dtype=torch.bfloat16, marks: Optional[List] = None
                 ) -> Tuple[List[torch.Tensor], int]:
         """(B, S, H, W, 3) images in [0, 1] -> (4 intermediates, each
-        (B, S, N, 2C), patch_start_idx). `marks`: see utils/profiling.py."""
-        if any(cond_flags):
-            raise NotImplementedError("prior prompting (cond flags other than "
-                                      "(0, 0, 0)) is not ported yet")
+        (B, S, N, 2C), patch_start_idx).
+
+        priors: optional (depth maps (B,S,H,W), rays (B,S,4), poses
+        (B,S,7)), any of them None; cond_flags: (pose, depth, rays) switches.
+        `marks`: see utils/profiling.py."""
         cfg = self.cfg
         B, S, H, W, _ = images.shape
         C = cfg.embed_dim
@@ -140,8 +145,17 @@ class VisualGeometryTransformer(nn.Module):
         parts = [self._special(self.cam_token, B, S, dtype),
                  self._special(self.reg_token, B, S, dtype)]
         if cfg.enable_cond:
+            depths, rays, poses = priors if priors is not None else (None,) * 3
             zero = torch.zeros(B * S, 1, C, dtype=dtype, device=dev)
-            parts += [zero, zero]            # pose token, ray token
+            pose_tok = ray_tok = zero
+            if cond_flags[0] and poses is not None:
+                pose_tok = self.pose_embed(poses.reshape(B * S, 7).to(dtype))[:, None]
+            if cond_flags[1] and depths is not None:
+                patch_tokens = patch_tokens + self.depth_embed(
+                    depths.reshape(B * S, H, W, 1).to(dtype))
+            if cond_flags[2] and rays is not None:
+                ray_tok = self.ray_embed(rays.reshape(B * S, 4).to(dtype))[:, None]
+            parts += [pose_tok, ray_tok]
         tokens = torch.cat(parts + [patch_tokens], dim=1)
         N = tokens.shape[1]
 

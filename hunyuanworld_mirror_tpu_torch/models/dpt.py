@@ -5,7 +5,10 @@ projections, multi-scale resize (x4 deconv, x2 deconv, identity, stride-2
 conv), 3x3 scratch convs, four top-down fusion blocks with residual conv
 units (align-corners bilinear ups), the 2-conv output head with sinusoidal
 UV pos-embeds, and the activation zoo. The GS variant also returns the
-fused feature map plus a 7x7 RGB `input_merger` injection.
+fused feature map plus a 7x7 RGB `input_merger` injection. The decoder
+computes in `compute_dtype` (f32 by default, as the reference's heads;
+"bfloat16" halves its memory traffic); the final activations are f32
+either way.
 
 The decoder runs NCHW internally; inputs and outputs keep the JAX layout
 (NHWC). State-dict names follow the reference DPTHead (`projects`,
@@ -33,6 +36,7 @@ class DPTConfig:
     features: int = 256
     out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
     is_gsdpt: bool = False
+    compute_dtype: str = "float32"
 
 
 class ResidualConvUnit(nn.Module):
@@ -100,9 +104,11 @@ def activate_head(out: torch.Tensor, activation: str = "inv_log+expp1"):
 
 
 def _pos_embed(x: torch.Tensor, w_img: int, h_img: int, ratio: float = 0.1):
-    """x (B, C, H, W) + sinusoidal embedding of the UV grid."""
+    """x (B, C, H, W) + sinusoidal embedding of the UV grid (the grid in
+    x's dtype, as the JAX package builds it)."""
     C, ph, pw = x.shape[-3:]
-    uv = create_uv_grid(pw, ph, aspect_ratio=w_img / h_img, device=x.device)
+    uv = create_uv_grid(pw, ph, aspect_ratio=w_img / h_img, dtype=x.dtype,
+                        device=x.device)
     emb = position_grid_to_embed(uv, C) * ratio
     return x + emb.permute(2, 0, 1)[None].to(x.dtype)
 
@@ -127,13 +133,15 @@ class DPTHead(nn.Module):
     def forward_raw(self, token_list: List[torch.Tensor], images: torch.Tensor,
                     patch_start_idx: int):
         """Decode to the f32 pre-activation head map (B*S, H, W, output_dim)
-        (plus the fused feature map (B*S, H, W, f/2) for gsdpt), NHWC."""
+        (plus the fused feature map (B*S, H, W, f/2), in the compute dtype,
+        for gsdpt), NHWC."""
         cfg = self.cfg
+        cdtype = getattr(torch, cfg.compute_dtype)
         B, S, H, W, _ = images.shape
         ph, pw = H // cfg.patch_size, W // cfg.patch_size
         feats = []
         for lvl in range(4):
-            t = token_list[lvl][:, :, patch_start_idx:].float()
+            t = token_list[lvl][:, :, patch_start_idx:].to(cdtype)
             t = self.norm(t.reshape(B * S, ph * pw, t.shape[-1]))
             f = t.transpose(1, 2).reshape(B * S, -1, ph, pw)
             f = _pos_embed(self.projects[lvl](f), W, H)
@@ -151,7 +159,7 @@ class DPTHead(nn.Module):
         fused = _pos_embed(fused, W, H)
         head = sc.output_conv2(fused).float().permute(0, 2, 3, 1)
         if cfg.is_gsdpt:
-            img = images.reshape(B * S, H, W, 3).float().permute(0, 3, 1, 2)
+            img = images.reshape(B * S, H, W, 3).to(cdtype).permute(0, 3, 1, 2)
             fused = fused + self.input_merger(img)
             return head, fused.permute(0, 2, 3, 1)
         return head

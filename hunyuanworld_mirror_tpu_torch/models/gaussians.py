@@ -1,10 +1,12 @@
 """Pixel-aligned 3D Gaussians: raw head params -> splats -> rendered views.
 
-Port of hunyuanworld_mirror_tpu/models/gaussians.py on the default path:
-the 2-conv gs_head (per-segment init: quats 0, scales -7, opacity -2, SH 0,
-weights -2), activations, means unprojected from gs_depth through the
-predicted cameras, residual SH over RGB2SH(image), voxel weighted merge,
-static compaction, and one rasterize per camera (RGB+ED).
+Port of hunyuanworld_mirror_tpu/models/gaussians.py: the 2-conv gs_head
+(per-segment init: quats 0, scales -7, opacity -2, SH 0, weights -2,
+offsets 1e-3), activations, means from one of four sources
+(`position_from`, by default gs_depth unprojected through the predicted
+cameras) plus optional predicted offsets, residual SH over RGB2SH(image),
+the confidence filter, voxel weighted merge, static compaction, and one
+rasterize per camera (RGB+ED).
 
 Splat dicts keep the JAX package's static shapes: (B, N, ...) with dead
 slots (weight 0, opacity 0, parked at 1e12). The voxel merge is plain torch
@@ -14,7 +16,7 @@ unstable, so splats compare as canonically re-sorted sets.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -32,10 +34,23 @@ SPLAT_KEYS = ("means", "quats", "scales", "opacities", "sh", "weights")
 class GSRendererConfig:
     feature_dim: int = 256
     sh_degree: int = 0
+    # 3 more raw channels: bounded offsets added to the means
+    predict_offset: bool = False
+    predict_residual_sh: bool = True
+    enable_prune: bool = True
     voxel_size: float = 0.002
+    # keep the top (100 - conf_threshold_percent)% of splats by gs_depth_conf
+    enable_conf_filter: bool = False
+    conf_threshold_percent: float = 30.0
     max_gaussians: int = 5_000_000
     compact_fraction: float = 0.5
+    # compaction runs only after a prune or a filter
     enable_compact: bool = True
+    # where the means come from: "pts3d" (the point head), or a depth
+    # unprojected through cameras: "preddepth+predcamera",
+    # "gsdepth+predcamera" or "gsdepth+gtcamera" (views["camera_pose"] and
+    # views["camera_intrinsics"])
+    position_from: str = "gsdepth+predcamera"
     max_per_tile: int = 4096
     max_tiles_per_gauss: int = 4
     tile_size: int = 16   # 8 or 16 on the card (ops.rasterizer_flat.KERNEL_TILE_SIZES)
@@ -47,7 +62,11 @@ class GSRendererConfig:
 
     @property
     def splits(self):
-        return [4, 3, 1, self.nums_sh * 3, 1]
+        return [4, 3, 1, self.nums_sh * 3, 1] + ([3] if self.predict_offset else [])
+
+    @property
+    def raw_channels(self) -> int:
+        return sum(self.splits)
 
 
 class GaussianSplatRenderer(nn.Module):
@@ -59,18 +78,21 @@ class GaussianSplatRenderer(nn.Module):
         f = cfg.feature_dim
         self.gs_head = nn.Sequential(
             Conv2d(f // 2, f, 3, padding=1, bias=False), nn.ReLU(),
-            Conv2d(f, sum(cfg.splits), 1))
+            Conv2d(f, cfg.raw_channels, 1))
 
     def init_own(self, gen):
         # final conv per parameter segment: xavier-uniform with a gain and a
-        # constant bias (quats 0, scales -7, opacity -2, SH 0, weights -2)
+        # constant bias (quats 0, scales -7, opacity -2, SH 0, weights -2,
+        # offsets 1e-3)
         conv = self.gs_head[2]
         f = self.cfg.feature_dim
+        segments = [(4, 1.0, 0.0), (3, 3e-5, -7.0), (1, 1.0, -2.0),
+                    (3 * self.cfg.nums_sh, 1.0, 0.0), (1, 1.0, -2.0)]
+        if self.cfg.predict_offset:
+            segments.append((3, 0.001, 0.001))
         start = 0
         with torch.no_grad():
-            for n_out, gain, bias in ((4, 1.0, 0.0), (3, 3e-5, -7.0),
-                                      (1, 1.0, -2.0), (3 * self.cfg.nums_sh, 1.0, 0.0),
-                                      (1, 1.0, -2.0)):
+            for n_out, gain, bias in segments:
                 uniform_(conv.weight[start:start + n_out],
                          gain * (6.0 / (f + n_out)) ** 0.5, gen)
                 conv.bias[start:start + n_out] = bias
@@ -82,34 +104,76 @@ class GaussianSplatRenderer(nn.Module):
 
 
 def prepare_splats(cfg: GSRendererConfig, gs_params: torch.Tensor,
-                   images: torch.Tensor, gs_depth: torch.Tensor,
-                   camera_params: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Raw head output -> activated splats (B, N = S*H*W, ...); means are
-    gs_depth unprojected through the cameras ("gsdepth+predcamera")."""
+                   images: torch.Tensor, predictions: Dict,
+                   views: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """Raw head output -> activated splats (B, N = S*H*W, ...), the means
+    from `cfg.position_from`: "gsdepth+gtcamera" reads views["camera_pose"]
+    (B, S, 4, 4 c2w) and views["camera_intrinsics"] (B, S, 3, 3)."""
     B, S, H, W, _ = images.shape
     N = S * H * W
-    quats, scales, opac, res_sh, weights = torch.split(
-        gs_params.reshape(B, N, -1), cfg.splits, dim=-1)
-    res_sh = gs_act.reg_dense_sh(res_sh)                      # (B, N, K, 3)
-    dc = sh_utils.rgb_to_sh(images.reshape(B, N, 3))
-    if cfg.nums_sh > 1:
-        sh = torch.cat([res_sh[..., :1, :] + dc[..., None, :], res_sh[..., 1:, :]], -2)
-    else:
-        sh = res_sh + dc[..., None, :]
-    ext, intr = cam_utils.vector_to_camera_matrices(
-        camera_params.reshape(B * S, 9), (H, W))
-    c2w = cam_utils.se3_inverse(cam_utils.to_homogeneous(ext))
-    pts, _, _ = geometry.depth_to_world_coords_points(
-        gs_depth.reshape(B * S, H, W), c2w, intr)
-    return {
+    parts = torch.split(gs_params.reshape(B, N, -1), cfg.splits, dim=-1)
+    quats, scales, opac, res_sh, weights = parts[:5]
+    offsets = gs_act.reg_dense_offsets(parts[5]) if cfg.predict_offset else 0.0
+    splats = {
         "quats": gs_act.reg_dense_rotation(quats),
         "scales": torch.clamp_max(gs_act.reg_dense_scales(scales), 0.3),
         "opacities": gs_act.reg_dense_opacities(opac[..., 0]),
         "weights": gs_act.reg_dense_weights(weights[..., 0]),
-        "sh": sh,
-        "residual_sh": res_sh,
-        "means": pts.reshape(B, N, 3),
     }
+    res_sh = gs_act.reg_dense_sh(res_sh)                      # (B, N, K, 3)
+    if cfg.predict_residual_sh:
+        dc = sh_utils.rgb_to_sh(images.reshape(B, N, 3))
+        if cfg.nums_sh > 1:
+            sh = torch.cat([res_sh[..., :1, :] + dc[..., None, :],
+                            res_sh[..., 1:, :]], -2)
+        else:
+            sh = res_sh + dc[..., None, :]
+        splats["sh"] = sh
+        splats["residual_sh"] = res_sh
+    else:
+        splats["sh"] = res_sh
+
+    mode = cfg.position_from
+    if mode == "pts3d":
+        splats["means"] = predictions["pts3d"].reshape(B, N, 3) + offsets
+        return splats
+    if mode in ("preddepth+predcamera", "gsdepth+predcamera"):
+        depth = predictions["depth" if mode.startswith("preddepth") else "gs_depth"]
+        ext, intr = cam_utils.vector_to_camera_matrices(
+            predictions["camera_params"].reshape(B * S, 9), (H, W))
+        c2w = cam_utils.se3_inverse(cam_utils.to_homogeneous(ext))
+    elif mode == "gsdepth+gtcamera":
+        if views is None or "camera_pose" not in views:
+            raise ValueError("position_from='gsdepth+gtcamera' needs "
+                             "views['camera_pose'] / ['camera_intrinsics']")
+        depth = predictions["gs_depth"]
+        c2w = views["camera_pose"].reshape(B * S, 4, 4)
+        intr = views["camera_intrinsics"].reshape(B * S, 3, 3)
+    else:
+        raise ValueError(f"invalid position_from={mode!r}")
+    pts, _, _ = geometry.depth_to_world_coords_points(
+        depth.reshape(B * S, H, W), c2w, intr)
+    splats["means"] = pts.reshape(B, N, 3) + offsets
+    return splats
+
+
+def confidence_filter(cfg: GSRendererConfig, splats: Dict,
+                      conf: torch.Tensor) -> Dict:
+    """Keep the top (100 - p)% most confident splats (p the config's
+    conf_threshold_percent), static shapes kept: the rest get opacity and
+    weight 0 and means parked at 1e12, beyond the far plane."""
+    B, N = splats["means"].shape[:2]
+    c = conf.reshape(B, N)
+    c = torch.where(c <= 1e-5, torch.full_like(c, -float("inf")), c)
+    keep = int(min(cfg.max_gaussians,
+                   max(1, -(-N * (100.0 - cfg.conf_threshold_percent) // 100.0))))
+    kth = torch.sort(c, dim=-1).values[:, N - keep]
+    alive = c >= kth[:, None]
+    out = dict(splats)
+    out["opacities"] = torch.where(alive, splats["opacities"], 0.0)
+    out["weights"] = torch.where(alive, splats["weights"], 0.0)
+    out["means"] = torch.where(alive[..., None], splats["means"], 1e12)
+    return out
 
 
 def voxel_prune(cfg: GSRendererConfig, splats: Dict) -> Dict:
@@ -179,19 +243,26 @@ def compact_splats(cfg: GSRendererConfig, splats: Dict) -> Dict:
     return out
 
 
-def render(renderer: GaussianSplatRenderer, gs_feats: torch.Tensor,
-           images: torch.Tensor, predictions: Dict,
-           do_render: bool = True) -> Dict:
-    """Head conv -> splats -> voxel merge -> compaction -> per-camera
-    rasterize. Fills predictions["splats"] and, with `do_render`,
-    rendered_colors / rendered_depths / rendered_alphas / render_n_dropped."""
+def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
+           images: torch.Tensor, predictions: Dict, do_render: bool = True,
+           views: Optional[Dict] = None,
+           gs_params: Optional[torch.Tensor] = None) -> Dict:
+    """Head conv -> splats -> confidence filter -> voxel merge ->
+    compaction -> per-camera rasterize, each stage as the config asks.
+    Takes the fused features (B, S, H, W, f/2), or `gs_params` (B*S, H, W,
+    raw) with the head conv already applied (the frame-chunked heads).
+    Fills predictions["splats"] and, with `do_render`, rendered_colors /
+    rendered_depths / rendered_alphas / render_n_dropped."""
     cfg = renderer.cfg
     B, S, H, W, _ = images.shape
-    gs_params = renderer.head(gs_feats.reshape(B * S, H, W, -1))
-    splats = prepare_splats(cfg, gs_params, images, predictions["gs_depth"],
-                            predictions["camera_params"])
-    splats = {**splats, **voxel_prune(cfg, {k: splats[k] for k in SPLAT_KEYS})}
-    if cfg.enable_compact:
+    if gs_params is None:
+        gs_params = renderer.head(gs_feats.reshape(B * S, H, W, -1))
+    splats = prepare_splats(cfg, gs_params, images, predictions, views)
+    if cfg.enable_conf_filter and "gs_depth_conf" in predictions:
+        splats = confidence_filter(cfg, splats, predictions["gs_depth_conf"])
+    if cfg.enable_prune:
+        splats = {**splats, **voxel_prune(cfg, {k: splats[k] for k in SPLAT_KEYS})}
+    if cfg.enable_compact and (cfg.enable_prune or cfg.enable_conf_filter):
         splats = compact_splats(cfg, {k: splats[k] for k in SPLAT_KEYS})
     predictions["splats"] = splats
     if not do_render:

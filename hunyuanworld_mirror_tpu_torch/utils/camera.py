@@ -1,16 +1,39 @@
-"""Camera 9-vector decoding and SE(3) helpers.
+"""Camera 9-vector codec and SE(3) helpers.
 
-Port of hunyuanworld_mirror_tpu/utils/camera.py (the decode direction; the
-encoders come with the cond-priors slice). The model regresses
+Port of hunyuanworld_mirror_tpu/utils/camera.py. The model regresses
 [t(3), quat XYZW(4), fov_v, fov_u] per view: the world-to-camera [R|t] plus
-vertical/horizontal FOV, principal point at the image center.
+vertical/horizontal FOV, principal point at the image center. The encoders
+(matrices -> vectors) feed the pose prior; they return f32 as the JAX
+package's do.
 """
 
 from typing import Tuple
 
 import torch
 
-from .rotation import quat_to_rotmat
+from .rotation import quat_to_rotmat, rotmat_to_quat
+
+
+def camera_params_to_vector(ext: torch.Tensor, intr: torch.Tensor,
+                            image_hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., 3, 4) extrinsic + (..., 3, 3) intrinsics -> (..., 9) vector."""
+    h, w = image_hw
+    fov_v = 2.0 * torch.arctan(h * 0.5 / intr[..., 1, 1])
+    fov_u = 2.0 * torch.arctan(w * 0.5 / intr[..., 0, 0])
+    return torch.cat([ext[..., :3, 3], rotmat_to_quat(ext[..., :3, :3]),
+                      fov_v[..., None], fov_u[..., None]], dim=-1).float()
+
+
+def extrinsics_to_vector(ext: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) extrinsic -> (..., 7) [t, quat XYZW] vector."""
+    return torch.cat([ext[..., :3, 3], rotmat_to_quat(ext[..., :3, :3])],
+                     dim=-1).float()
+
+
+def vector_to_extrinsics(cam_vec: torch.Tensor) -> torch.Tensor:
+    """(..., 7+) [t, quat] vector -> (..., 3, 4) extrinsic [R|t]."""
+    return torch.cat([quat_to_rotmat(cam_vec[..., 3:7]),
+                      cam_vec[..., 0:3, None]], dim=-1)
 
 
 def vector_to_camera_matrices(cam_vec: torch.Tensor, image_hw: Tuple[int, int]

@@ -41,3 +41,13 @@ def depth_to_world_coords_points(depth_map: torch.Tensor,
     t = extrinsic[:, :3, 3]
     world = torch.einsum("bhwi,bji->bhwj", cam_pts, R) + t[:, None, None, :]
     return world, cam_pts, point_mask
+
+
+def create_pixel_coordinate_grid(num_frames: int, height: int, width: int
+                                 ) -> torch.Tensor:
+    """(S, H, W, 3) grid of (x, y, frame index) per pixel, f32."""
+    u, v = pixel_grid(height, width)
+    f = torch.arange(num_frames, dtype=torch.float32)
+    return torch.stack([u[None].expand(num_frames, height, width),
+                        v[None].expand(num_frames, height, width),
+                        f[:, None, None].expand(num_frames, height, width)], dim=-1)

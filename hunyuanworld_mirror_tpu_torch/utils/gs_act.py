@@ -3,7 +3,15 @@
 Port of hunyuanworld_mirror_tpu/utils/gs_act.py.
 """
 
+import math
+
 import torch
+
+
+def reg_dense_offsets(xyz: torch.Tensor, shift: float = 6.0) -> torch.Tensor:
+    """Direction-preserving bounded offsets: dir * (e^(|d|-shift) - e^-shift)."""
+    d = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    return xyz / torch.clamp_min(d, 1e-8) * (torch.exp(d - shift) - math.exp(-shift))
 
 
 def reg_dense_scales(scales: torch.Tensor) -> torch.Tensor:

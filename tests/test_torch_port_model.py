@@ -6,7 +6,8 @@ converters, the golden fixture, import hygiene and device selection.
   renders at the full-model parity bands (test_full_model_parity.compare_*);
 - tools/convert_weights.convert_worldmirror(port state dict) has the JAX
   init's exact tree and shapes, and from_jax_params inverts it exactly;
-- the committed golden fixture `no_priors` with the two-pass protocol of
+- the committed golden fixtures `no_priors` and `all_priors` (pose, depth
+  and intrinsics priors) with the two-pass protocol of
   tests/test_golden_fixture.py;
 - the package imports with JAX unavailable and loads nothing of the JAX
   package; entry points without a device raise on a machine with no GPU.
@@ -134,28 +135,46 @@ def test_init_follows_the_jax_distributions():
                                                  again.state_dict().values()))
 
 
-def test_golden_fixture_no_priors():
+def _golden_fixture(name):
+    """The committed fixture `name` with the two-pass protocol of
+    tests/test_golden_fixture.py: its views (the image, and the priors where
+    the fixture has them) and its cond flags (meta/cond)."""
     from tools.make_golden_fixtures import load_fixture_tree, unflatten_tree
-    path = os.path.join(REPO, "tests", "fixtures", "full_model_no_priors.npz")
+    path = os.path.join(REPO, "tests", "fixtures", f"full_model_{name}.npz")
     z = np.load(path)
     flat = load_fixture_tree({k: z[k] for k in z.files})
     params = unflatten_tree({k[len("params/"):]: v for k, v in flat.items()
                              if k.startswith("params/")})
     ref = unflatten_tree({k[len("ref/"):]: v for k, v in flat.items()
                           if k.startswith("ref/")})
-    img = flat["views/img"].transpose(0, 1, 3, 4, 2)            # NCHW -> NHWC
+    views = {k[len("views/"):]: torch.tensor(v) for k, v in flat.items()
+             if k.startswith("views/")}
+    views["img"] = views["img"].permute(0, 1, 3, 4, 2)           # NCHW -> NHWC
+    cond = tuple(int(c) for c in z["meta/cond"])
     model = _port_model(dict(img_size=tp.IMG, patch_size=tp.PATCH,
                              embed_dim=tp.EMBED, gs_dim=tp.GSD, patch_embed="conv",
                              gs_compact=False, dpt_features=tp.DPT_F,
                              dpt_out_channels=tp.DPT_OC), params)
-    views = {"img": torch.tensor(img)}
     # pass 1: cameras at the fixture band, heads at the tight band
-    ours = _numpy_preds(model(views, trunk_dtype=torch.float32))
+    ours = _numpy_preds(model(views, cond_flags=cond, trunk_dtype=torch.float32))
     tp.compare_full(ours, ref, fixture_mode=True)
     # pass 2: the reference's cameras substituted, splats and renders tight
-    ours = _numpy_preds(model(views, trunk_dtype=torch.float32,
+    ours = _numpy_preds(model(views, cond_flags=cond, trunk_dtype=torch.float32,
                               camera_params=ref["camera_params"]))
     tp.compare_geometry(ours, ref, nn_tol=1e-3, row_tol=5e-3, row_med=5e-4)
+    return cond, views
+
+
+def test_golden_fixture_no_priors():
+    cond, views = _golden_fixture("no_priors")
+    assert cond == (0, 0, 0) and set(views) == {"img"}
+
+
+def test_golden_fixture_all_priors():
+    """Camera poses, intrinsics and depth maps as prior tokens, cond (1, 1, 1)."""
+    cond, views = _golden_fixture("all_priors")
+    assert cond == (1, 1, 1)
+    assert set(views) == {"img", "camera_pose", "camera_intrinsics", "depthmap"}
 
 
 def test_imports_without_jax():

@@ -81,6 +81,29 @@ Phases (any failure exits non-zero before the last line is printed):
      cameras with the render's caps (untightened radii, 1089 x 4096 id
      table per camera): 4 K4 launches, K4 against its plain version (the
      JAX package's log-space blend) on each camera's bins, both timed;
+ 12. the CLI's remaining flags, on one model of phase 5's configuration
+     and weights with phase 5's images and cameras (the render's route
+     switched on the model's renderer config between forwards): one flat
+     forward (88 K1, 4 K2) and 7 timed; (a) rasterizer_impl="jax"
+     (--rasterizer jax): one forward with 88 K1, 0 K2 and 4 K4 launches,
+     its render against the flat forward's (max, median, share past 1e-3),
+     K4 against its plain version on each camera's dense bins (tight radii,
+     4096 a tile, 4 tiles a splat), 7 timed forwards; (b) slot_fracs="auto"
+     (--fast-binning): one forward with 4 K2, sorted rows a camera against
+     the exact binning's, the render against the flat forward's, K2 against
+     its plain version on the 4 prefix lists, 7 timed forwards; (c) the
+     --video trajectory through the 4 cameras (46 frames, 46 K2 launches),
+     every frame finite and lit, ms a frame, K2 against its plain version on
+     frame 0's list, then 3 frames with the spread effect (3 K2) and 3 on
+     impl="jax" (3 K4), no cv2; (d) refine_cameras (--ba) on the flat
+     forward's predictions, 12 iterations at stride 16, timed, cost not
+     raised, cost0 within 1e-4 relative of the same call on the CPU, then
+     the same on a bundle made consistent from that forward (its depth
+     with 1% noise unprojected through its cameras), where the cost must
+     fall; (e)
+     the CLI's main() on a .npy of the images with --glb --glb-mesh
+     --mask-sky --ba --ba-iters 4 --fast-binning: 88 K1 and 4 K2 launches,
+     every file written, scene.glb a valid glTF header;
 then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Each phase prints its wall time.
 
@@ -114,6 +137,10 @@ K4 are per call of their route over the 4 cameras: `launches` is the
 count of that call, the times and bounds totals over its cameras. K4's
 bytes are the id table's live slots and one read of each live slot's
 splat row, its operations those of the same blend replayed as a flat list.
+Phase 12's paths add keys to two entries: K2's `fast_binning_forward`
+(per forward over the 4 prefix lists) and `video_frame` (`launches` for the
+46-frame trajectory, the times on frame 0's list), K4's
+`rasterizer_jax_forward` (per forward of the --rasterizer jax path).
 """
 
 import json
@@ -635,17 +662,20 @@ def phase_main_path():
     return launches, k2, preds, imgs
 
 
-def timed_forwards(label, forward, n=7):
+def timed_forwards(label, forward, n=7, medians=None):
     """n forwards, each split into its phases by the CUDA events the model
-    records (`marks`), after a reset of the peak memory -> the last output."""
+    records (`marks`), after a reset of the peak memory -> the last output.
+    `medians` (a dict) receives each phase's median ms and the total's."""
     torch.cuda.reset_peak_memory_stats()
-    totals = []
+    totals, phases = [], {}
     for i in range(n):
         marks = []
         out = forward(marks)
         torch.cuda.synchronize()
         ph = {name: marks[j - 1][1].elapsed_time(ev)
               for j, (name, ev) in enumerate(marks) if j}
+        for k, v in ph.items():
+            phases.setdefault(k, []).append(v)
         totals.append(sum(ph.values()))
         log(f"{label} forward {i}: " + "  ".join(f"{k} {v:.2f} ms" for k, v in ph.items())
             + f"  total {totals[-1]:.2f} ms")
@@ -655,6 +685,9 @@ def timed_forwards(label, forward, n=7):
         f"min {min(totals):.2f}, max {max(totals):.2f} over {len(totals)}; "
         f"peak memory with the bf16 model resident "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if medians is not None:
+        medians.update({k: float(np.median(v)) for k, v in phases.items()},
+                       total=float(np.median(totals)))
     return out
 
 
@@ -1230,28 +1263,35 @@ def phase_k4(preds):
         m2d, con, dep, rad, col, op = (x[c] for x in proj)
         colors, bins = distributed.bin_local_camera(
             m2d, con, dep, rad, col, op, HW, HW, 16, RENDER_MPT, RENDER_TPG)
-        args = (m2d, con, colors, op, bins, HW, HW, 16)
-        err = check_blend(f"K4 camera {c}", lambda: B.rasterize_binned(*args),
-                          lambda: B.rasterize_binned_plain(*args))
-        ms = cuda_ms(lambda: B.rasterize_binned(*args))
-        plain_ms = cuda_ms(lambda: B.rasterize_binned_plain(*args), reps=2, warmup=1)
-        # the same blend as a flat list: the live slots' rows in tile order
-        live = (torch.arange(RENDER_MPT, device="cuda")[None, :]
-                < bins.counts[:, None].long())
-        table = B.splat_table(m2d, con, colors, op)
-        packed = table[bins.gauss_ids[live].long()].T.contiguous()
-        starts = (torch.cumsum(bins.counts.long(), 0) - bins.counts).to(torch.int32)
-        n_live = int(bins.counts.sum())
-        bound, by, pairs, t_bytes, t_ops = blend_bound(
-            packed, starts, bins.counts, HW, HW, 4, False, id_bytes=4,
-            extra_bytes=-bins.counts.numel() * 4)
-        log(f"K4 camera {c}: live slots {n_live}, n_dropped {int(bins.n_dropped)}  "
-            f"pairs tested {pairs['forward']} kept {pairs['kept']}  max|d| {err:.3e} "
-            f"(band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
-            f"bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, operations {t_ops:.4f})")
-        rows.append((err, ms, plain_ms, bound, by))
-        del packed, table, bins
+        rows.append(k4_check(f"K4 camera {c}", m2d, con, colors, op, bins, HW))
+        del bins
     return launches, totals(f"K4 per render of {w2c.shape[0]} cameras", rows)
+
+
+def k4_check(label, m2d, con, colors, op, bins, HW):
+    """K4 against its plain version on one camera's dense bins, both timed,
+    and its bound -> (err, ms, plain_ms, bound_ms, bound_by)."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned as B
+    args = (m2d, con, colors, op, bins, HW, HW, 16)
+    err = check_blend(label, lambda: B.rasterize_binned(*args),
+                      lambda: B.rasterize_binned_plain(*args))
+    ms = cuda_ms(lambda: B.rasterize_binned(*args))
+    plain_ms = cuda_ms(lambda: B.rasterize_binned_plain(*args), reps=2, warmup=1)
+    # the same blend as a flat list: the live slots' rows in tile order
+    mpt = bins.gauss_ids.shape[1]
+    live = torch.arange(mpt, device="cuda")[None, :] < bins.counts[:, None].long()
+    table = B.splat_table(m2d, con, colors, op)
+    packed = table[bins.gauss_ids[live].long()].T.contiguous()
+    starts = (torch.cumsum(bins.counts.long(), 0) - bins.counts).to(torch.int32)
+    bound, by, pairs, t_bytes, t_ops = blend_bound(
+        packed, starts, bins.counts, HW, HW, 4, False, id_bytes=4,
+        extra_bytes=-bins.counts.numel() * 4)
+    log(f"{label}: live slots {int(bins.counts.sum())} of {mpt} a tile, n_dropped "
+        f"{int(bins.n_dropped)}  pairs tested {pairs['forward']} kept {pairs['kept']}  "
+        f"max|d| {err:.3e} (band {K2_BAND:.0e})  kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.2f} ms  bound {bound:.4f} ms ({by}; bytes {t_bytes:.4f}, "
+        f"operations {t_ops:.4f})")
+    return err, ms, plain_ms, bound, by
 
 
 # --- the card against the CPU ------------------------------------------------
@@ -1315,6 +1355,340 @@ def phase_cpu_reference():
     card_vs_cpu("head_chunk 1", replace(cfg, head_chunk=1), state, imgs, cams)
 
 
+# --- phase 12: the CLI's remaining flags --------------------------------------
+
+def reset_counts():
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned, rasterizer_flat
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
+    attention.launches = attention.flash_route_launches = 0
+    rasterizer_flat.rasterize_flat.launches = 0
+    rasterizer_binned.rasterize_binned.launches = 0
+
+
+def read_counts():
+    """(K1, K1 at N >= 4096, K2, K4) launches since reset_counts."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned, rasterizer_flat
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
+    torch.cuda.synchronize()
+    return (attention.launches, attention.flash_route_launches,
+            rasterizer_flat.rasterize_flat.launches,
+            rasterizer_binned.rasterize_binned.launches)
+
+
+def counted_forward(label, model, imgs, cams, want):
+    """One forward with every count set to 0 just before and read just
+    after; fails unless (K1, K1 at N >= 4096, K2, K4) == want."""
+    from hunyuanworld_mirror_tpu_torch.infer import reconstruct
+    reset_counts()
+    preds = reconstruct(model, imgs, cams)
+    got = read_counts()
+    log(f"{label} forward: launches (K1, K1 at N >= 4096, K2, K4) {got}; "
+        f"intersections {preds['render_n_isects'].tolist()}  n_dropped "
+        f"{preds['render_n_dropped'].tolist()}  mean alpha "
+        f"{float(preds['rendered_alphas'].mean()):.4f}")
+    if got != want:
+        raise AssertionError(f"{label} forward: launches {got} != {want}")
+    for k in ("rendered_colors", "rendered_alphas", "rendered_depths"):
+        if not torch.isfinite(preds[k]).all():
+            raise AssertionError(f"{label} forward: {k} is not finite")
+    return preds
+
+
+def render_diff(label, preds, ref):
+    """RGB and alpha of two renders: max, median and the share of pixels
+    with |d| > 1e-3 in any channel."""
+    d = torch.cat([preds["rendered_colors"] - ref["rendered_colors"],
+                   preds["rendered_alphas"] - ref["rendered_alphas"]], -1).abs()
+    diff = dict(max=float(d.max()), median=float(d.median()),
+                share_gt_1e_3=float((d.amax(-1) > 1e-3).float().mean()))
+    log(f"{label} render vs the flat route's (RGB and alpha): {json.dumps(diff)}")
+    if not diff["median"] < 1e-3:
+        raise AssertionError(f"{label}: render differs from the flat route's {diff}")
+    return diff
+
+
+def gs_render_ms(label, model, imgs, cams):
+    from hunyuanworld_mirror_tpu_torch.infer import reconstruct
+    med = {}
+    timed_forwards(label, lambda marks: reconstruct(model, imgs, cams, marks=marks),
+                   medians=med)
+    return med["gs_render"], med["total"]
+
+
+def phase_cli_flags(imgs):
+    """Phase 12: the CLI's remaining flags on one model of phase 5's
+    configuration and weights (`large`, seed 0), phase 5's images and fixed
+    cameras. The render's route is switched on the model's renderer config
+    between forwards. (a) rasterizer_impl="jax" (--rasterizer jax), (b)
+    slot_fracs="auto" (--fast-binning), (c) the novel-view trajectory of
+    --video, (d) bundle adjustment (--ba), (e) the CLI's main() with the GLB
+    flags, --ba and --fast-binning -> the numbers for the kernels line."""
+    from dataclasses import replace
+    from hunyuanworld_mirror_tpu_torch.infer import PRESETS, load_model, reconstruct
+    from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
+    S, HW = imgs.shape[1], imgs.shape[2]
+    cams = fixed_cameras(S)
+    model = load_model(WorldMirrorConfig(**PRESETS["large"]), device="cuda")
+    base = model.gs_renderer.cfg
+    reconstruct(model, imgs, cams)                                 # warm-up
+    flat = counted_forward("flat route", model, imgs, cams, (88, 24, 4, 0))
+    out = {"gs_render_ms": {}, "total_ms": {}}
+    out["gs_render_ms"]["flat"], out["total_ms"]["flat"] = gs_render_ms(
+        "flat route", model, imgs, cams)
+
+    model.gs_renderer.cfg = replace(base, rasterizer_impl="jax")
+    out["k4_forward"], out["diff_jax"] = cli_jax_route(model, imgs, cams, flat)
+    out["gs_render_ms"]["jax"], out["total_ms"]["jax"] = gs_render_ms(
+        "rasterizer_impl=jax", model, imgs, cams)
+
+    model.gs_renderer.cfg = replace(base, slot_fracs="auto")
+    out["k2_prefix"], out["diff_auto"], out["rows"] = cli_prefix_route(
+        model, imgs, cams, flat)
+    out["gs_render_ms"]["auto"], out["total_ms"]["auto"] = gs_render_ms(
+        "slot_fracs=auto", model, imgs, cams)
+    model.gs_renderer.cfg = base
+    log(f"gs_render median ms over 7 forwards: {json.dumps(out['gs_render_ms'])}; "
+        f"forward total median ms: {json.dumps(out['total_ms'])}")
+    del model
+
+    out["video"] = cli_video(flat)
+    out["ba"] = cli_ba(flat)
+    cli_main(imgs)
+    return out
+
+
+def cli_jax_route(model, imgs, cams, flat):
+    """(a): one forward on the dense-bin route (4 K4, 0 K2), its render
+    against the flat route's, and K4 against its plain version on each
+    camera's dense bins as the route makes them (tight radii, the exact
+    test, 4096 a tile, 4 tiles a splat)."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, tiles
+    preds = counted_forward("rasterizer_impl=jax", model, imgs, cams, (88, 24, 0, 4))
+    diff = render_diff("rasterizer_impl=jax (f32 payload, K4)", preds, flat)
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    covars = projection.quat_scale_to_covar_planes(quats, scales)
+    mpt = rasterizer._capped(RENDER_MPT, means.shape[0], RENDER_TPG)
+    rows = []
+    for c in range(w2c.shape[0]):
+        m2d, con, col, rad, dep = rasterizer.project_camera(
+            means, covars, opac, sh, w2c[c], Ks[c], HW, HW)
+        bins = tiles.bin_gaussians(m2d, rad, dep, 16, 33, 33, RENDER_TPG, mpt,
+                                   conic_test=tiles.conic_test_planes(con, opac))
+        rows.append(k4_check(f"K4 --rasterizer jax camera {c}", m2d, con, col, opac,
+                             bins, HW))
+        del bins
+    del preds
+    return totals("K4 per forward on the --rasterizer jax path", rows), diff
+
+
+def cli_prefix_route(model, imgs, cams, flat):
+    """(b): one forward with slot_fracs="auto" (4 K2), the sorted rows a
+    camera against the exact binning's, its render against the exact
+    route's, and K2 against its plain version on the 4 prefix lists."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    preds = counted_forward("slot_fracs=auto", model, imgs, cams, (88, 24, 4, 0))
+    diff = render_diff("slot_fracs=auto", preds, flat)
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    rows, sorted_rows = [], []
+    for c in range(w2c.shape[0]):
+        kw = (means, quats, scales, opac, sh, w2c[c], Ks[c], HW, HW, 16, RENDER_MPT,
+              RENDER_TPG, True)
+        exact = rasterizer.bin_camera(*kw)
+        bins = rasterizer.bin_camera(*kw, slot_fracs="auto")
+        sorted_rows.append((bins.packed.shape[1], exact.packed.shape[1]))
+        if c == 0:
+            bin_ms = (cuda_ms(lambda: rasterizer.bin_camera(*kw, slot_fracs="auto"),
+                              reps=5, warmup=1),
+                      cuda_ms(lambda: rasterizer.bin_camera(*kw), reps=5, warmup=1))
+        if not torch.equal(bins.counts, exact.counts) and int(bins.n_dropped) == int(
+                exact.n_dropped):
+            raise AssertionError(f"prefix camera {c}: counts differ, none dropped")
+        err, ms, plain_ms, bound, by, _ = k2_check(f"prefix camera {c}", bins, HW, HW,
+                                                   4, True)
+        rows.append((err, ms, plain_ms, bound, by))
+        del exact, bins
+    log(f"slot_fracs=auto: sorted rows a camera (prefix, exact) {sorted_rows}, "
+        f"ratio {np.mean([a / b for a, b in sorted_rows]):.4f}; render_n_dropped "
+        f"{preds['render_n_dropped'].tolist()}; camera 0's projection and binning "
+        f"(bin_camera) {bin_ms[0]:.3f} ms with the prefixes, {bin_ms[1]:.3f} ms exact")
+    if not all(a < b for a, b in sorted_rows):
+        raise AssertionError(f"prefix binning sorted no fewer rows: {sorted_rows}")
+    del preds
+    return (totals("K2 per forward on the --fast-binning path", rows), diff,
+            dict(sorted_rows=sorted_rows, bin_camera_ms=bin_ms))
+
+
+def frames_ok(label, frames, n):
+    if frames.shape[0] != n or not np.isfinite(frames).all():
+        raise AssertionError(f"{label}: {frames.shape[0]} frames or not finite")
+    lit = (frames.sum(-1) > 0).mean(axis=(1, 2))
+    return lit
+
+
+def cli_video(flat):
+    """(c): the interpolated trajectory through phase 5's cameras (46
+    frames at S = 4) rendered from the flat forward's splats (46 K2
+    launches), timed; K2 against its plain version on frame 0's list (f32
+    payload, 9 tiles a splat, 4096 a tile, as render_trajectory bins it);
+    then 3 frames with the spread effect (3 K2) and 3 on impl="jax" (3 K4).
+    No cv2: the mp4 writer is not run here."""
+    from hunyuanworld_mirror_tpu_torch.io import effects
+    from hunyuanworld_mirror_tpu_torch.io import render as V
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    HW = flat["depth"].shape[2]
+    c2w = flat["camera_poses"][0].float().cpu().numpy()
+    Ks = flat["camera_intrs"][0].float().cpu().numpy()
+    traj, traj_K = V.interpolate_trajectory(c2w, Ks)
+    T = len(traj)
+    splats = {k: flat["splats"][k][0] for k in V.SPLAT_KEYS}
+    V.render_trajectory(splats, traj[:2], traj_K[:2], HW, HW, device="cuda")  # warm-up
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    start.record()
+    frames, depths = V.render_trajectory(splats, traj, traj_K, HW, HW, device="cuda")
+    end.record()
+    got = read_counts()
+    wall = time.time() - t0
+    event_ms = start.elapsed_time(end)
+    lit = frames_ok("video", frames, T)
+    log(f"video: {T} frames at {HW} px, launches (K1, K1 flash, K2, K4) {got}; "
+        f"{wall * 1e3 / T:.2f} ms a frame wall, {event_ms / T:.2f} ms a frame by CUDA "
+        f"events (frames copied to the host included); lit share per frame min "
+        f"{lit.min():.4f} mean {lit.mean():.4f}; depth range "
+        f"{float(depths.min()):.3f}..{float(depths.max()):.3f}")
+    if got != (0, 0, T, 0) or T != 46 or not lit.min() > 0.01:
+        raise AssertionError(f"video: {T} frames, launches {got}, lit {lit.min()}")
+    means, quats = splats["means"], splats["quats"][:, [1, 2, 3, 0]]
+    w2c0 = cam_utils.se3_inverse(torch.as_tensor(traj[0], device="cuda"))
+    bins = rasterizer.bin_camera(means, quats, splats["scales"], splats["opacities"],
+                                 splats["sh"], w2c0, torch.as_tensor(traj_K[0],
+                                                                     device="cuda"),
+                                 HW, HW, 16, 4096, 9, False)
+    err, ms, plain_ms, bound, by, _ = k2_check("video frame 0", bins, HW, HW, 4, False)
+    del bins
+    np_splats = {k: v.float().cpu().numpy() for k, v in splats.items()}
+    rng = np.random.default_rng(0)
+    reset_counts()
+    fx = [V.render_trajectory(effects.apply_effect(np_splats, 10.0 * i / (T - 1),
+                                                   "spread", rng),
+                              traj[i:i + 1], traj_K[i:i + 1], HW, HW,
+                              device="cuda")[0] for i in range(3)]
+    got_fx = read_counts()
+    frames_ok("spread", np.concatenate(fx), 3)
+    reset_counts()
+    fj, _ = V.render_trajectory(splats, traj[:3], traj_K[:3], HW, HW, impl="jax",
+                                device="cuda")
+    got_j = read_counts()
+    lit_j = frames_ok("video impl=jax", fj, 3)
+    d = float(np.abs(fj - frames[:3]).max())
+    log(f"video, 3 frames with effect spread: launches {got_fx}; 3 frames on "
+        f"impl=jax: launches {got_j}, lit min {lit_j.min():.4f}, max|d| vs the flat "
+        f"route's frames {d:.3e}")
+    if got_fx != (0, 0, 3, 0) or got_j != (0, 0, 0, 3):
+        raise AssertionError(f"video variants: launches {got_fx}, {got_j}")
+    return dict(frames=T, launches=got[2], ms_per_frame_wall=wall * 1e3 / T,
+                ms_per_frame_events=event_ms / T, k2_frame=dict(
+                    err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by))
+
+
+def cli_ba(flat):
+    """(d): refine_cameras on the flat forward's predictions, 12 iterations,
+    stride 16 (M = 4 x 33 x 33 landmarks), timed, the cost not raised and
+    cost0 within 1e-4 relative of the same call on the CPU. Random weights
+    give point maps no other view's depth agrees with (no landmark is seen
+    twice, cost 0), so the same is then done on a bundle made consistent
+    from the same forward: pts3d its depth, with 1% noise, unprojected
+    through its cameras; there the cost must fall."""
+    from hunyuanworld_mirror_tpu_torch.utils import geometry
+    keys = ("pts3d", "pts3d_conf", "depth", "camera_poses", "camera_intrs")
+    sub = {k: flat[k].float() for k in keys}
+    out = {"predictions": ba_run("predictions", sub)}
+    d = sub["depth"][0, ..., 0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    noisy = d * (1 + 0.01 * torch.randn(d.shape, generator=g, device="cuda"))
+    pts, _, _ = geometry.depth_to_world_coords_points(noisy, sub["camera_poses"][0],
+                                                      sub["camera_intrs"][0])
+    out["consistent"] = ba_run("consistent bundle", {**sub, "pts3d": pts[None]})
+    if not (out["consistent"]["observations"] > 0
+            and out["consistent"]["cost"] < out["consistent"]["cost0"]):
+        raise AssertionError(f"BA on the consistent bundle: {out['consistent']}")
+    return out
+
+
+def ba_run(label, sub):
+    from hunyuanworld_mirror_tpu_torch.refine import ba
+    ba.refine_cameras(sub, iters=1)                                # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    start.record()
+    out = ba.refine_cameras(sub, stride=16, iters=12)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms, event_ms = (time.time() - t0) * 1e3, start.elapsed_time(end)
+    cost0, cost = float(out["ba_cost0"]), float(out["ba_cost"])
+    cpu = ba.refine_cameras({k: v.cpu() for k, v in sub.items()}, stride=16, iters=12)
+    cpu0 = float(cpu["ba_cost0"])
+    tracks = ba.build_tracks(sub["pts3d"][0], sub["pts3d_conf"][0],
+                             sub["depth"][0, ..., 0],
+                             torch.linalg.inv(sub["camera_poses"][0]),
+                             sub["camera_intrs"][0])
+    moved = float((out["camera_poses"] - sub["camera_poses"]).abs().max())
+    log(f"BA on the {label}: {tracks.mask.shape[0]} landmarks, "
+        f"{int(tracks.mask.sum())} observations; cost {cost0:.6e} -> {cost:.6e} (CPU: "
+        f"{cpu0:.6e} -> {float(cpu['ba_cost']):.6e}); {wall_ms:.2f} ms wall, "
+        f"{event_ms:.2f} ms by CUDA events for 12 iterations; max|pose change| "
+        f"{moved:.3e}")
+    if not (torch.isfinite(out["camera_poses"]).all() and cost <= cost0
+            and abs(cost0 - cpu0) <= 1e-4 * abs(cpu0)):
+        raise AssertionError(f"BA on the {label}: cost {cost0} -> {cost}, CPU cost0 "
+                             f"{cpu0}")
+    return dict(cost0=cost0, cost=cost, wall_ms=wall_ms, event_ms=event_ms,
+                landmarks=int(tracks.mask.shape[0]), observations=int(tracks.mask.sum()))
+
+
+def cli_main(imgs):
+    """(e): the CLI's main() on a .npy of the images with --glb --glb-mesh
+    --mask-sky --ba --ba-iters 4 --fast-binning (the large preset, 518 px):
+    every file written, scene.glb a valid glTF header, and the forward's
+    launches as in (b). Its files go to build/smoke_cli/ of this checkout."""
+    import shutil
+    from pathlib import Path
+    from hunyuanworld_mirror_tpu_torch import infer
+    root = Path(__file__).resolve().parent / "build" / "smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    np.save(root / "views.npy", imgs[0])
+    out = root / "out"
+    reset_counts()
+    t0 = time.time()
+    infer.main([str(root / "views.npy"), "-o", str(out), "--glb", "--glb-mesh",
+                "--mask-sky", "--ba", "--ba-iters", "4", "--fast-binning"])
+    got = read_counts()
+    S = imgs.shape[1]
+    want = (["points.ply", "camera_params.json", "gaussians.ply", "gaussians.splat",
+             "scene.glb", "sparse/cameras.bin", "sparse/images.bin",
+             "sparse/points3D.bin"]
+            + [f"{k}_{s:03d}.{e}" for s in range(S)
+               for k, e in (("depth", "png"), ("depth", "npy"), ("normal", "png"))])
+    missing = [n for n in want if not (out / n).is_file()]
+    glb = (out / "scene.glb").read_bytes() if (out / "scene.glb").is_file() else b""
+    header_ok = (len(glb) > 20 and glb[:4] == b"glTF"
+                 and int.from_bytes(glb[4:8], "little") == 2
+                 and int.from_bytes(glb[8:12], "little") == len(glb))
+    log(f"CLI main() --glb --glb-mesh --mask-sky --ba --ba-iters 4 --fast-binning: "
+        f"{time.time() - t0:.1f} s wall incl. model build; launches (K1, K1 flash, "
+        f"K2, K4) {got}; {len(want) - len(missing)} of {len(want)} files, scene.glb "
+        f"{len(glb)} bytes")
+    if got != (88, 24, 4, 0) or missing or not header_ok:
+        raise AssertionError(f"CLI main(): launches {got}, missing {missing}, glTF "
+                             f"header ok {header_ok}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -1337,6 +1711,7 @@ def main():
     k2m_launches, k2m = timed("K2m", phase_k2m, preds)
     k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
     k4_launches, k4 = timed("K4", phase_k4, preds)
+    cli = timed("CLI flags", phase_cli_flags, imgs)
     kernels = [
         {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -1379,6 +1754,19 @@ def main():
              "launches": count, "max_abs_err": row["err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["by"], "library_ms": None})
+
+    def sub(row, launches):
+        return {"launches": launches, "max_abs_err": row["err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["by"]}
+
+    # the phase-12 paths: K2 on the --fast-binning forward's prefix lists and
+    # on one --video frame, K4 on the --rasterizer jax forward
+    kernels[2]["fast_binning_forward"] = sub(cli["k2_prefix"], 4)
+    kernels[2]["video_frame"] = {**sub(cli["video"]["k2_frame"], 1),
+                                 "launches": cli["video"]["launches"],
+                                 "frames": cli["video"]["frames"]}
+    kernels[-1]["rasterizer_jax_forward"] = sub(cli["k4_forward"], 4)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

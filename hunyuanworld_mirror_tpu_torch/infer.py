@@ -1,22 +1,33 @@
 """WorldMirror inference CLI on one NVIDIA GPU (the port's twin of infer.py).
 
-    python -m hunyuanworld_mirror_tpu_torch.infer <images dir | stack.npy> -o out
-        [--preset large|base|small|tiny] [--size 518] [--ckpt params.npz]
-        [--mode crop|pad] [--cond 0,0,0] [--no-gs] [--conf-percent 20]
+    python -m hunyuanworld_mirror_tpu_torch.infer <images dir | video | stack.npy>
+        -o out [--preset large|base|small|tiny] [--size 518] [--ckpt params.npz]
+        [--fps 1] [--mode crop|pad] [--cond 0,0,0] [--no-gs] [--conf-percent 20]
+        [--rasterizer pallas|jax] [--fast-binning] [--ba] [--ba-iters 12]
+        [--glb] [--glb-mesh] [--mask-sky] [--video] [--effect twister|rain|spread]
 
 Runs the JAX package's CLI on the port: all heads (the Gaussian head off
 with --no-gs), the Gaussians rendered back into the input views, bf16
-parameters (as the JAX CLI casts them), bf16 trunk and f32 heads. Writes
-points.ply, depth_XXX.png / .npy, normal_XXX.png, camera_params.json,
-gaussians.ply and gaussians.splat, and a COLMAP model in sparse/. --cond
-sets the cond flags as the JAX CLI does, which feeds the model the images
-only (a flag without its prior gives the zero token); priors reach the model
-through the Python API, `reconstruct(model, images, priors=...)`. --ckpt
-takes an npz checkpoint of the JAX package; without it the weights are
-random, made from a seed (layout and IO testing only).
-
-Not ported yet: GLB export (--glb, --glb-mesh), video input (--fps),
---video and --effect, --mask-sky, --ba, --rasterizer jax and --fast-binning.
+parameters (as the JAX CLI casts them), bf16 trunk and f32 heads. A video
+file is sampled at --fps frames a second (cv2). --rasterizer picks the
+render's route: pallas, the flat lists blended by kernel K2 (the default),
+or jax, the dense per-tile bins blended by kernel K4; --fast-binning bins
+the flat route through coverage-scheduled prefixes ("auto"), which may drop
+intersections on scenes heavier than the 518 px calibration (counted in
+render_n_dropped). --ba refines the predicted cameras by bundle adjustment
+(refine/ba.py, --ba-iters LM steps) before the exports, which then carry
+the refined poses. Writes points.ply, depth_XXX.png / .npy, normal_XXX.png,
+camera_params.json, gaussians.ply and gaussians.splat, with --glb a GLB
+scene (scene.glb: points, or with --glb-mesh a triangulated pointmap, and
+the camera frusta; --mask-sky drops sky pixels by the HSV heuristic, as the
+JAX CLI does: it passes no ONNX segmenter), with --video a novel-view
+video along the interpolated trajectory (rendered.mp4, cv2; --effect
+animates the splats), and a COLMAP model in sparse/. --cond sets the cond
+flags as the JAX CLI does, which feeds the model the images only (a flag
+without its prior gives the zero token); priors reach the model through the
+Python API, `reconstruct(model, images, priors=...)`. --ckpt takes an npz
+checkpoint of the JAX package; without it the weights are random, made from
+a seed (layout and IO testing only).
 """
 
 import argparse
@@ -32,7 +43,10 @@ from .convert import from_jax_params, load_npz
 from .io import colmap as io_colmap
 from .io import images as io_images
 from .io import ply as io_ply
+from .io import render as render_lib
+from .io import scene as scene_lib
 from .models.worldmirror import WorldMirror, WorldMirrorConfig
+from .refine import ba
 from .utils import geometry
 from .utils.profiling import mark
 
@@ -99,28 +113,45 @@ def run(images: np.ndarray, cfg: WorldMirrorConfig, params=None, device=None,
                        cond_flags=cond_flags)
 
 
+def _quiet(*_):
+    pass
+
+
 def export(preds: Dict[str, torch.Tensor], images: np.ndarray, out_dir: Path,
-           conf_percent: float = 20.0) -> None:
+           conf_percent: float = 20.0, log=_quiet) -> None:
     """Write points.ply, depth_XXX.png / .npy, normal_XXX.png,
     camera_params.json, gaussians.ply / .splat (with the Gaussian head) and
     the COLMAP model sparse/, as the JAX package's CLI writes them."""
+    export_maps(preds, images, out_dir, conf_percent, log)
+    export_colmap(preds, images, out_dir, conf_percent, log)
+
+
+def _np_preds(preds: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.float().cpu().numpy() for k, v in preds.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def export_maps(preds: Dict[str, torch.Tensor], images: np.ndarray,
+                out_dir: Path, conf_percent: float = 20.0, log=_quiet) -> None:
+    """export's files before the COLMAP model (points.ply to gaussians.splat),
+    each line logged as the JAX CLI prints it."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    p = {k: v.float().cpu().numpy() for k, v in preds.items()
-         if isinstance(v, torch.Tensor)}
-    S, H, W = images.shape[1:4]
+    p = _np_preds(preds)
+    S = images.shape[1]
     pts = p["pts3d"][0].reshape(-1, 3)
     conf = p["pts3d_conf"][0].reshape(-1)
     thresh = np.percentile(conf, conf_percent)
     io_ply.save_points_ply(out_dir / "points.ply", pts,
                            images[0].reshape(-1, 3), conf >= thresh)
+    log(f"  wrote points.ply ({int((conf >= thresh).sum())} pts)")
     for s in range(S):
         io_ply.save_depth_png(out_dir / f"depth_{s:03d}.png", p["depth"][0, s, ..., 0])
         io_ply.save_depth_npy(out_dir / f"depth_{s:03d}.npy",
                               p["depth"][0, s, ..., 0])
         if "normals" in p:
             io_ply.save_normal_png(out_dir / f"normal_{s:03d}.png", p["normals"][0, s])
-    c2w, K = p["camera_poses"][0], p["camera_intrs"][0]
-    io_ply.save_camera_params(c2w, K, out_dir)
+    log("  wrote per-view depth/normal maps")
+    io_ply.save_camera_params(p["camera_poses"][0], p["camera_intrs"][0], out_dir)
     if "splats" in preds:
         sp = {k: v.float().cpu().numpy() for k, v in preds["splats"].items()}
         alive = sp["opacities"][0] > 1e-4
@@ -129,9 +160,16 @@ def export(preds: Dict[str, torch.Tensor], images: np.ndarray, out_dir: Path,
                            sp["scales"][0][alive], sp["quats"][0][alive],
                            sp["sh"][0][:, 0][alive], np.log(op / (1 - op))[alive])
         io_ply.gs_ply_to_splat(out_dir / "gaussians.ply", out_dir / "gaussians.splat")
+        log(f"  wrote gaussians.ply/.splat ({int(alive.sum())} splats)")
 
-    # COLMAP: the point head's points at every 4th pixel, the bottom
-    # conf_percent left out
+
+def export_colmap(preds: Dict[str, torch.Tensor], images: np.ndarray,
+                  out_dir: Path, conf_percent: float = 20.0, log=_quiet) -> None:
+    """The COLMAP model sparse/: the point head's points at every 4th
+    pixel, the bottom conf_percent left out."""
+    p = _np_preds(preds)
+    S, H, W = images.shape[1:4]
+    c2w, K = p["camera_poses"][0], p["camera_intrs"][0]
     stride = 4
     pix = geometry.create_pixel_coordinate_grid(S, H, W).numpy()[:, ::stride, ::stride]
     keep_conf = p["pts3d_conf"][0][:, ::stride, ::stride].reshape(-1)
@@ -141,14 +179,25 @@ def export(preds: Dict[str, torch.Tensor], images: np.ndarray, out_dir: Path,
         str(out_dir / "sparse"),
         p["pts3d"][0][:, ::stride, ::stride].reshape(-1, 3)[keep],
         pix.reshape(-1, 3)[keep], colors[keep], np.linalg.inv(c2w), K, (W, H))
+    log(f"  wrote COLMAP sparse model -> {out_dir / 'sparse'}")
+
+
+def _require_cv2(what: str) -> None:
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"{what} needs OpenCV (the cv2 module), which is not "
+                         "installed") from e
 
 
 def main(argv: Optional[List[str]] = None, device=None):
     """The CLI; `device` as for run() (CUDA unless named)."""
     ap = argparse.ArgumentParser(description="WorldMirror inference (GPU)")
-    ap.add_argument("input_path", help="image directory or a .npy image stack")
+    ap.add_argument("input_path",
+                    help="image directory, video file or a .npy image stack")
     ap.add_argument("-o", "--output", default="outputs", help="output dir")
     ap.add_argument("--ckpt", default=None, help="npz checkpoint of the JAX package")
+    ap.add_argument("--fps", type=float, default=1.0, help="video sampling fps")
     ap.add_argument("--size", type=int, default=518)
     ap.add_argument("--mode", choices=["crop", "pad"], default="crop")
     ap.add_argument("--cond", default="0,0,0",
@@ -157,11 +206,39 @@ def main(argv: Optional[List[str]] = None, device=None):
     ap.add_argument("--preset", choices=sorted(PRESETS), default="large")
     ap.add_argument("--conf-percent", type=float, default=20.0,
                     help="drop bottom X%% confidence points in the point PLY")
+    ap.add_argument("--rasterizer", choices=["jax", "pallas"], default="pallas",
+                    help="render route: pallas = flat lists (kernel K2), "
+                         "jax = dense per-tile bins (kernel K4)")
+    ap.add_argument("--fast-binning", action="store_true",
+                    help="coverage-scheduled isect binning (pallas route): "
+                         "fewer sorted rows, may drop intersections on scenes "
+                         "heavier than the 518px calibration")
+    ap.add_argument("--video", action="store_true",
+                    help="render a slerp-interpolated novel-view video")
+    ap.add_argument("--ba", action="store_true",
+                    help="refine predicted cameras with Schur-complement "
+                         "bundle adjustment (refine/ba.py)")
+    ap.add_argument("--ba-iters", type=int, default=12)
+    ap.add_argument("--glb", action="store_true",
+                    help="export a GLB scene (point cloud + camera frusta)")
+    ap.add_argument("--glb-mesh", action="store_true",
+                    help="GLB as a triangulated pointmap mesh instead of points")
+    ap.add_argument("--mask-sky", action="store_true",
+                    help="drop sky pixels (HSV heuristic) from the GLB export")
+    ap.add_argument("--effect", choices=["twister", "rain", "spread"],
+                    default=None, help="animated splat effect for --video")
     args = ap.parse_args(argv)
 
-    imgs = io_images.load_inputs(args.input_path, target_size=args.size,
-                                 strategy=args.mode)
+    if io_images.is_video(args.input_path):
+        _require_cv2("a video input")
+    if args.video:
+        _require_cv2("--video")
+    imgs = io_images.load_inputs(args.input_path, fps=args.fps,
+                                 target_size=args.size, strategy=args.mode)
+    S, H, W = imgs.shape[1:4]
     cfg = WorldMirrorConfig(img_size=args.size, enable_gs=not args.no_gs,
+                            rasterizer_impl=args.rasterizer,
+                            gs_slot_fracs="auto" if args.fast_binning else None,
                             **PRESETS[args.preset])
     params = load_npz(args.ckpt) if args.ckpt else None
     if params is None:
@@ -173,14 +250,36 @@ def main(argv: Optional[List[str]] = None, device=None):
     preds = reconstruct(model, imgs, cond_flags=cond_flags)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    print(f"{imgs.shape[1]} views at {imgs.shape[2]}x{imgs.shape[3]}: "
-          f"forward done in {time.time() - t0:.1f}s")
+    print(f"{S} views at {H}x{W}: forward done in {time.time() - t0:.1f}s")
     if "splats" in preds:
         nd = int(preds["splats"]["n_compact_dropped"].max())
         if nd > 0:
             print(f"WARNING: static compaction cap dropped {nd} live splats")
-    export(preds, imgs, Path(args.output), args.conf_percent)
-    print(f"wrote {args.output}")
+
+    if args.ba:
+        t0 = time.time()
+        refined = ba.refine_cameras(
+            {k: preds[k] for k in ("pts3d", "pts3d_conf", "depth", "camera_poses",
+                                   "camera_intrs")}, iters=args.ba_iters)
+        preds["camera_poses"] = refined["camera_poses"]
+        print(f"  BA refinement: cost {float(refined['ba_cost0']):.3e} -> "
+              f"{float(refined['ba_cost']):.3e} in {time.time() - t0:.1f}s")
+
+    out_dir = Path(args.output)
+    export_maps(preds, imgs, out_dir, args.conf_percent, print)
+    if args.glb:
+        gp = scene_lib.predictions_to_glb(
+            {**preds, "images": imgs}, str(out_dir / "scene.glb"),
+            conf_percent=args.conf_percent, mask_sky=args.mask_sky,
+            as_mesh=args.glb_mesh)
+        print(f"  wrote GLB scene -> {gp}")
+    if args.video and "splats" in preds:
+        vp = render_lib.render_interpolated_video(
+            preds, W, H, str(out_dir / "rendered.mp4"), impl=args.rasterizer,
+            effect=args.effect, device=dev)
+        print(f"  wrote novel-view video -> {vp}")
+    export_colmap(preds, imgs, out_dir, args.conf_percent, print)
+    print("Done.")
 
 
 if __name__ == "__main__":

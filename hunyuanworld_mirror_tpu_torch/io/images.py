@@ -6,7 +6,9 @@ nothing of the JAX package): RGBA composited onto white, bicubic resize to
 width `target_size` keeping aspect (height rounded to a patch multiple),
 center-crop or white-pad to square, mixed sizes padded to one size. A `.npy`
 file of (S, H, W, 3) or (1, S, H, W, 3) floats in [0, 1] is accepted as
-is, for machines without PIL. Video input is not ported yet.
+is, for machines without PIL. A video file (VIDEO_EXTS) is sampled at
+`fps` frames a second into PNGs beside it (cv2), which are then loaded as
+images.
 `crop_with_intrinsics` / `rescale_with_intrinsics` bring a caller's
 intrinsics along with its own crop or resize of an image (cv2 for the
 resize), for the intrinsics prior.
@@ -16,11 +18,12 @@ Output is NHWC float32 in [0, 1], shape (1, S, H, W, 3).
 
 import glob
 import os
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
 IMAGE_EXTS = ("*.jpg", "*.jpeg", "*.png", "*.bmp", "*.webp", "*.JPG", "*.PNG")
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
 def _resize_dims(w: int, h: int, max_dim: int, strategy: str,
@@ -88,9 +91,44 @@ def prepare_images(paths: Sequence[str], target_size: int = 518,
     return np.stack(arrs)[None]
 
 
-def load_inputs(path: str, target_size: int = 518,
+def is_video(path: str) -> bool:
+    """Whether `path` is a video file load_inputs samples into frames."""
+    return os.path.isfile(path) and os.path.splitext(path)[1].lower() in VIDEO_EXTS
+
+
+def video_to_frames(path: str, fps: float = 1.0, out_dir: str = None) -> List[str]:
+    """Sample a video at `fps` frames a second (every round(native fps /
+    fps)-th frame) into numbered PNGs in `out_dir`, by default a
+    frames_<name> directory beside the video; returns their paths."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise ValueError(f"cannot open video {path}")
+    native_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    step = max(1, round(native_fps / fps))
+
+    out_dir = out_dir or os.path.join(os.path.dirname(path) or ".",
+                                      "frames_" + os.path.basename(path).split(".")[0])
+    os.makedirs(out_dir, exist_ok=True)
+    paths, i = [], 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % step == 0:
+            p = os.path.join(out_dir, f"frame_{i:06d}.png")
+            cv2.imwrite(p, frame)
+            paths.append(p)
+        i += 1
+    cap.release()
+    return paths
+
+
+def load_inputs(path: str, fps: float = 1.0, target_size: int = 518,
                 strategy: str = "crop") -> np.ndarray:
-    """Directory of images, or a .npy image stack -> (1, S, H, W, 3)."""
+    """Directory of images, a video file sampled at `fps`, or a .npy image
+    stack -> (1, S, H, W, 3)."""
     if os.path.isfile(path) and path.endswith(".npy"):
         arr = np.load(path).astype(np.float32)
         if arr.ndim == 4:
@@ -99,6 +137,9 @@ def load_inputs(path: str, target_size: int = 518,
             raise ValueError(f"{path}: expected (S, H, W, 3) or (1, S, H, W, 3), "
                              f"got {arr.shape}")
         return arr
+    if is_video(path):
+        return prepare_images(sorted(video_to_frames(path, fps)), target_size,
+                              strategy)
     frame_paths = []
     for ext in IMAGE_EXTS:
         frame_paths.extend(glob.glob(os.path.join(path, ext)))

@@ -15,6 +15,7 @@ it yields the same merged set, in another slot order. Both JAX sorts are
 unstable, so splats compare as canonically re-sorted sets.
 """
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -54,7 +55,21 @@ class GSRendererConfig:
     max_per_tile: int = 4096
     max_tiles_per_gauss: int = 4
     tile_size: int = 16   # 8 or 16 on the card (ops.rasterizer_flat.KERNEL_TILE_SIZES)
+    # "pallas": the flat route (kernel K2); "jax": the dense-bin route
+    # (kernel K4). The JAX dataclass defaults to "jax", its CPU convenience
+    # (its "pallas" falls back to "jax" off the TPU); the port defaults to
+    # the flat route, which the CLI selects by default on both packages
+    rasterizer_impl: str = "pallas"
+    # f16-pair payload on the flat route (an inference speed knob, ~1e-3
+    # render delta)
     payload_f16: bool = True
+    # coverage-scheduled binning on the flat route: "auto", one fraction a
+    # slot plane, or None (exact). An inference-only approximation: the
+    # slots a prefix cuts are counted in render_n_dropped
+    slot_fracs: Optional[object] = None
+    # the exact ellipse-tile test in binning (EXACT semantics, fewer
+    # entries); the environment's WM_EXACT_TILE=0 also turns it off
+    exact_tile_test: bool = True
 
     @property
     def nums_sh(self) -> int:
@@ -279,7 +294,11 @@ def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
             splats["opacities"][b], splats["sh"][b], w2c[b], Ks[b], W, H,
             tile_size=cfg.tile_size, max_per_tile=cfg.max_per_tile,
             max_tiles_per_gauss=cfg.max_tiles_per_gauss, quat_order="wxyz",
-            payload_f16=cfg.payload_f16, device=images.device)
+            payload_f16=cfg.payload_f16, impl=cfg.rasterizer_impl,
+            slot_fracs=cfg.slot_fracs,
+            exact_tile_test=(cfg.exact_tile_test
+                             and os.environ.get("WM_EXACT_TILE", "1") == "1"),
+            device=images.device)
         outs.append(colors)
         alphas.append(alpha)
         drops.append(meta["n_dropped"])

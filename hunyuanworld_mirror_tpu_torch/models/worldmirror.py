@@ -47,6 +47,14 @@ class WorldMirrorConfig:
     trunk_depth: int = 24
     trunk_heads: int = 16
     intermediate_idxs: Tuple[int, ...] = (4, 11, 17, 23)
+    # the render's route (gaussians.GSRendererConfig.rasterizer_impl):
+    # "pallas" the flat K2 route, "jax" the dense-bin K4 route. The JAX
+    # dataclass defaults to "jax" because its "pallas" falls back to "jax"
+    # off the TPU; the port's default is the route the CLI selects
+    rasterizer_impl: str = "pallas"
+    # coverage-scheduled binning, an inference-only approximation
+    # (gaussians.GSRendererConfig.slot_fracs); None bins exactly
+    gs_slot_fracs: Optional[object] = None
     # splat-mean source (gaussians.GSRendererConfig.position_from)
     gs_position_from: str = "gsdepth+predcamera"
     # post-prune static compaction; False keeps every voxel-merged splat
@@ -109,7 +117,8 @@ class WorldMirrorConfig:
         return gaussians.GSRendererConfig(
             feature_dim=self.gs_dim, sh_degree=self.sh_degree,
             voxel_size=self.voxel_size, position_from=self.gs_position_from,
-            enable_compact=self.gs_compact)
+            enable_compact=self.gs_compact, rasterizer_impl=self.rasterizer_impl,
+            slot_fracs=self.gs_slot_fracs)
 
 
 def frame_chunks(cfg: WorldMirrorConfig, S: int) -> Optional[int]:

@@ -1,13 +1,15 @@
 """Tile-based 3D Gaussian rasterization of pinhole cameras.
 
 Port of hunyuanworld_mirror_tpu/ops/rasterizer.py `rasterize` on its
-`impl="pallas"` paths in RGB+ED mode. Per camera: projection
-(ops/projection.py) -> opacity-tight radii -> SH colours + depth -> flat
-binning with the exact ellipse-tile test (ops/tiles.py, f32 or f16-pair
-payload) -> the flat blend (ops/rasterizer_flat.py: kernel K2, or K5 when
-WM_RASTER_GROUP > 1) -> expected depth normalized by alpha. With
-`camera_batch=True` (inference only) all cameras share one projection call,
-one sort and one launch of kernel K2m.
+pinhole routes in RGB+ED mode. Per camera: projection (ops/projection.py)
+-> opacity-tight radii -> SH colours + depth -> flat binning with the exact
+ellipse-tile test (ops/tiles.py, f32 or f16-pair payload, exact or
+coverage-scheduled prefixes) -> the flat blend (ops/rasterizer_flat.py:
+kernel K2, or K5 when WM_RASTER_GROUP > 1) -> expected depth normalized by
+alpha. `impl="jax"` takes the JAX package's dense-bin route instead: the
+per-tile id table (tiles.bin_gaussians) blended by kernel K4
+(ops/rasterizer_binned.py). With `camera_batch=True` (inference only) all
+cameras share one projection call, one sort and one launch of kernel K2m.
 
 Differentiable in means, quats, scales, opacities and colours: autograd runs
 through the projection and the SH evaluation, and `RasterizeFlat` (the port
@@ -23,6 +25,7 @@ import torch
 from .. import resolve_device
 from ..utils import sh as sh_utils
 from . import projection, tiles
+from .rasterizer_binned import RasterizeBinned
 from .rasterizer_flat import (group_windows, longest_first, pack_f16_pairs,
                               rasterize_flat, rasterize_flat_bwd,
                               rasterize_flat_grouped, rasterize_flat_multi)
@@ -43,10 +46,14 @@ def _colors(colors, means, viewmat):
 def bin_splats(means2d, conics, colors, opacities, radii, depths,
                tile_size: int, tile_width: int, tile_height: int,
                max_tiles_per_gauss: int, max_per_tile: int,
-               payload_f16: bool, with_ids: bool = False) -> tiles.FlatBins:
+               payload_f16: bool, with_ids: bool = False, slot_fracs=None,
+               exact_test: bool = True) -> tiles.FlatBins:
     """One camera's projected splats -> the sorted flat list kernel K2
     blends: payload [mx, my, ca, cb, cc, op, colours...] in f32, or with
-    `payload_f16` [mx, my, ca|cb, cc|op, colour pairs...] as f16 pairs."""
+    `payload_f16` [mx, my, ca|cb, cc|op, colour pairs...] as f16 pairs.
+    `slot_fracs` ("auto" or one fraction a slot plane) bins through the
+    coverage-scheduled prefixes (tiles.bin_gaussians_packed_prefix, no
+    ids); `exact_test=False` drops the ellipse-tile test."""
     d = colors.shape[-1]
     if payload_f16:
         cols = [colors[:, i] for i in range(d)]
@@ -60,10 +67,18 @@ def bin_splats(means2d, conics, colors, opacities, radii, depths,
     else:
         values = ([means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1],
                    conics[:, 2], opacities] + [colors[:, i] for i in range(d)])
+    conic_test = tiles.conic_test_planes(conics, opacities) if exact_test else None
+    if slot_fracs is not None:
+        if with_ids:
+            raise ValueError("prefix binning (slot_fracs) returns no entry ids")
+        return tiles.bin_gaussians_packed_prefix(
+            means2d, radii, depths, values, tile_size, tile_width, tile_height,
+            max_tiles_per_gauss, max_per_tile, slot_fracs=slot_fracs,
+            conic_test=conic_test)
     return tiles.bin_gaussians_packed(
         means2d, radii, depths, values, tile_size, tile_width, tile_height,
-        max_tiles_per_gauss, max_per_tile,
-        conic_test=tiles.conic_test_planes(conics, opacities), with_ids=with_ids)
+        max_tiles_per_gauss, max_per_tile, conic_test=conic_test,
+        with_ids=with_ids)
 
 
 def _capped(max_per_tile: int, n_splats: int, max_tiles_per_gauss: int) -> int:
@@ -88,9 +103,10 @@ def project_camera(means, covars, opacities, colors, viewmat, K, width: int,
 def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
                width: int, height: int, tile_size: int, max_per_tile: int,
                max_tiles_per_gauss: int, payload_f16: bool,
-               with_ids: bool = False) -> tiles.FlatBins:
+               with_ids: bool = False, slot_fracs=None) -> tiles.FlatBins:
     """Project, colour (RGB + depth) and bin one camera (viewmat (4, 4)
-    world->cam, K (3, 3)); the list's colour width is colors.shape[-1] + 1."""
+    world->cam, K (3, 3)) as the flat route does; the list's colour width is
+    colors.shape[-1] + 1."""
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
     covars = projection.quat_scale_to_covar_planes(quats_xyzw, scales)
@@ -99,7 +115,7 @@ def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
     return bin_splats(m2d, con, col, opacities, rad, dep, tile_size, tw, th,
                       max_tiles_per_gauss,
                       _capped(max_per_tile, means.shape[0], max_tiles_per_gauss),
-                      payload_f16, with_ids)
+                      payload_f16, with_ids, slot_fracs)
 
 
 def blend_flat(bins: tiles.FlatBins, width: int, height: int, tile_size: int,
@@ -159,18 +175,20 @@ class RasterizeFlat(torch.autograd.Function):
     written. A tile is not cut into chunks: on the training lists every tile
     walks its whole list, and the longest is ~1.5x the mean.
 
+    `exact_test=False` bins without the ellipse-tile test.
+
     Returns (img (H, W, D), alpha (H, W, 1), n_dropped (), n_isects ()).
     """
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, abs_tap, radii,
                 depths, width, height, tile_size, max_tiles_per_gauss,
-                max_per_tile):
+                max_per_tile, exact_test=True):
         tw = (width + tile_size - 1) // tile_size
         th = (height + tile_size - 1) // tile_size
         bins = bin_splats(means2d, conics, colors, opacities, radii, depths,
                           tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
-                          False, with_ids=True)
+                          False, with_ids=True, exact_test=exact_test)
         d = colors.shape[-1]
         order = torch.empty(bins.counts.shape, dtype=torch.int64,
                             device=bins.counts.device)
@@ -193,7 +211,7 @@ class RasterizeFlat(torch.autograd.Function):
                                   tile_size, d, with_entries=False, order=order)
         absgrad = g[6 + d:8 + d].T if ctx.needs_input_grad[4] else None
         return (g[0:2].T, g[2:5].T, g[6:6 + d].T, g[5], absgrad,
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def depth_by_alpha(colors: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
@@ -251,13 +269,32 @@ def _rasterize_camera_batch(means, quats_xyzw, scales, opacities, colors,
     return depth_by_alpha(img, alpha), alpha, meta
 
 
+def _rasterize_binned_camera(m2d, con, col, opacities, rad, dep, width: int,
+                             height: int, tile_size: int,
+                             max_tiles_per_gauss: int, max_per_tile: int,
+                             exact_test: bool):
+    """The impl="jax" route of one camera (the JAX function's dense-bin
+    branch): the dense per-tile id table (tiles.bin_gaussians) and the blend
+    through RasterizeBinned (kernel K4; its plain version on the CPU) ->
+    (img, alpha, n_dropped, n_isects)."""
+    tw = (width + tile_size - 1) // tile_size
+    th = (height + tile_size - 1) // tile_size
+    bins = tiles.bin_gaussians(
+        m2d, rad, dep, tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
+        conic_test=tiles.conic_test_planes(con, opacities) if exact_test else None)
+    img, alpha = RasterizeBinned.apply(m2d, con, col, opacities, bins.gauss_ids,
+                                       bins.counts, width, height, tile_size)
+    return img, alpha, bins.n_dropped, bins.counts.sum()
+
+
 def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
               opacities: torch.Tensor, colors: torch.Tensor,
               viewmats: torch.Tensor, Ks: torch.Tensor, width: int, height: int,
               tile_size: int = 16, max_per_tile: int = 1024,
               max_tiles_per_gauss: int = 9, quat_order: str = "xyzw",
               payload_f16: bool = False, abs_tap=None,
-              camera_batch: bool = False, device=None):
+              camera_batch: bool = False, impl: str = "pallas",
+              slot_fracs=None, exact_tile_test: bool = True, device=None):
     """Render N splats into C pinhole cameras in RGB+ED (gsplat.rasterization's
     dense single-batch form). colors: (N, D) or SH (N, K, 3); viewmats
     (C, 4, 4) world->cam; Ks (C, 3, 3).
@@ -267,17 +304,34 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     tensor that requires grad and is shared by all cameras, then receives
     the summed AbsGS absgrad. The backward takes only the f32 payload.
 
+    impl="pallas" (the default) is the flat route: a sorted flat list per
+    camera blended by kernel K2 (K5 with WM_RASTER_GROUP > 1), its backward
+    kernel K3. `slot_fracs` ("auto", or a sequence of one fraction a slot
+    plane) bins the forward through coverage-scheduled prefixes
+    (tiles.bin_gaussians_packed_prefix): fewer sorted rows, the slots a
+    prefix cuts counted in n_dropped; the training path ignores it and bins
+    exactly, as the JAX VJP re-bins. impl="jax" is the JAX package's
+    dense-bin route: the per-tile id table (tiles.bin_gaussians) blended by
+    kernel K4, the backward the plain version under autograd; it ignores
+    payload_f16 and slot_fracs, as JAX does, and takes no abs_tap.
+    `exact_tile_test=False` drops the ellipse-tile test on both routes.
+
     `camera_batch=True` renders all cameras through one sort and one K2m
     launch (_rasterize_camera_batch): forward only, so it raises on an input
-    that requires grad or an `abs_tap`, and it always bins the f32 payload.
+    that requires grad or an `abs_tap`, and it always bins the f32 payload
+    with the exact test.
 
     Runs on `device`: CUDA unless the caller passes one (on a machine
     without a GPU, device=None raises). Returns (colors (C, H, W, D + 1)
     with the alpha-normalized expected depth last, alphas (C, H, W, 1),
     meta) with meta["radii"] (C, N, 2) tight radii, meta["means2d"]
     (C, N, 2), meta["depths"] (C, N), meta["n_dropped"] (C,) intersections
-    lost to the static caps and meta["n_isects"] (C,) sorted entries.
+    lost to the static caps and meta["n_isects"] (C,) entries blended.
     """
+    if impl not in ("pallas", "jax"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if slot_fracs is not None and not isinstance(slot_fracs, str):
+        slot_fracs = tuple(slot_fracs)
     dev = resolve_device(device)
     means, quats, scales, opacities, colors, viewmats, Ks = (
         torch.as_tensor(t, dtype=torch.float32, device=dev)
@@ -289,6 +343,12 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     train = torch.is_grad_enabled() and any(
         x is not None and x.requires_grad
         for x in (means, quats, scales, opacities, colors, abs_tap))
+    if impl == "jax":
+        if camera_batch:
+            raise ValueError("camera_batch=True takes only impl='pallas'")
+        if abs_tap is not None:
+            raise ValueError("abs_tap is differentiated only by impl='pallas'")
+        payload_f16, slot_fracs = False, None
     if train and payload_f16:
         raise ValueError("the rasterizer's backward takes only the f32 payload")
     if camera_batch and (train or abs_tap is not None):
@@ -307,14 +367,19 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     for c in range(viewmats.shape[0]):
         m2d, con, col, rad, dep = project_camera(
             means, covars, opacities, colors, viewmats[c], Ks[c], width, height)
-        if train:
+        if impl == "jax":
+            img, alpha, n_drop, n_isect = _rasterize_binned_camera(
+                m2d, con, col, opacities, rad, dep, width, height, tile_size,
+                max_tiles_per_gauss, max_per_tile, exact_tile_test)
+        elif train:
             img, alpha, n_drop, n_isect = RasterizeFlat.apply(
                 m2d, con, col, opacities, abs_tap, rad, dep, width, height,
-                tile_size, max_tiles_per_gauss, max_per_tile)
+                tile_size, max_tiles_per_gauss, max_per_tile, exact_tile_test)
         else:
             bins = bin_splats(m2d, con, col, opacities, rad, dep, tile_size,
                               tw, th, max_tiles_per_gauss, max_per_tile,
-                              payload_f16)
+                              payload_f16, slot_fracs=slot_fracs,
+                              exact_test=exact_tile_test)
             (img, alpha), _, counts, n_drop = blend_flat(
                 bins, width, height, tile_size, col.shape[-1], payload_f16,
                 max_per_tile)

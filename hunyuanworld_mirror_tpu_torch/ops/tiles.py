@@ -95,12 +95,9 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, -2.0 ** 30, 2.0 ** 30).to(torch.int32)
 
 
-def _isect_keys(means2d, radii, depths, tile_size, tile_width, tile_height,
-                TPG, depth_bits, conic_test=None):
-    """Packed 31-bit keys (TPG, N) int32, per-splat cover counts, validity."""
-    n_tiles = tile_width * tile_height
-    if n_tiles >= (1 << (31 - depth_bits)):
-        raise ValueError("tile id overflows the packed key")
+def _tile_boxes(means2d, radii, tile_size, tile_width, tile_height):
+    """Each splat's clamped tile box: (txmin, tymin, width >= 1, tiles
+    covered, valid), each (N,)."""
     u, v = means2d[:, 0], means2d[:, 1]
     rx, ry = radii[:, 0].to(means2d.dtype), radii[:, 1].to(means2d.dtype)
     txmin = torch.clamp(_to_i32(torch.floor((u - rx) / tile_size)), 0, tile_width)
@@ -109,24 +106,46 @@ def _isect_keys(means2d, radii, depths, tile_size, tile_width, tile_height,
     tymax = torch.clamp(_to_i32(torch.ceil((v + ry) / tile_size)), 0, tile_height)
     valid = (radii[:, 0] > 0) & (radii[:, 1] > 0)
     bw = txmax - txmin
-    n_cover = bw * (tymax - tymin)
+    return txmin, tymin, torch.clamp_min(bw, 1), bw * (tymax - tymin), valid
 
-    k = torch.arange(TPG, dtype=torch.int32, device=means2d.device)[:, None]
-    bw_safe = torch.clamp_min(bw, 1)[None, :]
-    tx = txmin[None, :] + k % bw_safe
-    ty = tymin[None, :] + torch.div(k, bw_safe, rounding_mode="floor")
-    slot_valid = (k < n_cover[None, :]) & valid[None, :]
-    if conic_test is not None:
-        slot_valid &= _conic_slot_mask(conic_test, tx, ty, u, v, tile_size)
-    tile_id = torch.where(slot_valid, ty * tile_width + tx,
-                          torch.full_like(tx, n_tiles))
 
+def _depth_q(depths, valid, depth_bits):
+    """Depths quantized to depth_bits against the valid splats' [min, max]."""
     inf = torch.tensor(float("inf"), device=depths.device)
     dmin = torch.min(torch.where(valid, depths, inf))
     dmax = torch.max(torch.where(valid, depths, -inf))
     scale = ((1 << depth_bits) - 1) / torch.clamp_min(dmax - dmin, 1e-12)
-    depth_q = torch.clamp(torch.nan_to_num((depths - dmin) * scale),
-                          0, (1 << depth_bits) - 1).to(torch.int32)
+    return torch.clamp(torch.nan_to_num((depths - dmin) * scale),
+                       0, (1 << depth_bits) - 1).to(torch.int32)
+
+
+def _slot_tiles(k, txmin, tymin, bw, n_cover, tile_width, n_tiles, u, v,
+                tile_size, conic_test):
+    """Slot plane(s) k of the splats' boxes, row-major -> tile ids, the
+    sentinel n_tiles where the slot is past the cover or fails the conic
+    test."""
+    tx = txmin + k % bw
+    ty = tymin + torch.div(k, bw, rounding_mode="floor")
+    slot_ok = k < n_cover
+    if conic_test is not None:
+        slot_ok &= _conic_slot_mask(conic_test, tx, ty, u, v, tile_size)
+    return torch.where(slot_ok, ty * tile_width + tx, torch.full_like(tx, n_tiles))
+
+
+def _isect_keys(means2d, radii, depths, tile_size, tile_width, tile_height,
+                TPG, depth_bits, conic_test=None):
+    """Packed 31-bit keys (TPG, N) int32, per-splat cover counts, validity."""
+    n_tiles = tile_width * tile_height
+    if n_tiles >= (1 << (31 - depth_bits)):
+        raise ValueError("tile id overflows the packed key")
+    txmin, tymin, bw, n_cover, valid = _tile_boxes(means2d, radii, tile_size,
+                                                   tile_width, tile_height)
+    k = torch.arange(TPG, dtype=torch.int32, device=means2d.device)[:, None]
+    tile_id = _slot_tiles(k, txmin[None], tymin[None], bw[None],
+                          torch.where(valid, n_cover, torch.zeros_like(n_cover))[None],
+                          tile_width, n_tiles, means2d[:, 0], means2d[:, 1],
+                          tile_size, conic_test)
+    depth_q = _depth_q(depths, valid, depth_bits)
     return (tile_id << depth_bits) | depth_q[None, :], n_cover, valid
 
 
@@ -271,3 +290,93 @@ def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor,
         max_per_tile, device=means2d.device)[None, :], N * TPG - 1)
     return TileBins((slot % N).to(torch.int32)[idx], counts.to(torch.int32),
                     clamped + _lost_to_tpg(n_cover, valid, TPG))
+
+
+# Per-slot-plane prefix fractions for coverage-scheduled binning ("auto"):
+# after a descending pre-sort by tile coverage, slot plane k enumerates only
+# the first ceil(frac_k N) splats, each prefix rounded up to `align` rows.
+# The JAX package's calibration (518 px scenes: mean cover 1.67 tiles).
+AUTO_SLOT_FRACS = (1.0, 0.75, 0.25, 0.25, 0.125, 0.0625, 0.0625,
+                   0.03125, 0.03125)
+
+
+def _auto_slot_fracs(TPG: int):
+    if TPG <= len(AUTO_SLOT_FRACS):
+        return AUTO_SLOT_FRACS[:TPG]
+    return AUTO_SLOT_FRACS + (AUTO_SLOT_FRACS[-1],) * (TPG - len(AUTO_SLOT_FRACS))
+
+
+def bin_gaussians_packed_prefix(means2d: torch.Tensor, radii: torch.Tensor,
+                                depths: torch.Tensor,
+                                values: Sequence[torch.Tensor], tile_size: int,
+                                tile_width: int, tile_height: int,
+                                max_tiles_per_gauss: int = 9,
+                                max_per_tile: int = 1024, slot_fracs="auto",
+                                align: int = 512, conic_test=None) -> FlatBins:
+    """Coverage-scheduled bin_gaussians_packed (inference only): fewer
+    sorted rows than N*TPG, the same FlatBins without gauss_ids.
+
+    The splats are pre-sorted by clamped tile coverage, descending (ties by
+    splat id), and slot plane k enumerates only the first P_k =
+    ceil(N slot_fracs[k] / align) align rows of that order. Splats that need
+    a k-th slot form a prefix of it, so a plane loses slots only where
+    #(cover > k) > P_k; those are counted in n_dropped, as are the per-tile
+    cap and the coverage past TPG. The rows are sorted on the classic key
+    and the classic flat index k N + splat id, so within the surviving
+    prefixes the blend order is bin_gaussians_packed's, bit for bit. The
+    conic test reads its own f32 planes (u, v, conic, level) through the
+    pre-sort: `values` may hold f16 pairs. The row count is padded to a
+    multiple of `align` with sentinel keys (zero payload) that sort last.
+    """
+    N = means2d.shape[0]
+    n_tiles = tile_width * tile_height
+    TPG = max_tiles_per_gauss
+    if slot_fracs == "auto":
+        slot_fracs = _auto_slot_fracs(TPG)
+    if len(slot_fracs) != TPG:
+        raise ValueError(f"slot_fracs has {len(slot_fracs)} entries, need "
+                         f"max_tiles_per_gauss={TPG}")
+    db = depth_bits_for(n_tiles)
+    txmin, tymin, bw, n_cover, valid = _tile_boxes(means2d, radii, tile_size,
+                                                   tile_width, tile_height)
+    n_cover = torch.where(valid, n_cover, torch.zeros_like(n_cover))
+    dq = _depth_q(depths, valid, db)
+
+    # the coverage pre-sort: descending clamped cover, ties by splat id
+    order = torch.sort(-torch.clamp_max(n_cover, TPG), stable=True).indices
+    cover_s = n_cover[order]
+    u_s, v_s = means2d[order, 0], means2d[order, 1]
+    ct_s = None if conic_test is None else tuple(p[order] for p in conic_test)
+    txm, tym, bws, dq_s = txmin[order], tymin[order], bw[order], dq[order]
+
+    P = [min(N, -(-int(N * f) // align) * align) for f in slot_fracs]
+    keys, rows = [], []
+    for k in range(TPG):
+        pk = P[k]
+        if pk <= 0:
+            continue
+        tile = _slot_tiles(k, txm[:pk], tym[:pk], bws[:pk], cover_s[:pk],
+                           tile_width, n_tiles, u_s[:pk], v_s[:pk], tile_size,
+                           None if ct_s is None else tuple(p[:pk] for p in ct_s))
+        key32 = ((tile << db) | dq_s[:pk]).to(torch.int64)
+        # the classic flat index k N + splat id breaks depth ties
+        keys.append((key32 << 32) | (k * N + order[:pk]))
+        rows.append(order[:pk])
+    sort_key, perm = torch.sort(torch.cat(keys))
+    gauss = torch.cat(rows)[perm]
+    key32 = sort_key >> 32
+    cells = torch.arange(n_tiles + 1, dtype=torch.int64, device=means2d.device)
+    starts, counts, clamped = _segments(key32, cells, db, max_per_tile)
+
+    # drops: the per-tile cap, coverage past TPG, and the prefix exclusions
+    # (#(cover > k) beyond P_k, exact since cover_s falls)
+    n_dropped = clamped + torch.sum(torch.clamp_min(n_cover - TPG, 0))
+    for k in range(TPG):
+        if P[k] < N:
+            n_dropped = n_dropped + torch.sum(cover_s[P[k]:] > k)
+    packed = _gather(values, gauss)
+    pad = (-packed.shape[1]) % align
+    if pad:
+        packed = torch.nn.functional.pad(packed, (0, pad))
+    return FlatBins(packed, starts.to(torch.int32), counts.to(torch.int32),
+                    n_dropped)

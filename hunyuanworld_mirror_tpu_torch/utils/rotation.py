@@ -1,9 +1,11 @@
-"""Quaternion <-> rotation-matrix conversions (scalar-last XYZW order).
+"""Quaternion <-> rotation-matrix conversions (scalar-last XYZW order) and
+the SO(3) / SE(3) exponential maps.
 
 Port of hunyuanworld_mirror_tpu/utils/rotation.py `quat_to_rotmat` (the
-camera decoding) and `rotmat_to_quat` (the camera encoders of the pose
-prior and the COLMAP export): PyTorch3D's 4-candidate construction, the
-real part standardised to be non-negative.
+camera decoding), `rotmat_to_quat` (the camera encoders of the pose prior,
+the COLMAP export and the video trajectory): PyTorch3D's 4-candidate
+construction, the real part standardised to be non-negative; and `hat`,
+`so3_exp` and `se3_exp`, the twist updates of bundle adjustment.
 """
 
 import torch
@@ -68,3 +70,51 @@ def rotmat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
     out = torch.gather(candidates, -2, best[..., None, None].expand(
         best.shape + (1, 4)))[..., 0, :]                           # WXYZ
     return standardize_quaternion(out[..., [1, 2, 3, 0]])
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [w]x of (..., 3) vectors -> (..., 3, 3)."""
+    wx, wy, wz = torch.unbind(w, dim=-1)
+    z = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([z, -wz, wy], -1),
+        torch.stack([wz, z, -wx], -1),
+        torch.stack([-wy, wx, z], -1),
+    ], -2)
+
+
+def _exp_coeffs(w: torch.Tensor, eps: float):
+    """theta^2 and the Rodrigues coefficients A = sin t / t, B = (1 - cos
+    t) / t^2, C = (1 - A) / t^2, each (..., 1, 1), Taylor-guarded below
+    theta^2 = eps (BA's twists start exactly at zero)."""
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    t2s = torch.clamp_min(theta2, eps)
+    theta = torch.sqrt(t2s)
+    small = theta2 < eps
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2s)
+    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - A) / t2s)
+    return A, B, C
+
+
+def so3_exp(w: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Rodrigues exponential map (..., 3) -> (..., 3, 3)."""
+    A, B, _ = _exp_coeffs(w, eps)
+    K = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + A * K + B * (K @ K)
+
+
+def se3_exp(twist: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """SE(3) exponential: twist (..., 6) = (omega, upsilon) -> (..., 4, 4)."""
+    w, u = twist[..., :3], twist[..., 3:]
+    A, B, C = _exp_coeffs(w, eps)
+    K = hat(w)
+    KK = K @ K
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    R = eye + A * K + B * KK
+    V = eye + B * K + C * KK
+    top = torch.cat([R, V @ u[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)

@@ -104,6 +104,33 @@ Phases (any failure exits non-zero before the last line is printed):
      the CLI's main() on a .npy of the images with --glb --glb-mesh
      --mask-sky --ba --ba-iters 4 --fast-binning: 88 K1 and 4 K2 launches,
      every file written, scene.glb a valid glTF header;
+ 13. the trainer's remaining flags, on phase 8's training inputs (510,964
+     splats in 1,021,928 slots, 4 cameras at 518 px, 4096 a tile), each run
+     with the (K2, K3, K4) counts set to 0 just before it: first one
+     selective-Adam step, every row with an all-zero gradient (K3 never
+     touched it, no regulariser) unchanged bit for bit; (a)
+     strategy="mcmc" with selective Adam, 30 steps with refines at 19 and
+     29: 4 K2 and 4 K3 launches a step, finite losses, the last below the
+     first, each refine growing the live count by exactly
+     min(floor(0.05 n_alive), free slots), the slots unchanged, the median
+     step split into render forward, backward, optimizer, refine and noise
+     beside phase 8's; (b) pose_opt, random_bkgd and use_bilateral_grid, 10
+     steps: 4 K2 and 4 K3 a step, the camera deltas off zero, the grids'
+     gradients non-zero, the median step with the grid's slice as its own
+     mark; (c) rasterizer_impl="jax": K4 against its plain version on step
+     0's dense bins, 3 steps with 4 K4 and no K2 or K3 a step, step 0's loss
+     within 1e-4 relative of phase 8's where neither route drops an
+     intersection, the step's time (the backward is the plain blend replayed
+     under autograd) and peak memory, its wall time; (d) the trainer CLI's
+     main() on a COLMAP directory (infer.export's sparse/ and gaussians.ply,
+     the 4 images as PNGs) with --normalize --iters 30 --strategy mcmc
+     --selective-adam --pose-opt --random-bkgd --bilateral-grid --test-every
+     2 --eval-every 10 --tb --compress --viewer: 2 training views, so 2 K2
+     and 2 K3 launches a step, plus 2 K2 for each of the 3 in-loop evals and
+     the final eval, gaussians_opt.ply, cameras_opt.npz and
+     compressed/meta.json written, eval/psnr read back from the events by
+     the port's reader, the live viewer's page, status and snapshot fetched
+     just before it closes;
 then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Each phase prints its wall time.
 
@@ -141,6 +168,10 @@ Phase 12's paths add keys to two entries: K2's `fast_binning_forward`
 (per forward over the 4 prefix lists) and `video_frame` (`launches` for the
 46-frame trajectory, the times on frame 0's list), K4's
 `rasterizer_jax_forward` (per forward of the --rasterizer jax path).
+Phase 13's add two more: K3's `mcmc_step` (launches and the median MCMC
+step's ms) and K4's `training_step` (the kernel numbers on step 0's 4
+dense bins of the --rasterizer jax training path, with the step's median
+render forward and plain backward ms).
 """
 
 import json
@@ -1086,7 +1117,9 @@ def phase_train(preds, imgs):
         log(f"K3 per training step on the lists of {label}: wrapper "
             f"{k3[label]['ms']:.4f} ms  C entry {k3[label]['entry_ms']:.4f} ms  "
             f"plain {k3[label]['plain_ms']:.2f} ms  bound {k3[label]['bound_ms']:.4f} ms")
-    return steps[0]["k3"], k3["after refine 29"], (splats, gt, c2w, Ks, depths)
+    ref = {"median_ms": med_total, "loss0": losses[0],
+           "dropped0": steps[0]["n_dropped"]}
+    return steps[0]["k3"], k3["after refine 29"], (splats, gt, c2w, Ks, depths), ref
 
 
 # --- the rasterizer variants: K2m, K5, K4 -------------------------------------
@@ -1689,6 +1722,326 @@ def cli_main(imgs):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 13: the trainer's remaining flags ---------------------------------
+
+def train_counts():
+    """(K2, K3, K4) launch counts."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned, rasterizer_flat
+    return (rasterizer_flat.rasterize_flat.launches,
+            rasterizer_flat.rasterize_flat_bwd.launches,
+            rasterizer_binned.rasterize_binned.launches)
+
+
+def reset_train_counts():
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned, rasterizer_flat
+    rasterizer_flat.rasterize_flat.launches = 0
+    rasterizer_flat.rasterize_flat_bwd.launches = 0
+    rasterizer_binned.rasterize_binned.launches = 0
+
+
+def counted_training(label, train_inputs, cfg, want, extra=None):
+    """optimize_splats on phase 8's inputs with the (K2, K3, K4) counts set
+    to 0 just before and read after every step -> (steps, output, wall s,
+    peak GB). Fails unless every step launches `want` and every loss is
+    finite. `extra(info)` adds a value to each step's record."""
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    splats, gt, c2w, Ks, depths = train_inputs
+    steps, prev = [], [(0, 0, 0)]
+
+    def on_step(info):
+        now = train_counts()
+        m = info["marks"]
+        steps.append({"it": info["it"], "loss": float(info["loss"]),
+                      "launches": tuple(a - b for a, b in zip(now, prev[0])),
+                      "alive": int((info["raw"]["alive"] > 0.5).sum()),
+                      "slots": tuple(info["raw"]["means"].shape),
+                      "refined": info["refined"],
+                      "n_dropped": info["meta"]["n_dropped"].tolist(),
+                      "phases": {name: m[j - 1][1].elapsed_time(ev)
+                                 for j, (name, ev) in enumerate(m) if j},
+                      "extra": extra(info) if extra else None})
+        prev[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    t0 = time.time()
+    out = splat_opt.optimize_splats(splats, gt, c2w, Ks, cfg, depths=depths,
+                                    device="cuda", log_fn=log, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [s["loss"] for s in steps]
+    log(f"{label}: {len(steps)} steps in {wall:.2f} s wall, peak memory "
+        f"{peak:.2f} GB; losses first {losses[0]:.5f} last {losses[-1]:.5f}; "
+        f"(K2, K3, K4) launches per step {sorted({s['launches'] for s in steps})}; "
+        f"n_dropped first step {steps[0]['n_dropped']}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    if any(s["launches"] != want for s in steps):
+        raise AssertionError(f"{label}: launches {[s['launches'] for s in steps]} "
+                             f"!= {want} a step")
+    return steps, out, wall, peak
+
+
+def step_medians(label, steps, names):
+    """Medians over the steps without a refine of each phase in `names` and
+    of the whole step."""
+    plain = [s["phases"] for s in steps if not s["refined"]]
+    med = {k: float(np.median([p[k] for p in plain])) for k in names}
+    med["total"] = float(np.median([sum(p.values()) for p in plain]))
+    log(f"{label} step (median of {len(plain)} steps without a refine): "
+        + "  ".join(f"{k} {v:.2f} ms" for k, v in med.items()))
+    return med
+
+
+def phase_trainer_flags(preds, imgs, train_inputs, ref):
+    """Phase 13: the trainer's remaining flags on phase 8's training inputs
+    (510,964 splats in 1,021,928 slots, 4 cameras at 518 px, 4096 a tile):
+    (a) strategy="mcmc" with selective Adam, (b) pose_opt + random_bkgd +
+    use_bilateral_grid, (c) rasterizer_impl="jax", (d) the CLI's main() on
+    a COLMAP directory with every flag -> the numbers for the kernels line."""
+    selective_adam_rows(train_inputs)
+    out = {"mcmc": train_mcmc(train_inputs, ref),
+           "options": train_options(train_inputs, ref)}
+    t0 = time.time()
+    out["jax"] = train_jax_route(train_inputs, ref)
+    log(f"(c) rasterizer_impl=jax: {time.time() - t0:.1f} s wall")
+    trainer_cli(preds, imgs)
+    return out
+
+
+def selective_adam_rows(train_inputs):
+    """One selective-Adam step, no regulariser, on phase 8's inputs: every
+    row whose gradient K3 left all zero keeps its value bit for bit (the
+    count of such live rows is printed; the dead slots are among them)."""
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    splats, gt, c2w, Ks, _ = train_inputs
+    HW = gt.shape[1]
+    cfg = splat_opt.SplatOptConfig(use_selective_adam=True)
+    raw = splat_opt._raw_from_splats(
+        {k: torch.as_tensor(v, device="cuda") for k, v in splats.items()},
+        2 * len(splats["means"]))
+    before = {k: raw[k].detach().clone() for k in splat_opt.PARAM_KEYS}
+    opt = splat_opt.make_optimizer(cfg, raw)
+    step = splat_opt.make_train_step(cfg, HW, HW, device="cuda")
+    step(raw, opt, cam_utils.se3_inverse(torch.as_tensor(c2w, device="cuda")),
+         torch.as_tensor(Ks, device="cuda"), torch.as_tensor(gt, device="cuda"))
+    live = raw["alive"] > 0.5
+    counts, bad = {}, 0
+    for k in splat_opt.PARAM_KEYS:
+        n = raw[k].shape[0]
+        hidden = ~(raw[k].grad.reshape(n, -1) != 0).any(dim=1)
+        same = (raw[k].detach() == before[k]).reshape(n, -1).all(dim=1)
+        bad += int((hidden & ~same).sum())
+        counts[k] = (int((hidden & live).sum()), int((~hidden & same).sum()))
+    log(f"selective Adam, one step: (live rows with an all-zero gradient, rows "
+        f"with a gradient that did not move) per parameter {counts}; "
+        f"zero-gradient rows that moved {bad}")
+    if bad:
+        raise AssertionError("selective Adam moved a row K3 never touched")
+
+
+def train_mcmc(train_inputs, ref):
+    """(a): 30 steps, refines at 19 and 29; each refine grows the live count
+    by exactly min(floor(0.05 n_alive), free slots)."""
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    cfg = splat_opt.SplatOptConfig(iters=30, refine_start=10, refine_every=10,
+                                   refine_stop=30, strategy="mcmc",
+                                   use_selective_adam=True)
+    steps, _, _, _ = counted_training("(a) mcmc + selective Adam", train_inputs, cfg,
+                                      (4, 4, 0))
+    capacity = steps[0]["slots"][0]
+    alive = [len(train_inputs[0]["means"])] + [s["alive"] for s in steps]
+    for i, s in enumerate(steps):
+        grow = (min(int(np.floor(np.float32(alive[i]) * np.float32(0.05))),
+                    capacity - alive[i]) if s["refined"] else 0)
+        if s["refined"]:
+            log(f"(a) refine at step {s['it']}: {s['phases']['refine']:.2f} ms, live "
+                f"{alive[i]} -> {alive[i + 1]} (+{grow} expected)")
+        if alive[i + 1] - alive[i] != grow:
+            raise AssertionError(f"(a) step {s['it']}: live {alive[i]} -> "
+                                 f"{alive[i + 1]}, expected +{grow}")
+    losses = [s["loss"] for s in steps]
+    if [s["it"] for s in steps if s["refined"]] != [19, 29] or \
+            any(s["slots"] != (capacity, 3) for s in steps) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(a): refines, slots or losses {losses}")
+    med = step_medians("(a) mcmc", steps, ("render_forward", "backward",
+                                           "optimizer", "noise"))
+    log(f"(a) mcmc step median {med['total']:.2f} ms against phase 8's default "
+        f"step {ref['median_ms']:.2f} ms ({med['total'] / ref['median_ms']:.3f}x)")
+    return {"launches": 4, "step_ms": med["total"], "phases_ms": med}
+
+
+def train_options(train_inputs, ref):
+    """(b): pose_opt, random_bkgd and use_bilateral_grid together, 10 steps:
+    the deltas move off zero and the grids' gradients are not zero."""
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    cfg = splat_opt.SplatOptConfig(iters=10, pose_opt=True, random_bkgd=True,
+                                   use_bilateral_grid=True)
+
+    def extra(info):
+        raw = info["raw"]
+        return (float(raw["cam_deltas"].detach().abs().max()),
+                float(raw["bil_grids"].grad.abs().sum()))
+
+    steps, out, _, _ = counted_training("(b) pose + background + bilateral grid",
+                                        train_inputs, cfg, (4, 4, 0), extra)
+    moved, grid_grads = steps[-1]["extra"][0], [s["extra"][1] for s in steps]
+    log(f"(b) max |cam_deltas| after 10 steps {moved:.3e}; grids' |grad| sums "
+        f"{min(grid_grads):.3e}..{max(grid_grads):.3e}; c2w_opt finite "
+        f"{bool(np.isfinite(out['c2w_opt']).all())}")
+    if not (moved > 0 and min(grid_grads) > 0 and np.isfinite(out["c2w_opt"]).all()):
+        raise AssertionError("(b): the deltas did not move or the grids got no gradient")
+    med = step_medians("(b) pose + background + bilateral grid", steps,
+                       ("rasterize", "bilagrid", "render_forward", "backward",
+                        "optimizer"))
+    log(f"(b) step median {med['total']:.2f} ms against phase 8's default step "
+        f"{ref['median_ms']:.2f} ms ({med['total'] / ref['median_ms']:.3f}x); the "
+        f"bilateral grid's slice {med['bilagrid']:.2f} ms")
+    return {"launches": 4, "step_ms": med["total"], "phases_ms": med}
+
+
+def jax_route_bins(train_inputs, max_per_tile):
+    """Step 0's dense bins on the jax route, as rasterize bins them ->
+    [(m2d, con, col, op, bins)] for each camera."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, tiles
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    splats, gt, c2w, Ks, _ = train_inputs
+    HW = gt.shape[1]
+    n = len(splats["means"])
+    raw = splat_opt._raw_from_splats(
+        {k: torch.as_tensor(v, device="cuda") for k, v in splats.items()}, 2 * n)
+    means, quats, scales, opac, sh = splat_opt._activate(raw)
+    covars = projection.quat_scale_to_covar_planes(quats[:, [1, 2, 3, 0]], scales)
+    w2c = cam_utils.se3_inverse(torch.as_tensor(c2w, device="cuda"))
+    Ks_t = torch.as_tensor(Ks, device="cuda")
+    mpt = rasterizer._capped(max_per_tile, 2 * n, 9)
+    tw = (HW + 15) // 16
+    out = []
+    for c in range(len(c2w)):
+        m2d, con, col, rad, dep = rasterizer.project_camera(
+            means, covars, opac, sh, w2c[c], Ks_t[c], HW, HW)
+        bins = tiles.bin_gaussians(m2d, rad, dep, 16, tw, tw, 9, mpt,
+                                   conic_test=tiles.conic_test_planes(con, opac))
+        out.append((m2d, con, col, opac, bins))
+    return out
+
+
+def train_jax_route(train_inputs, ref):
+    """(c): rasterizer_impl="jax", 3 steps (4 K4, no K2 or K3 a step); K4
+    against its plain version on step 0's dense bins; step 0's loss against
+    the default route's (phase 8) where neither drops an intersection; the
+    step's time and peak memory. If the plain backward does not fit at
+    max_per_tile 4096, the run is recorded and repeated at 2048."""
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    HW = train_inputs[1].shape[1]
+    with torch.no_grad():
+        rows = [k4_check(f"(c) K4 on step 0's dense bins, camera {c}", *b, HW)
+                for c, b in enumerate(jax_route_bins(train_inputs, 4096))]
+    k4 = totals("(c) K4 per training step's forward (4 cameras)", rows)
+    for mpt in (4096, 2048):
+        cfg = splat_opt.SplatOptConfig(iters=3, rasterizer_impl="jax",
+                                       max_per_tile=mpt)
+        try:
+            steps, _, wall, peak = counted_training(
+                f"(c) rasterizer_impl=jax, max_per_tile {mpt}", train_inputs, cfg,
+                (0, 0, 4))
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"(c) max_per_tile {mpt}: out of device memory ({e}); peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            torch.cuda.empty_cache()
+    med = step_medians(f"(c) rasterizer_impl=jax, max_per_tile {mpt}", steps,
+                       ("render_forward", "backward", "optimizer"))
+    loss0, dropped0 = steps[0]["loss"], steps[0]["n_dropped"]
+    log(f"(c) step 0 loss {loss0:.7f} (n_dropped {dropped0}) against the default "
+        f"route's {ref['loss0']:.7f} (n_dropped {ref['dropped0']}): relative "
+        f"{abs(loss0 - ref['loss0']) / abs(ref['loss0']):.3e}; step median "
+        f"{med['total']:.2f} ms against phase 8's {ref['median_ms']:.2f} ms "
+        f"({med['total'] / ref['median_ms']:.2f}x); peak {peak:.2f} GB")
+    if not (mpt == 4096 and not any(dropped0) and not any(ref["dropped0"])
+            and abs(loss0 - ref["loss0"]) <= 1e-4 * abs(ref["loss0"])):
+        raise AssertionError(f"(c): step 0 loss {loss0} (n_dropped {dropped0}, "
+                             f"max_per_tile {mpt}) against {ref['loss0']} "
+                             f"(n_dropped {ref['dropped0']})")
+    return {**k4, "launches": 4, "forward_ms": med["render_forward"],
+            "plain_backward_ms": med["backward"], "step_ms": med["total"],
+            "peak_gb": peak, "max_per_tile": mpt, "wall_s": wall}
+
+
+def trainer_cli(preds, imgs):
+    """(d): the CLI's main() on a COLMAP directory (infer.export's sparse/
+    and gaussians.ply, the 4 images as PNGs) with every flag but --video
+    (no cv2 on the card machine) and --gs2d. --test-every 2 trains on 2 of
+    the 4 views, so a step launches 2 K2 and 2 K3; each in-loop eval and the
+    final eval render the 2 held-out views (2 K2). The viewer's endpoints
+    are fetched once, just before it closes. Its files go to
+    build/smoke_trainer/ of this checkout."""
+    import shutil
+    import urllib.request
+    from pathlib import Path
+    from PIL import Image
+    from hunyuanworld_mirror_tpu_torch import splat_trainer
+    from hunyuanworld_mirror_tpu_torch.infer import export
+    from hunyuanworld_mirror_tpu_torch.training import live_viewer, tb_writer
+    root = Path(__file__).resolve().parent / "build" / "smoke_trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    export(preds, imgs, data, log=lambda *a: None)
+    (data / "images").mkdir()
+    for i, img in enumerate(imgs[0]):
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            data / "images" / f"frame_{i + 1}", format="PNG")
+    fetched = {}
+    close = live_viewer.LiveViewer.close
+
+    def fetch_then_close(viewer):
+        for path in ("/", "/out/live/live_status.json", "/out/live/live.splat"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}{path}",
+                                        timeout=30) as r:
+                fetched[path] = r.read()
+        close(viewer)
+
+    iters, evals = 30, 3
+    live_viewer.LiveViewer.close = fetch_then_close
+    try:
+        reset_train_counts()
+        t0 = time.time()
+        splat_trainer.main(
+            ["--colmap", str(data), "--normalize", "--iters", str(iters),
+             "--strategy", "mcmc", "--selective-adam", "--pose-opt", "--random-bkgd",
+             "--bilateral-grid", "--test-every", "2", "--eval-every", "10",
+             "--tb", str(root / "tb"), "--compress", "--viewer"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        live_viewer.LiveViewer.close = close
+    got = train_counts()
+    want = (2 * iters + 2 * evals + 2, 2 * iters, 0)
+    missing = [n for n in ("gaussians_opt.ply", "cameras_opt.npz",
+                           "compressed/meta.json") if not (data / n).is_file()]
+    events = sorted((root / "tb").glob("events.out.tfevents.*"))
+    psnr_steps = ([s for s, v in tb_writer.read_scalars(str(events[0]))
+                   if "eval/psnr" in v] if events else [])
+    status = json.loads(fetched.get("/out/live/live_status.json", b"{}"))
+    log(f"(d) CLI main() --colmap --normalize --iters {iters} --strategy mcmc "
+        f"--selective-adam --pose-opt --random-bkgd --bilateral-grid --test-every 2 "
+        f"--eval-every 10 --tb --compress --viewer: {wall:.1f} s wall; (K2, K3, K4) "
+        f"launches {got} (expected {want}: 2 + 2 a step); eval/psnr at steps "
+        f"{psnr_steps}; viewer page {len(fetched.get('/', b''))} bytes, status "
+        f"{status}, snapshot {len(fetched.get('/out/live/live.splat', b''))} bytes; "
+        f"missing files {missing}")
+    if (got != want or missing or psnr_steps != [10, 20, 30]
+            or b"live" not in fetched.get("/", b"") or status.get("step") != iters
+            or not fetched.get("/out/live/live.splat")):
+        raise AssertionError("(d): the CLI's main() on the COLMAP directory failed "
+                             "a check")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -1707,11 +2060,14 @@ def main():
     launches, k2, preds, imgs = timed("main path", phase_main_path)
     timed("card vs CPU", phase_cpu_reference)
     timed("K3", phase_k3, preds)
-    k3_launches, k3, train_inputs = timed("training", phase_train, preds, imgs)
+    k3_launches, k3, train_inputs, train_ref = timed("training", phase_train, preds,
+                                                     imgs)
     k2m_launches, k2m = timed("K2m", phase_k2m, preds)
     k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
     k4_launches, k4 = timed("K4", phase_k4, preds)
     cli = timed("CLI flags", phase_cli_flags, imgs)
+    trainer = timed("trainer flags", phase_trainer_flags, preds, imgs, train_inputs,
+                    train_ref)
     kernels = [
         {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -1767,6 +2123,14 @@ def main():
                                  "launches": cli["video"]["launches"],
                                  "frames": cli["video"]["frames"]}
     kernels[-1]["rasterizer_jax_forward"] = sub(cli["k4_forward"], 4)
+    # the phase-13 paths: K3 in an MCMC step, K4 as the --rasterizer jax
+    # training step's forward (its backward is the plain replay)
+    kernels[3]["mcmc_step"] = {"launches": trainer["mcmc"]["launches"],
+                               "step_ms": trainer["mcmc"]["step_ms"]}
+    tj = trainer["jax"]
+    kernels[-1]["training_step"] = {**sub(tj, 4), "forward_ms": tj["forward_ms"],
+                                    "plain_backward_ms": tj["plain_backward_ms"],
+                                    "max_per_tile": tj["max_per_tile"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -182,14 +182,6 @@ def export_colmap(preds: Dict[str, torch.Tensor], images: np.ndarray,
     log(f"  wrote COLMAP sparse model -> {out_dir / 'sparse'}")
 
 
-def _require_cv2(what: str) -> None:
-    try:
-        import cv2  # noqa: F401
-    except ImportError as e:
-        raise SystemExit(f"{what} needs OpenCV (the cv2 module), which is not "
-                         "installed") from e
-
-
 def main(argv: Optional[List[str]] = None, device=None):
     """The CLI; `device` as for run() (CUDA unless named)."""
     ap = argparse.ArgumentParser(description="WorldMirror inference (GPU)")
@@ -230,9 +222,9 @@ def main(argv: Optional[List[str]] = None, device=None):
     args = ap.parse_args(argv)
 
     if io_images.is_video(args.input_path):
-        _require_cv2("a video input")
+        render_lib.require_cv2("a video input")
     if args.video:
-        _require_cv2("--video")
+        render_lib.require_cv2("--video")
     imgs = io_images.load_inputs(args.input_path, fps=args.fps,
                                  target_size=args.size, strategy=args.mode)
     S, H, W = imgs.shape[1:4]

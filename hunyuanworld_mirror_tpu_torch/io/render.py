@@ -111,6 +111,15 @@ def turbo_colormap(x: np.ndarray) -> np.ndarray:
     return np.stack([r, g, b], axis=-1)
 
 
+def require_cv2(what: str) -> None:
+    """Exit with a message naming `what` unless cv2 imports."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"{what} needs OpenCV (the cv2 module), which is not "
+                         "installed") from e
+
+
 def save_video(path: str, frames: np.ndarray, fps: int = 30) -> str:
     """(T, H, W, 3) float [0, 1] -> mp4 (mp4v) via cv2."""
     import cv2

@@ -1,15 +1,19 @@
 """3D Gaussian EWA projection (world -> camera -> screen conics).
 
-Port of hunyuanworld_mirror_tpu/ops/projection.py (`quat_scale_to_covar_planes`
-and the pinhole `fully_fused_projection`): gsplat semantics with FOV-limit
-clamping, EPS2D = 0.3 low-pass dilation, conics = inverse 2D covariance,
-3.33-sigma integer radii, near/far and frustum culling by zeroing radii.
-Everything is a (C, N) plane; no (N, 3, 3) tensor is formed.
+Port of hunyuanworld_mirror_tpu/ops/projection.py (`quat_scale_to_covar`,
+`quat_scale_to_covar_planes` and the pinhole `fully_fused_projection`):
+gsplat semantics with FOV-limit clamping, EPS2D = 0.3 low-pass dilation,
+conics = inverse 2D covariance, 3.33-sigma integer radii, near/far and
+frustum culling by zeroing radii. The projection works on (C, N) planes and
+forms no (N, 3, 3) tensor; `quat_scale_to_covar` (the MCMC position noise)
+does.
 """
 
 from typing import NamedTuple
 
 import torch
+
+from ..utils.rotation import quat_to_rotmat
 
 EPS2D = 0.3          # low-pass dilation of the 2D covariance
 NEAR_PLANE = 0.01
@@ -21,6 +25,14 @@ class Projected(NamedTuple):
     means2d: torch.Tensor        # (C, N, 2)
     depths: torch.Tensor         # (C, N)
     conics: torch.Tensor         # (C, N, 3)
+
+
+def quat_scale_to_covar(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """XYZW quats (..., 4) + scales (..., 3) -> covariance (..., 3, 3)
+    R diag(s)^2 R^T, R from the normalised quats."""
+    R = quat_to_rotmat(quats / torch.linalg.norm(quats, dim=-1, keepdim=True))
+    M = R * scales[..., None, :]
+    return torch.einsum("...ij,...kj->...ik", M, M)
 
 
 def quat_scale_to_covar_planes(quats: torch.Tensor, scales: torch.Tensor):

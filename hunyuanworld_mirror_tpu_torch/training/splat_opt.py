@@ -1,22 +1,29 @@
-"""Post-inference 3DGS optimisation at the default strategy.
+"""Post-inference 3DGS optimisation.
 
-Port of hunyuanworld_mirror_tpu/training/splat_opt.py on the path its CLI
-runs by default: initialise from WorldMirror's splats, optimise against the
-input views with (1 - l) L1 + l (1 - SSIM) (plus the optional depth loss and
-opacity / scale regularisers), Adam per parameter group, and gsplat
-DefaultStrategy-style grow / prune on a FIXED-capacity array with an alive
-mask. The render is ops/rasterizer.rasterize, whose backward is kernel K3.
+Port of hunyuanworld_mirror_tpu/training/splat_opt.py: initialise from
+WorldMirror's splats, optimise against the input views with (1 - l) L1 +
+l (1 - SSIM) (plus the optional depth loss, opacity / scale regularisers
+and the bilateral grid's total variation), Adam (or selective Adam) per
+parameter group, and refine a FIXED-capacity array with an alive mask:
+gsplat DefaultStrategy-style grow / prune, or the MCMC strategy
+(training/mcmc.py: teleport, 5% growth, position noise after every step).
+Optional per-camera pose deltas (AdamW, lr decayed to 1% over the run),
+per-view bilateral grids (training/bilagrid.py) and a random background;
+TensorBoard events (training/tb_writer.py), in-loop held-out eval
+(utils/metrics.py) and live-viewer snapshots (training/live_viewer.py).
 
-The raw dict keeps the JAX package's key names (means, log_scales, quats
-(wxyz), opacity_logits, sh, alive), so a numpy dict moves between the two
-packages as it is. Not ported yet: the MCMC strategy, selective Adam, 2DGS,
-pose optimisation, random background, the bilateral grid, TensorBoard,
-in-loop eval and the live viewer.
+The render is ops/rasterizer.rasterize: on the default route
+(rasterizer_impl="pallas") kernel K2 forward and K3 backward, on "jax" the
+dense-bin route (kernel K4 forward, the plain blend replayed under autograd
+backward). The raw dict keeps the JAX package's key names (means,
+log_scales, quats (wxyz), opacity_logits, sh, alive, and cam_deltas,
+bil_grids when on), so a numpy dict moves between the two packages as it
+is. Not ported: 2DGS (mode="2dgs", ROADMAP Queue 1 item 9).
 """
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +31,10 @@ import torch
 from .. import resolve_device
 from ..ops import rasterizer
 from ..utils import camera as cam_utils
+from ..utils import rotation as rot_utils
+from ..utils.metrics import nvs_metrics
 from ..utils.profiling import mark
-from . import losses
+from . import bilagrid, losses, mcmc
 
 PARAM_KEYS = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
@@ -48,24 +57,71 @@ class SplatOptConfig:
     lr_sh: float = 2.5e-3
     tile_size: int = 16   # 16 on the card (K3 takes 16 x 16 tiles only)
     max_per_tile: int = 4096
+    # the render's route: "pallas" (flat lists, K2 / K3) or "jax" (dense
+    # bins, K4, the plain backward). The JAX dataclass defaults to "jax",
+    # its CPU route, and its CLI passes --rasterizer (default "pallas"); the
+    # port defaults to the flat route, whose backward is kernel K3.
+    rasterizer_impl: str = "pallas"
+    # "default" (grad-threshold grow / prune) or "mcmc" (training/mcmc.py)
+    strategy: str = "default"
+    noise_lr: float = 5e5             # MCMC position-noise scale
+    min_opacity: float = 0.005        # MCMC: at or below, a splat is dying
+    use_selective_adam: bool = False
+    # "3dgs"; "2dgs" (surfels, ops/gs2d.py) is not ported
+    mode: str = "3dgs"
+    # per-camera 9-dim deltas (3 translation + 6D rotation) on the c2w side,
+    # AdamW(pose_opt_lr, decay pose_opt_reg), lr decayed to 1% over iters
+    pose_opt: bool = False
+    pose_opt_lr: float = 1e-3
+    pose_opt_reg: float = 1e-5
+    # composite over a U[0, 1)^3 background drawn each step
+    random_bkgd: bool = False
     # disparity-space depth L1 against the inference depth maps
     depth_loss: bool = False
     depth_lambda: float = 1e-2
     opacity_reg: float = 0.0
     scale_reg: float = 0.0
+    # per-view bilateral grids (x, y, gray cells), Adam(bilgrid_lr, eps
+    # 1e-15), + bilgrid_tv_mult x their total variation
+    use_bilateral_grid: bool = False
+    bilateral_grid_shape: Tuple[int, int, int] = (16, 16, 8)
+    bilgrid_lr: float = 2e-3
+    bilgrid_tv_mult: float = 10.0
+    # TensorBoard (optimize_splats(tb_logdir=...)): scalars every tb_every
+    # steps, with tb_save_image view 0 rendered beside its ground truth
+    tb_every: int = 100
+    tb_save_image: bool = False
+    # held-out eval every eval_every steps (optimize_splats(eval_data=...))
+    eval_every: int = 0
+    # live-viewer snapshots (optimize_splats(viewer=...)); 0 disables
+    viewer_every: int = 200
     # densification signal: "absgrad" (per-splat sum of |dL/d means2d| from
     # kernel K3's AbsGS rows, in half-image units as gsplat's grow_grad2d
     # expects), "mean3d" (norm of the world-space mean gradient) or "auto".
     densify_signal: str = "auto"
 
+    def __post_init__(self):
+        if self.mode == "2dgs":
+            raise NotImplementedError(
+                "mode='2dgs' (2DGS training, ops/gs2d.py) is not ported yet: "
+                "ROADMAP Queue 1 item 9")
+        for name, allowed in (("mode", ("3dgs",)),
+                              ("strategy", ("default", "mcmc")),
+                              ("rasterizer_impl", ("pallas", "jax"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
+
     def resolved_signal(self, device) -> str:
-        """"auto" is absgrad where the backward runs kernel K3 (CUDA) and
-        mean3d on the CPU. The JAX package maps it the same way: absgrad
-        only for its Pallas kernel on a TPU, mean3d elsewhere. The two
-        signals have different units; grow_grad2d is meant for absgrad."""
+        """"auto" is absgrad where the backward runs kernel K3 (the flat
+        route on CUDA) and mean3d elsewhere, as the JAX package maps it to
+        absgrad only for its Pallas route on a TPU. The two signals have
+        different units; grow_grad2d is meant for absgrad."""
         if self.densify_signal != "auto":
             return self.densify_signal
-        return "absgrad" if torch.device(device).type == "cuda" else "mean3d"
+        return ("absgrad" if (self.rasterizer_impl == "pallas"
+                              and torch.device(device).type == "cuda")
+                else "mean3d")
 
 
 def _raw_from_splats(splats: Dict[str, torch.Tensor], capacity: int) -> Dict:
@@ -101,11 +157,13 @@ def _activate(raw: Dict):
 
 
 def make_optimizer(cfg: SplatOptConfig, raw: Dict,
-                   scene_scale: float = 1.0) -> torch.optim.Adam:
-    """Adam per parameter group (optax.adam's update: m_hat / (sqrt(v_hat)
-    + eps), eps 1e-8), means at lr_means * scene_scale. `alive` is never
-    updated (the JAX package's optax.set_to_zero). Marks the params as
-    requiring grad; a new optimizer starts with fresh moments."""
+                   scene_scale: float = 1.0) -> torch.optim.Optimizer:
+    """The splat rows' optimizer, one parameter group each, means at
+    lr_means * scene_scale: Adam (optax.adam's update: m_hat / (sqrt(v_hat)
+    + eps), eps 1e-8), or with cfg.use_selective_adam mcmc.SelectiveAdam.
+    `alive` is never updated (the JAX package's optax.set_to_zero). Marks
+    the params as requiring grad; a new optimizer starts with fresh
+    moments, which is what a refine wants (make_aux_optimizers' are kept)."""
     lrs = {"means": cfg.lr_means * scene_scale, "log_scales": cfg.lr_scales,
            "quats": cfg.lr_quats, "opacity_logits": cfg.lr_opacities,
            "sh": cfg.lr_sh}
@@ -113,7 +171,44 @@ def make_optimizer(cfg: SplatOptConfig, raw: Dict,
     for k in PARAM_KEYS:
         raw[k].requires_grad_(True)
         groups.append({"params": [raw[k]], "lr": lrs[k]})
+    if cfg.use_selective_adam:
+        return mcmc.SelectiveAdam(groups, betas=(0.9, 0.999), eps=1e-8)
     return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_aux_optimizers(cfg: SplatOptConfig, raw: Dict) -> List[Tuple]:
+    """[(optimizer, scheduler or None)] for the parameters that keep their
+    moments across a refine: raw["cam_deltas"] (cfg.pose_opt) under AdamW,
+    lr pose_opt_lr * 0.01^(t / iters) at update t counted from 0 (the JAX
+    package's optax.adamw over optax.exponential_decay(pose_opt_lr, iters,
+    0.01)), and raw["bil_grids"] (cfg.use_bilateral_grid) under Adam with
+    eps 1e-15."""
+    out = []
+    if cfg.pose_opt:
+        opt = torch.optim.AdamW([raw["cam_deltas"].requires_grad_(True)],
+                                lr=cfg.pose_opt_lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=cfg.pose_opt_reg)
+        out.append((opt, torch.optim.lr_scheduler.ExponentialLR(
+            opt, gamma=0.01 ** (1.0 / cfg.iters))))
+    if cfg.use_bilateral_grid:
+        out.append((torch.optim.Adam([raw["bil_grids"].requires_grad_(True)],
+                                     lr=cfg.bilgrid_lr, eps=1e-15), None))
+    return out
+
+
+def apply_cam_deltas(viewmats: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """(S, 4, 4) w2c adjusted by per-camera 9-dim deltas on the c2w side:
+    c2w' = c2w [[rot6d(identity + drot), dx], [0, 1]] (gsplat's
+    CameraOptModule)."""
+    c2w = cam_utils.se3_inverse(viewmats)
+    dx, drot = deltas[:, :3], deltas[:, 3:]
+    ident = torch.tensor([1.0, 0, 0, 0, 1.0, 0], dtype=deltas.dtype,
+                         device=deltas.device)
+    R = rot_utils.rot6d_to_matrix(drot + ident)
+    bottom = torch.tensor([[0.0, 0, 0, 1]], dtype=deltas.dtype,
+                          device=deltas.device).expand(deltas.shape[0], 1, 4)
+    T = torch.cat([torch.cat([R, dx[:, :, None]], dim=-1), bottom], dim=1)
+    return cam_utils.se3_inverse(c2w @ T)
 
 
 def render_splats(raw: Dict, viewmats: torch.Tensor, Ks: torch.Tensor,
@@ -123,28 +218,58 @@ def render_splats(raw: Dict, viewmats: torch.Tensor, Ks: torch.Tensor,
     return rasterizer.rasterize(
         means, quats, scales, opac, sh, viewmats, Ks, width, height,
         tile_size=cfg.tile_size, max_per_tile=cfg.max_per_tile,
-        quat_order="wxyz", abs_tap=abs_tap, device=means.device)
+        quat_order="wxyz", abs_tap=abs_tap, impl=cfg.rasterizer_impl,
+        device=means.device)
 
 
 def make_train_step(cfg: SplatOptConfig, width: int, height: int,
                     scene_scale: float = 1.0, device=None):
     """-> step(raw, opt, viewmats, Ks, gt_images, gt_depths=None,
-    marks=None) that renders, backpropagates, zeroes the dead rows' grads,
-    steps `opt` (updating raw's params in place) and returns
-    (loss, g2d (N,) densify signal, render meta). `marks` receives CUDA
-    events after the render forward, the backward and the optimizer."""
+    marks=None, aux=(), bkgd=None) that renders, backpropagates, zeroes
+    the dead rows' grads of the splat rows, steps `opt` and each of
+    `aux`'s (optimizer, scheduler) pairs (updating raw's params in place)
+    and returns (loss, g2d (N,) densify signal, render meta).
+
+    In order: the pose deltas adjust the viewmats (cfg.pose_opt), the
+    render's RGB goes through the bilateral grids (cfg.use_bilateral_grid),
+    then over `bkgd` (1, 1, 1, 3) as rgb + bkgd (1 - alpha)
+    (cfg.random_bkgd, which needs it), then the losses. `marks` receives
+    CUDA events after the render forward, the backward and the optimizer;
+    with the bilateral grid the render forward is split by two more,
+    "rasterize" (the render) and "bilagrid" (the slice)."""
     use_abs = cfg.resolved_signal(resolve_device(device)) == "absgrad"
 
-    def step(raw, opt, viewmats, Ks, gt_images, gt_depths=None, marks=None):
+    def step(raw, opt, viewmats, Ks, gt_images, gt_depths=None, marks=None,
+             aux=(), bkgd=None):
         if cfg.depth_loss and gt_depths is None:
             raise ValueError("cfg.depth_loss needs gt_depths")
+        if cfg.random_bkgd and bkgd is None:
+            raise ValueError("cfg.random_bkgd needs bkgd (1, 1, 1, 3)")
         dev = raw["means"].device
         tap = (torch.zeros(raw["means"].shape[0], 2, device=dev,
                            requires_grad=True) if use_abs else None)
-        colors, alphas, meta = render_splats(raw, viewmats, Ks, width, height,
-                                             cfg, abs_tap=tap)
-        loss = losses.photometric_loss(colors[..., :3], gt_images,
-                                       cfg.ssim_lambda)
+        r, vm = raw, viewmats
+        if cfg.pose_opt:
+            vm = apply_cam_deltas(viewmats, raw["cam_deltas"])
+            # Dead slots sit at the origin, on the focal plane of a camera
+            # there (the inference CLI's first camera), where the projection
+            # is 0/0: their zero cotangents times NaN partials would make the
+            # cameras' gradient NaN, as they do in the JAX step. Render them
+            # at a live splat's mean instead; at opacity 0 they blend
+            # nowhere, so the render is unchanged.
+            anchor = raw["means"].detach()[torch.argmax(raw["alive"])]
+            r = dict(raw, means=torch.where(raw["alive"][:, None] > 0.5,
+                                            raw["means"], anchor))
+        colors, alphas, meta = render_splats(r, vm, Ks, width, height, cfg,
+                                             abs_tap=tap)
+        rgb = colors[..., :3]
+        if cfg.use_bilateral_grid:
+            mark(marks, "rasterize")
+            rgb = bilagrid.slice_image_grids(raw["bil_grids"], rgb)
+            mark(marks, "bilagrid")
+        if cfg.random_bkgd:
+            rgb = rgb + bkgd * (1.0 - alphas)
+        loss = losses.photometric_loss(rgb, gt_images, cfg.ssim_lambda)
         if cfg.depth_loss:
             d = colors[..., 3]
             valid = (gt_depths > 1e-6) & (d > 1e-6)
@@ -162,13 +287,20 @@ def make_train_step(cfg: SplatOptConfig, width: int, height: int,
         if cfg.scale_reg > 0.0:
             loss = loss + cfg.scale_reg * torch.sum(
                 torch.exp(raw["log_scales"]) * alive_f[:, None]) / (3 * n_alive)
+        if cfg.use_bilateral_grid:
+            loss = loss + cfg.bilgrid_tv_mult * bilagrid.total_variation_loss(
+                raw["bil_grids"])
         mark(marks, "render_forward")
         opt.zero_grad(set_to_none=True)
+        for o, _ in aux:
+            o.zero_grad(set_to_none=True)
         loss.backward()
         mark(marks, "backward")
         # Dead slots sit at the origin where the perspective divide is
         # singular: their grads can be NaN. They are not parameters; zero
-        # their rows so the optimizer state stays clean.
+        # their rows so the optimizer state stays clean (selective Adam
+        # would take a NaN row for a visible one). cam_deltas and bil_grids
+        # are left whole.
         alive_rows = raw["alive"] > 0.5
         with torch.no_grad():
             for k in PARAM_KEYS:
@@ -183,6 +315,10 @@ def make_train_step(cfg: SplatOptConfig, width: int, height: int,
             else:
                 g2d = torch.linalg.norm(raw["means"].grad, dim=-1)
         opt.step()
+        for o, sched in aux:
+            o.step()
+            if sched is not None:
+                sched.step()
         mark(marks, "optimizer")
         return loss.detach(), g2d, meta
 
@@ -199,7 +335,8 @@ def refine(raw: Dict, grad_accum: torch.Tensor, cfg: SplatOptConfig,
     duplicate: high 2D-grad & small scale -> clone into a free slot
     split:     high 2D-grad & large scale -> clone with scales/1.6 + jitter
     prune:     opacity below threshold -> deaden slot
-    Returns a new raw dict of tensors that do not require grad.
+    Returns a new raw dict whose splat rows and `alive` do not require
+    grad; its other keys are the input's own tensors.
     """
     means, quats, scales, opac, sh = _activate(raw)
     alive = raw["alive"] > 0.5
@@ -211,7 +348,8 @@ def refine(raw: Dict, grad_accum: torch.Tensor, cfg: SplatOptConfig,
     is_split = high_grad & (max_scale > cfg.grow_scale3d)
 
     keep = alive & (opac > cfg.prune_opacity)
-    raw = {k: v.detach() for k, v in raw.items()}   # every key is replaced
+    # every splat row is replaced; cam_deltas and bil_grids pass through
+    raw = dict(raw, **{k: raw[k].detach() for k in PARAM_KEYS})
     raw["alive"] = keep.float()
 
     # free slots (dead) first; candidates by grad, best first. Ties (many
@@ -274,16 +412,23 @@ def optimize_splats(
     depths: Optional[np.ndarray] = None,  # (S, H, W) for cfg.depth_loss
     device=None,
     on_step: Optional[Callable[[Dict], None]] = None,
+    tb_logdir: Optional[str] = None,      # TensorBoard events (tb_writer.py)
+    eval_data: Optional[Tuple] = None,    # (images, c2w, Ks) held-out views
+    viewer=None,                          # live_viewer.LiveViewer
 ) -> Dict[str, np.ndarray]:
     """Optimise a splat set against its source views; returns the live
-    activated splats as numpy.
+    activated splats as numpy, with "c2w_opt" (S, 4, 4), the cameras after
+    the pose deltas, when cfg.pose_opt, and "eval_history" rows of (step,
+    PSNR, SSIM) when the in-loop eval ran (every cfg.eval_every steps on
+    `eval_data`, views at the training resolution).
 
     Runs on CUDA unless `device` names another (without a GPU, device=None
-    raises). The split jitter is drawn from a torch.Generator seeded with
-    `seed`. `on_step`, if given, is called after every step with a dict:
-    it, loss (tensor), meta (render meta), refined (bool), raw, and on CUDA
-    marks (events after the step's start, render forward, backward,
-    optimizer and, on a refine step, refine)."""
+    raises). Every random draw (the split jitter, the MCMC sources and
+    position noise, the background) comes from one torch.Generator seeded
+    with `seed`. `on_step`, if given, is called after every step with a
+    dict: it, loss (tensor), meta (render meta), refined (bool), raw, and
+    on CUDA marks (events after the step's start, the train step's phases,
+    on a refine step "refine", and with the MCMC strategy "noise")."""
     cfg = cfg or SplatOptConfig()
     dev = resolve_device(device)
     S, H, W, _ = images.shape
@@ -293,18 +438,44 @@ def optimize_splats(
     raw = _raw_from_splats({k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
                                                device=dev)
                             for k, v in splats.items()}, capacity)
+    if cfg.pose_opt:
+        raw["cam_deltas"] = torch.zeros(S, 9, device=dev)
+    if cfg.use_bilateral_grid:
+        raw["bil_grids"] = bilagrid.init_bilateral_grids(
+            S, *cfg.bilateral_grid_shape, device=dev)
     c2w_np = np.asarray(c2w)
     scene_scale = float(np.linalg.norm(
         c2w_np[:, :3, 3] - c2w_np[:, :3, 3].mean(0), axis=-1).max() + 1e-6)
 
     opt = make_optimizer(cfg, raw, scene_scale)
+    aux = make_aux_optimizers(cfg, raw)
     step_fn = make_train_step(cfg, W, H, scene_scale, dev)
+    noise_scaler = cfg.lr_means * scene_scale * cfg.noise_lr
     viewmats = cam_utils.se3_inverse(torch.as_tensor(c2w_np, dtype=torch.float32,
                                                      device=dev))
     Ks_t = torch.as_tensor(np.asarray(Ks), dtype=torch.float32, device=dev)
     gt = torch.as_tensor(np.asarray(images), dtype=torch.float32, device=dev)
     gt_depths = (torch.as_tensor(np.asarray(depths), dtype=torch.float32, device=dev)
                  if depths is not None else torch.zeros(S, H, W, device=dev))
+
+    tb = None
+    if tb_logdir:
+        from .tb_writer import TBWriter
+        tb = TBWriter(tb_logdir)
+    eval_history = []
+    run_eval = eval_data is not None and cfg.eval_every > 0
+    if run_eval:
+        ev_imgs, ev_c2w, ev_Ks = eval_data
+        # the eval renders at the training W, H
+        if tuple(np.asarray(ev_imgs).shape[1:3]) != (H, W):
+            raise ValueError(
+                f"eval_data resolution {tuple(np.asarray(ev_imgs).shape[1:3])} "
+                f"!= training ({H}, {W}); resize the held-out views to the "
+                "training resolution")
+        ev_vm = cam_utils.se3_inverse(torch.as_tensor(
+            np.asarray(ev_c2w), dtype=torch.float32, device=dev))
+        ev_Ks_t = torch.as_tensor(np.asarray(ev_Ks), dtype=torch.float32, device=dev)
+        ev_gt = torch.as_tensor(np.asarray(ev_imgs), dtype=torch.float32, device=dev)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     # gsplat DefaultStrategy accumulation: per-splat grad sums averaged over
@@ -314,22 +485,70 @@ def optimize_splats(
     for it in range(cfg.iters):
         marks = [] if (on_step is not None and dev.type == "cuda") else None
         mark(marks, "start")
-        loss, g2d, meta = step_fn(raw, opt, viewmats, Ks_t, gt, gt_depths, marks)
+        bkgd = (torch.rand((1, 1, 1, 3), generator=gen, device=dev)
+                if cfg.random_bkgd else None)
+        loss, g2d, meta = step_fn(raw, opt, viewmats, Ks_t, gt, gt_depths, marks,
+                                  aux, bkgd)
         grad_sum += g2d
         seen += (g2d > 0).float()
         refined = (cfg.refine_start <= it < cfg.refine_stop
                    and (it + 1) % cfg.refine_every == 0)
         if refined:
-            noise = torch.randn(capacity, 3, generator=gen, device=dev)
-            raw = refine(raw, grad_sum / torch.clamp_min(seen, 1.0), cfg, noise)
-            opt = make_optimizer(cfg, raw, scene_scale)  # reset the moments
+            if cfg.strategy == "mcmc":
+                raw = mcmc.mcmc_refine(
+                    raw, mcmc.sample_sources(raw, cfg.min_opacity, gen),
+                    cfg.min_opacity)
+            else:
+                noise = torch.randn(capacity, 3, generator=gen, device=dev)
+                raw = refine(raw, grad_sum / torch.clamp_min(seen, 1.0), cfg, noise)
+            # the splat rows' moments restart; the cameras' and grids'
+            # optimizers, with the pose lr's schedule, carry on
+            opt = make_optimizer(cfg, raw, scene_scale)
             grad_sum.zero_()
             seen.zero_()
             mark(marks, "refine")
+        if cfg.strategy == "mcmc":
+            mcmc.inject_position_noise(raw, noise_scaler, generator=gen)
+            mark(marks, "noise")
         if (it + 1) % 100 == 0:
             log_fn(f"splat-opt iter {it + 1}: loss {float(loss):.4f} "
                    f"alive {int(torch.sum(raw['alive'] > 0.5))}")
+        if run_eval and (it + 1) % cfg.eval_every == 0:
+            with torch.no_grad():
+                img, _, _ = render_splats(raw, ev_vm, ev_Ks_t, W, H, cfg)
+            m = nvs_metrics(torch.clamp(img[..., :3], 0, 1), ev_gt)
+            eval_history.append((it + 1, m["psnr"], m["ssim"]))
+            log_fn(f"splat-opt eval @{it + 1}: PSNR {m['psnr']:.2f} "
+                   f"SSIM {m['ssim']:.4f} ({len(ev_gt)} held-out views)")
+            if tb is not None:
+                tb.scalars({"eval/psnr": m["psnr"], "eval/ssim": m["ssim"]}, it + 1)
+                tb.flush()
+        if (viewer is not None and cfg.viewer_every > 0
+                and ((it + 1) % cfg.viewer_every == 0 or it == cfg.iters - 1)):
+            viewer.update(alive_splats(raw), it + 1, float(loss))
+        if tb is not None and (it + 1) % max(cfg.tb_every, 1) == 0:
+            tb.scalars({"train/loss": float(loss),
+                        "train/num_GS": float(torch.sum(raw["alive"] > 0.5))},
+                       it + 1)
+            if cfg.tb_save_image:
+                # view 0 rendered beside its ground truth
+                with torch.no_grad():
+                    img, _, _ = render_splats(raw, viewmats[:1], Ks_t[:1], W, H, cfg)
+                tb.image("train/render_vs_gt", torch.cat(
+                    [torch.clamp(img[0, ..., :3], 0, 1), gt[0]], dim=1).cpu().numpy(),
+                    it + 1)
+            tb.flush()
         if on_step is not None:
             on_step({"it": it, "loss": loss, "meta": meta, "refined": refined,
                      "raw": raw, "marks": marks})
-    return alive_splats(raw)
+    if tb is not None:
+        tb.close()
+
+    out = alive_splats(raw)
+    if cfg.pose_opt:
+        with torch.no_grad():
+            vm_opt = apply_cam_deltas(viewmats, raw["cam_deltas"])
+        out["c2w_opt"] = cam_utils.se3_inverse(vm_opt).cpu().numpy()
+    if eval_history:
+        out["eval_history"] = np.asarray(eval_history, np.float64)
+    return out

@@ -4,8 +4,9 @@ the SO(3) / SE(3) exponential maps.
 Port of hunyuanworld_mirror_tpu/utils/rotation.py `quat_to_rotmat` (the
 camera decoding), `rotmat_to_quat` (the camera encoders of the pose prior,
 the COLMAP export and the video trajectory): PyTorch3D's 4-candidate
-construction, the real part standardised to be non-negative; and `hat`,
-`so3_exp` and `se3_exp`, the twist updates of bundle adjustment.
+construction, the real part standardised to be non-negative; `hat`,
+`so3_exp` and `se3_exp`, the twist updates of bundle adjustment; and
+`rot6d_to_matrix`, the rotation of the splat trainer's camera deltas.
 """
 
 import torch
@@ -118,3 +119,15 @@ def se3_exp(twist: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def rot6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """6D rotation representation (..., 6) -> (..., 3, 3) by Gram-Schmidt
+    (Zhou et al.): the first two 3-vectors orthonormalised, the third their
+    cross product; the rows are the basis vectors."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.clamp_min(torch.linalg.norm(a1, dim=-1, keepdim=True), 1e-8)
+    a2p = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2p / torch.clamp_min(torch.linalg.norm(a2p, dim=-1, keepdim=True), 1e-8)
+    b3 = torch.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)

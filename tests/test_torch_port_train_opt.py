@@ -229,7 +229,5 @@ def test_splat_trainer_run_writes_ply(tmp_path):
     back = pply.read_ply(d / "gaussians_opt.ply")
     assert len(back["x"]) == len(out["means"]) == 50
     np.testing.assert_allclose(back["x"], out["means"][:, 0], atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        splat_trainer.main([str(d), str(tmp_path), "--pose-opt"])
-    with pytest.raises(NotImplementedError, match="mcmc"):
-        splat_trainer.main([str(d), str(tmp_path), "--strategy", "mcmc"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        splat_trainer.main([str(d), str(tmp_path), "--gs2d"])

@@ -131,8 +131,32 @@ Phases (any failure exits non-zero before the last line is printed):
      compressed/meta.json written, eval/psnr read back from the events by
      the port's reader, the live viewer's page, status and snapshot fetched
      just before it closes;
-then a `kernels` JSON line, the card line, and as the last line
-{"ok": true, "device": {...}}. Each phase prints its wall time.
+ 14. the camera models, render modes and 2DGS, on phase 5's splats and 4
+     cameras at 518 px, each run with the (K2, K3, K4) counts set to 0 just
+     before it: (a) the pinhole route, then fisheye (k1..k4), OpenCV (radial
+     and tangential), f-theta (NVIDIA's published polynomials rescaled to
+     the cameras' focal) and a top-to-bottom rolling shutter (end pose 5 cm
+     along x), each on the flat route (4 K2) and the dense route (4 K4):
+     finite outputs, K2 and K4 against their plain versions on each
+     camera's f32 lists of the route, the render's rasterize call timed;
+     (b) RGB, D, ED and RGB+D with calc_compensations and radius_clip
+     through the per-camera route (4 K2) and camera_batch (1 K2m): K2 on
+     camera 0's list and K2m on the batch list against their plain
+     versions (colour widths 3, 1, 1, 4); (c) K3 against its plain version
+     on the fisheye route's lists (9 tiles a splat, seeded cotangents), and
+     one gradient of means and quats through the UT projection (4 K2, then
+     4 K3), finite and non-zero; (d) eval3d on the fisheye route (no
+     launch), finite, timed; (e) rasterize_to_indices and
+     rasterize_to_indices_2dgs: ids in range or -1, weights in [0, 1];
+     (f) rasterize_2dgs on the pinhole and fisheye cameras, the trainer
+     twin's run(..., gs2d=True) for 2 iterations on phase 5's export, and
+     optimize_splats(mode="2dgs") for 10 steps on phase 8's inputs: finite
+     losses, the last below the first, no K2, K3 or K4 launch a step, the
+     median step split into render forward, backward and optimizer beside
+     phase 8's default step, the peak memory;
+then the script's total wall time, a `kernels` JSON line, the card line,
+and as the last line {"ok": true, "device": {...}}. Each phase prints its
+wall time.
 
 Times are CUDA-event times after a warm-up. `bound_ms` is the larger of the
 bytes the function must move over 3.35 TB/s and its operations over the
@@ -171,7 +195,12 @@ Phase 12's paths add keys to two entries: K2's `fast_binning_forward`
 Phase 13's add two more: K3's `mcmc_step` (launches and the median MCMC
 step's ms) and K4's `training_step` (the kernel numbers on step 0's 4
 dense bins of the --rasterizer jax training path, with the step's median
-render forward and plain backward ms).
+render forward and plain backward ms). Phase 14's add: K2's and K4's
+`ut_routes` (per route, per render of the 4 cameras: the kernel numbers on
+the route's f32 lists, the rasterize call's ms beside the pinhole route's,
+and the kernel's ms on the pinhole route's f32 lists), K2's and K2m's
+`render_modes` (K2 on camera 0's list, K2m on the 4-camera batch list) and
+K3's `fisheye_lists` (per step of the 4 fisheye lists).
 """
 
 import json
@@ -1756,7 +1785,8 @@ def counted_training(label, train_inputs, cfg, want, extra=None):
                       "alive": int((info["raw"]["alive"] > 0.5).sum()),
                       "slots": tuple(info["raw"]["means"].shape),
                       "refined": info["refined"],
-                      "n_dropped": info["meta"]["n_dropped"].tolist(),
+                      "n_dropped": (info["meta"]["n_dropped"].tolist()
+                                    if "n_dropped" in info["meta"] else None),
                       "phases": {name: m[j - 1][1].elapsed_time(ev)
                                  for j, (name, ev) in enumerate(m) if j},
                       "extra": extra(info) if extra else None})
@@ -2042,11 +2072,327 @@ def trainer_cli(preds, imgs):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 14: camera models, render modes, eval3d, indices, 2DGS ------------
+
+def ut_routes(w2c, Ks):
+    """The four UT routes of phase 14 as rasterize's keywords, for 518 px
+    cameras of focal Ks[0, 0, 0]: fisheye (k1..k4), OpenCV radial and
+    tangential, f-theta (the published NVIDIA calibration's polynomials
+    rescaled to this focal) and a top-to-bottom rolling shutter whose end
+    pose is shifted 5 cm along x."""
+    from hunyuanworld_mirror_tpu_torch.ops import cameras
+    C, dev = w2c.shape[0], w2c.device
+    s = float(Ks[0, 0, 0]) / 118.43232
+    a2p = tuple(c * s for c in (0.0, 118.43232, -2.562147, 6.317949, -10.41861,
+                                3.6694396))
+    p2a = tuple(c / s ** i for i, c in enumerate(
+        (0.0, 8.4335003e-03, 2.3174282e-06, -5.0478608e-08, 6.1392608e-10,
+         -1.7447865e-12)))
+    rs = w2c.clone()
+    rs[:, 0, 3] += 0.05
+
+    def per_camera(*v):
+        return torch.tensor([v], device=dev).expand(C, -1).contiguous()
+
+    return {
+        "fisheye": dict(camera_model=cameras.FISHEYE,
+                        radial_coeffs=per_camera(0.05, -0.01, 0.002, 0.0)),
+        "opencv": dict(radial_coeffs=per_camera(-0.05, 0.01, 0.0),
+                       tangential_coeffs=per_camera(1e-3, -1e-3)),
+        "ftheta": dict(camera_model=cameras.FTHETA, ftheta_coeffs=cameras.FThetaParams(
+            angle_to_pixeldist_poly=a2p, pixeldist_to_angle_poly=p2a, max_angle=1.2,
+            linear_cde=(9.9968284e-01, 1.8735906e-05, 1.7659619e-05))),
+        "rolling_shutter": dict(rolling_shutter=cameras.SHUTTER_TOP_TO_BOTTOM,
+                                viewmats_rs=rs),
+    }
+
+
+def counted(label, want, fn, *args, **kw):
+    """fn(*args, **kw) with the (K2, K3, K4) counts set to 0 just before and
+    read just after -> (its output, the counts); fails unless they are
+    `want`."""
+    reset_train_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    got = train_counts()
+    if got != want:
+        raise AssertionError(f"{label}: (K2, K3, K4) launches {got} != {want}")
+    return out, got
+
+
+def finite(label, *xs):
+    for x in xs:
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{label}: output not finite")
+
+
+def camera_route_lists(scene, kw, c, max_tiles_per_gauss, with_ids=False):
+    """Camera c's splats on a UT route, projected and coloured as rasterize
+    does -> (CameraSplats, its sorted f32 flat list)."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer
+    means, quats, scales, opac, sh, w2c, Ks, HW = scene
+    ut = rasterizer.ut_camera(c, **kw) if kw else None       # {}: the pinhole EWA
+    covars = (projection.quat_scale_to_covar(quats, scales) if kw
+              else projection.quat_scale_to_covar_planes(quats, scales))
+    s = rasterizer.prepare_camera(means, covars, opac, sh, w2c[c], Ks[c], HW, HW, ut=ut)
+    bins = rasterizer.bin_splats(s.means2d, s.conics, s.colors, s.opacities, s.radii,
+                                 s.depths, 16, -(-HW // 16), -(-HW // 16),
+                                 max_tiles_per_gauss, RENDER_MPT, False, with_ids=with_ids)
+    return s, bins
+
+
+def phase14_ut_routes(scene):
+    """(a) the pinhole route, then each UT route, on the flat route (4 K2)
+    and the dense route (4 K4): finite outputs, K2 and K4 against their
+    plain versions on the route's own f32 lists, the render's rasterize
+    call timed (each route's ratio to the pinhole one)."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer, tiles
+    means, quats, scales, opac, sh, w2c, Ks, HW = scene
+    args = (means, quats, scales, opac, sh, w2c, Ks, HW, HW)
+    caps = dict(max_per_tile=RENDER_MPT, max_tiles_per_gauss=RENDER_TPG, device="cuda")
+    with torch.no_grad():
+        out = {}
+        for name, kw in {"pinhole": {}, **ut_routes(w2c, Ks)}.items():
+            row = {}
+            for impl, want in (("pallas", (4, 0, 0)), ("jax", (0, 0, 4))):
+                (img, alpha, meta), _ = counted(f"{name} {impl}", want, rasterizer.rasterize,
+                                                *args, impl=impl, **caps, **kw)
+                finite(f"{name} {impl}", img, alpha)
+                row[impl] = dict(
+                    ms=cuda_ms(lambda: rasterizer.rasterize(*args, impl=impl, **caps, **kw),
+                               reps=3, warmup=1),
+                    n_isects=meta["n_isects"].tolist(), alpha=float(alpha.mean()))
+            k2_rows, k4_rows = [], []
+            for c in range(w2c.shape[0]):
+                s, bins = camera_route_lists(scene, kw, c, RENDER_TPG)
+                k2_rows.append(k2_check(f"{name} camera {c}", bins, HW, HW, 4, False)[:5])
+                del bins
+                dense = tiles.bin_gaussians(
+                    s.means2d, s.radii, s.depths, 16, -(-HW // 16), -(-HW // 16),
+                    RENDER_TPG, RENDER_MPT,
+                    conic_test=tiles.conic_test_planes(s.conics, s.opacities))
+                k4_rows.append(k4_check(f"K4 {name} camera {c}", s.means2d, s.conics,
+                                        s.colors, s.opacities, dense, HW))
+                del dense
+            row["k2"] = totals(f"K2 {name} route, 4 cameras", k2_rows)
+            row["k4"] = totals(f"K4 {name} route, 4 cameras", k4_rows)
+            pin = out.get("pinhole", row)
+            log(f"{name} route: rasterize {row['pallas']['ms']:.2f} ms flat "
+                f"(x{row['pallas']['ms'] / pin['pallas']['ms']:.2f} the pinhole route's), "
+                f"{row['jax']['ms']:.2f} ms dense "
+                f"(x{row['jax']['ms'] / pin['jax']['ms']:.2f}); K2 "
+                f"x{row['k2']['ms'] / pin['k2']['ms']:.2f}, K4 "
+                f"x{row['k4']['ms'] / pin['k4']['ms']:.2f} the pinhole lists'; n_isects "
+                f"per camera {row['pallas']['n_isects']}, mean alpha "
+                f"{row['pallas']['alpha']:.4f}")
+            out[name] = row
+    pin_ms = {impl: out["pinhole"][impl]["ms"] for impl in ("pallas", "jax")}
+    return {k: v for k, v in out.items() if k != "pinhole"}, pin_ms, out["pinhole"]
+
+
+def phase14_modes(scene):
+    """(b) RGB, D, ED and RGB+D with calc_compensations and radius_clip
+    through K2 (4 a render) and K2m (1): K2 on camera 0's list and K2m on
+    the batch list against their plain versions."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    means, quats, scales, opac, sh, w2c, Ks, HW = scene
+    args = (means, quats, scales, opac, sh, w2c, Ks, HW, HW)
+    knobs = dict(calc_compensations=True, radius_clip=1.0)
+    caps = dict(max_per_tile=RENDER_MPT, max_tiles_per_gauss=RENDER_TPG, device="cuda")
+    C, tiles_x = w2c.shape[0], -(-HW // 16)
+    planes = projection.quat_scale_to_covar_planes(quats, scales)
+    out = {}
+    with torch.no_grad():
+        for mode in ("RGB", "D", "ED", "RGB+D"):
+            (img, alpha, _), _ = counted(f"mode {mode}", (4, 0, 0), rasterizer.rasterize,
+                                         *args, render_mode=mode, **knobs, **caps)
+            R.rasterize_flat_multi.launches = 0
+            (img_b, alpha_b, _), _ = counted(f"mode {mode} camera_batch", (0, 0, 0),
+                                             rasterizer.rasterize, *args, render_mode=mode,
+                                             camera_batch=True, **knobs, **caps)
+            if R.rasterize_flat_multi.launches != 1:
+                raise AssertionError(f"mode {mode}: K2m launches "
+                                     f"{R.rasterize_flat_multi.launches} != 1")
+            finite(f"mode {mode}", img, alpha, img_b, alpha_b)
+            s = rasterizer.prepare_camera(means, planes, opac, sh, w2c[0], Ks[0], HW, HW,
+                                          mode, **knobs)
+            d_col = s.colors.shape[-1]
+            bins = rasterizer.bin_splats(s.means2d, s.conics, s.colors, s.opacities,
+                                         s.radii, s.depths, 16, tiles_x, tiles_x,
+                                         RENDER_TPG, RENDER_MPT, False)
+            k2 = k2_check(f"mode {mode} camera 0", bins, HW, HW, d_col, False)
+            bb, _ = rasterizer.bin_cameras(means, quats, scales, opac, sh, w2c, Ks, HW,
+                                           HW, 16, RENDER_MPT, RENDER_TPG, mode, **knobs)
+            margs = (bb.packed, bb.starts, bb.counts, C, HW, HW, 16, d_col)
+            err = check_blend(f"K2m mode {mode}", lambda: R.rasterize_flat_multi(*margs),
+                              lambda: R.rasterize_flat_multi_plain(*margs))
+            ms = cuda_ms(lambda: R.rasterize_flat_multi(*margs))
+            plain_ms = cuda_ms(lambda: R.rasterize_flat_multi_plain(*margs), reps=2,
+                               warmup=1)
+            bound, by, _, _, _ = blend_bound(bb.packed, bb.starts, bb.counts, HW, HW,
+                                             d_col, False, C)
+            d = (img[..., :d_col] - img_b[..., :d_col]).abs()
+            log(f"K2m mode {mode} (D = {d_col}), {C} cameras: max|d| {err:.3e}  kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by}); "
+                f"render vs the per-camera route median |d| {float(d.median()):.2e}")
+            out[mode] = dict(k2=dict(zip(("err", "ms", "plain_ms", "bound_ms", "by"),
+                                         k2[:5])),
+                             k2m=dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                      by=by))
+            del bins, bb
+    return out
+
+
+def phase14_k3(scene):
+    """(c) K3 against its plain version on the fisheye route's lists (9
+    tiles a splat, seeded cotangents), then one gradient of means and quats
+    through the UT projection: 4 K2 and 4 K3 launches, finite and non-zero."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    means, quats, scales, opac, sh, w2c, Ks, HW = scene
+    kw = ut_routes(w2c, Ks)["fisheye"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for c in range(w2c.shape[0]):
+        with torch.no_grad():
+            _, bins = camera_route_lists(scene, kw, c, 9, with_ids=True)
+        rows.append(k3_check(f"fisheye camera {c}", bins, HW, HW, 4, means.shape[0],
+                             gen)[:5])
+        del bins
+        torch.cuda.empty_cache()
+    k3 = totals("K3 fisheye route, 4 cameras", rows)
+    m = means.clone().requires_grad_(True)
+    q = quats.clone().requires_grad_(True)
+    t0 = time.time()
+    (img, alpha, _), launches = counted(
+        "fisheye gradient forward", (4, 0, 0), rasterizer.rasterize, m, q, scales, opac,
+        sh, w2c, Ks, HW, HW, max_per_tile=RENDER_MPT, device="cuda", **kw)
+    reset_train_counts()
+    (img[..., :3].mean() + alpha.mean()).backward()
+    torch.cuda.synchronize()
+    got = train_counts()
+    log(f"fisheye gradient: forward and backward {1e3 * (time.time() - t0):.1f} ms wall, "
+        f"backward (K2, K3, K4) {got}; |d means| max {float(m.grad.abs().max()):.3e}, "
+        f"|d quats| max {float(q.grad.abs().max()):.3e}")
+    if got != (0, 4, 0):
+        raise AssertionError(f"fisheye backward: launches {got} != (0, 4, 0)")
+    for name, g in (("means", m.grad), ("quats", q.grad)):
+        if not (torch.isfinite(g).all() and float(g.abs().max()) > 0):
+            raise AssertionError(f"fisheye gradient of {name}: not finite or all zero")
+    return k3
+
+
+def phase14_eval3d_indices(scene):
+    """(d) eval3d on the fisheye route and (e) rasterize_to_indices and
+    rasterize_to_indices_2dgs: no kernel launch, outputs checked, timed."""
+    from hunyuanworld_mirror_tpu_torch.ops import gs2d, rasterizer
+    means, quats, scales, opac, sh, w2c, Ks, HW = scene
+    kw = ut_routes(w2c, Ks)["fisheye"]
+    args = (means, quats, scales, opac, sh, w2c, Ks, HW, HW)
+    caps = dict(max_per_tile=RENDER_MPT, max_tiles_per_gauss=RENDER_TPG, device="cuda")
+    out = {}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        (img, alpha, meta), _ = counted("eval3d", (0, 0, 0), rasterizer.rasterize, *args,
+                                        with_eval3d=True, **caps, **kw)
+        finite("eval3d", img, alpha)
+        out["eval3d_ms"] = cuda_ms(lambda: rasterizer.rasterize(
+            *args, with_eval3d=True, **caps, **kw), reps=2, warmup=0)
+        log(f"eval3d, fisheye route, 4 cameras: {out['eval3d_ms']:.2f} ms, entries per "
+            f"camera {meta['n_isects'].tolist()}, mean alpha {float(alpha.mean()):.4f}, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        iargs = (means, quats, scales, opac, w2c, Ks, HW, HW)
+        for name, fn in (("rasterize_to_indices", rasterizer.rasterize_to_indices),
+                         ("rasterize_to_indices_2dgs", gs2d.rasterize_to_indices_2dgs)):
+            (ids, w), _ = counted(name, (0, 0, 0), fn, *iargs, k=8, **caps)
+            ok = (((ids == -1) | ((ids >= 0) & (ids < means.shape[0]))).all()
+                  & ((ids == -1) == (w == 0)).all() & (w >= 0).all() & (w <= 1).all())
+            ms = cuda_ms(lambda: fn(*iargs, k=8, **caps), reps=2, warmup=0)
+            log(f"{name}: ids {tuple(ids.shape)}, pixels with a splat "
+                f"{float((ids[..., 0] >= 0).float().mean()):.4f}, weight sum mean "
+                f"{float(w.sum(-1).mean()):.4f}; {ms:.2f} ms")
+            if not bool(ok) or not bool((ids >= 0).any()):
+                raise AssertionError(f"{name}: ids out of range or weights off [0, 1]")
+            out[name + "_ms"] = ms
+    return out
+
+
+def phase14_gs2d(preds, imgs, scene, train_inputs, train_ref):
+    """(f) rasterize_2dgs at full width (pinhole and fisheye), the trainer
+    twin's run(..., gs2d=True) for 2 iterations on phase 5's export, and
+    optimize_splats(mode="2dgs") for 10 steps: finite losses, the last below
+    the first, no K2, K3 or K4 launch a step; the step split and the peak
+    memory."""
+    import tempfile
+    from pathlib import Path
+
+    from hunyuanworld_mirror_tpu_torch import splat_trainer
+    from hunyuanworld_mirror_tpu_torch.infer import export
+    from hunyuanworld_mirror_tpu_torch.ops import gs2d
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    means, quats, scales, opac, sh, w2c, Ks, HW = scene
+    out = {}
+    with torch.no_grad():
+        for name, kw in (("pinhole", {}), ("fisheye", ut_routes(w2c, Ks)["fisheye"])):
+            (img, alpha, nrm), _ = counted(f"2DGS {name}", (0, 0, 0), gs2d.rasterize_2dgs,
+                                           means, quats, scales, opac, sh, w2c, Ks, HW, HW,
+                                           max_per_tile=RENDER_MPT, sh_degree=0,
+                                           device="cuda", **kw)
+            finite(f"2DGS {name}", img, alpha, nrm)
+            out[f"forward_{name}_ms"] = cuda_ms(lambda: gs2d.rasterize_2dgs(
+                means, quats, scales, opac, sh, w2c, Ks, HW, HW, max_per_tile=RENDER_MPT,
+                sh_degree=0, device="cuda", **kw), reps=2, warmup=0)
+            log(f"rasterize_2dgs {name}, 4 cameras: {out[f'forward_{name}_ms']:.2f} ms, "
+                f"mean alpha {float(alpha.mean()):.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "infer"
+        export(preds, imgs, d)
+        np.save(Path(tmp) / "images.npy", imgs[0])
+        t0 = time.time()
+        res = splat_trainer.run(str(d), str(Path(tmp) / "images.npy"), iters=2, size=HW,
+                                gs2d=True, device="cuda", log_fn=lambda *a: None)
+        log(f"trainer twin run(..., gs2d=True): 2 iterations in {time.time() - t0:.2f} s "
+            f"wall, {len(res['means'])} splats written")
+        if not np.isfinite(res["means"]).all():
+            raise AssertionError("2DGS trainer twin: splats not finite")
+    cfg = splat_opt.SplatOptConfig(iters=10, refine_start=100, mode="2dgs")
+    steps, _, wall, peak = counted_training("2DGS training", train_inputs, cfg, (0, 0, 0))
+    losses = [s["loss"] for s in steps]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"2DGS training: losses {losses}")
+    med = step_medians("2DGS training", steps, ("render_forward", "backward", "optimizer"))
+    out.update(step=med, peak_gb=peak, wall_s=wall,
+               vs_default=med["total"] / train_ref["median_ms"])
+    log(f"2DGS step {med['total']:.2f} ms against phase 8's default step "
+        f"{train_ref['median_ms']:.2f} ms: x{out['vs_default']:.2f}; peak {peak:.2f} GB")
+    return out
+
+
+def phase_camera_models(preds, imgs, train_inputs, train_ref):
+    """Phase 14 on phase 5's splats and its 4 cameras at 518 px."""
+    scene = main_path_scene(preds)
+    res = {}
+    for key, fn, args in (("ut", phase14_ut_routes, (scene,)),
+                          ("modes", phase14_modes, (scene,)),
+                          ("k3", phase14_k3, (scene,)),
+                          ("eval3d_indices", phase14_eval3d_indices, (scene,)),
+                          ("gs2d", phase14_gs2d, (preds, imgs, scene, train_inputs,
+                                                  train_ref))):
+        t0 = time.time()
+        res[key] = fn(*args)
+        log(f"phase 14 {key}: {time.time() - t0:.1f} s wall")
+        torch.cuda.empty_cache()
+    return res
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
     log(f"phase {name}: {time.time() - t0:.1f} s wall")
     return out
+
+
+T_START = time.time()
 
 
 def main():
@@ -2068,6 +2414,8 @@ def main():
     cli = timed("CLI flags", phase_cli_flags, imgs)
     trainer = timed("trainer flags", phase_trainer_flags, preds, imgs, train_inputs,
                     train_ref)
+    cams = timed("camera models", phase_camera_models, preds, imgs, train_inputs,
+                 train_ref)
     kernels = [
         {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -2131,6 +2479,22 @@ def main():
     kernels[-1]["training_step"] = {**sub(tj, 4), "forward_ms": tj["forward_ms"],
                                     "plain_backward_ms": tj["plain_backward_ms"],
                                     "max_per_tile": tj["max_per_tile"]}
+    # the phase-14 paths: K2 and K4 on each UT route's lists (per render of the
+    # 4 cameras), K2 and K2m in each render mode, K3 on the fisheye lists
+    ut, pin_ms, pin = cams["ut"]
+    kernels[2]["ut_routes"] = {name: {**sub(r["k2"], 4), "rasterize_ms": r["pallas"]["ms"],
+                                      "pinhole_rasterize_ms": pin_ms["pallas"],
+                                      "pinhole_f32_lists_ms": pin["k2"]["ms"],
+                                      "n_isects": r["pallas"]["n_isects"]}
+                               for name, r in ut.items()}
+    kernels[-1]["ut_routes"] = {name: {**sub(r["k4"], 4), "rasterize_ms": r["jax"]["ms"],
+                                       "pinhole_rasterize_ms": pin_ms["jax"],
+                                       "pinhole_lists_ms": pin["k4"]["ms"]}
+                                for name, r in ut.items()}
+    kernels[2]["render_modes"] = {m: sub(r["k2"], 4) for m, r in cams["modes"].items()}
+    kernels[4]["render_modes"] = {m: sub(r["k2m"], 1) for m, r in cams["modes"].items()}
+    kernels[3]["fisheye_lists"] = sub(cams["k3"], 4)
+    log(f"chip_smoke: {time.time() - T_START:.1f} s wall in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

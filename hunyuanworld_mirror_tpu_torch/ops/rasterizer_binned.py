@@ -1,5 +1,6 @@
-"""Dense-bin tile-rasterizer: forward kernel K4, its plain version, and the
-autograd Function whose backward replays the plain version.
+"""Dense-bin tile-rasterizer: forward kernel K4, its plain version, the
+autograd Function whose backward replays the plain version, and the plain
+world-space (eval3d) blend of the same bins.
 
 K4 replaces hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py `_kernel` (via
 `_forward_pallas` / `rasterize_binned_pallas`); the plain version is the JAX
@@ -7,14 +8,18 @@ package's own pure route, ops/rasterizer.py `_blend_tile` /
 `rasterize_binned_jax`. Input is one camera's dense bins from
 ops/tiles.bin_gaussians: tile t blends splats gauss_ids[t, :counts[t]]
 front to back. The CUDA kernel is csrc/rasterize_binned_fwd.cu.
+`rasterize_binned_world` is the port of rasterizer.py
+`rasterize_binned_world_jax` / `_blend_tile_world`, plain XLA in the JAX
+package and plain PyTorch here.
 """
 
 import ctypes
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import tiles
-from .rasterizer_flat import (ALPHA_THRESHOLD, T_EPS, _from_tiles,
+from .rasterizer_flat import (ALPHA_THRESHOLD, T_EPS, _from_tiles, _to_tiles,
                               check_device, check_kernel_dims, forward_outputs,
                               launch, tile_groups)
 
@@ -28,47 +33,132 @@ def splat_table(means2d, conics, colors, opacities) -> torch.Tensor:
     return torch.cat([means2d, conics, opacities[:, None], colors], dim=-1)
 
 
+def tile_pixels(t0: int, t1: int, width: int, tile_size: int, device):
+    """Pixel centres (G, P) x and y of tiles t0 .. t1 - 1, row-major."""
+    tw = (width + tile_size - 1) // tile_size
+    g = torch.arange(t0, t1, device=device)
+    lin = torch.arange(tile_size * tile_size, device=device)
+    px = ((g % tw) * tile_size).float()[:, None] + (lin % tile_size).float()[None] + 0.5
+    py = ((g // tw) * tile_size).float()[:, None] + (lin // tile_size).float()[None] + 0.5
+    return px, py
+
+
+def group_entries(bins: tiles.TileBins, t0: int, t1: int, K: int):
+    """Tiles t0 .. t1 - 1 of dense bins over their first K slots -> (ids
+    (G, K) int64, live (G, K): the slot lies within its tile's count)."""
+    ids = bins.gauss_ids[t0:t1, :K].long()
+    live = torch.arange(K, device=ids.device)[None, :] < bins.counts[t0:t1, None]
+    return ids, live
+
+
+def monotone_weights(alpha: torch.Tensor) -> torch.Tensor:
+    """Blend weights of kept alphas (G, K, P) in depth order along K: w =
+    alpha T with T in log space (exclusive cumsum of log1p(-alpha)), 0 from
+    the entry whose T after is <= 1e-4 on (T only falls, so that entry's
+    own test stops the blend: the JAX package's monotone-T rule)."""
+    lg = torch.log1p(-alpha)
+    t_before = torch.exp(torch.cumsum(lg, dim=1) - lg)
+    t_after = t_before * (1.0 - alpha)
+    return torch.where(t_after > T_EPS, alpha * t_before, torch.zeros_like(alpha))
+
+
+def dense_weights(means2d, conics, opacities, ids, live, px, py) -> torch.Tensor:
+    """The JAX package's `_tile_weights` for a group of tiles: ids, live
+    (G, K), pixel centres px, py (G, P) -> w (G, K, P), alpha = min(0.999,
+    op e^-sigma) kept iff sigma >= 0 and alpha >= 1/255."""
+    dx = px[:, None, :] - means2d[ids, 0][..., None]                   # (G, K, P)
+    dy = py[:, None, :] - means2d[ids, 1][..., None]
+    ca, cb, cc = (conics[ids, i][..., None] for i in range(3))
+    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    alpha = torch.clamp_max(opacities[ids][..., None] * torch.exp(-sigma), 0.999)
+    keep = (sigma >= 0) & (alpha >= ALPHA_THRESHOLD) & live[..., None]
+    return monotone_weights(torch.where(keep, alpha, torch.zeros_like(alpha)))
+
+
+def checkpointed(fn, *args):
+    """fn(*args), recomputed in the backward instead of keeping its
+    intermediates when autograd records it: a plain blend's (G, K, P)
+    planes, kept for every group of a full-size camera, would not fit."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def rasterize_binned_plain(means2d: torch.Tensor, conics: torch.Tensor,
                            colors: torch.Tensor, opacities: torch.Tensor,
                            bins: tiles.TileBins, width: int, height: int,
                            tile_size: int):
     """The JAX package's dense-bin blend (rasterizer.py `_blend_tile`) ->
-    (img (H, W, D), alpha (H, W, 1)), differentiable in every input: per
-    tile, alpha = min(0.999, op e^-sigma) kept iff sigma >= 0 and alpha >=
-    1/255, T in log space (exclusive cumsum of log1p(-alpha)), w = alpha T
-    where T after the entry > 1e-4. Tiles are blended in groups of at most
-    PLAIN_BUDGET plane elements, over the group's longest count (slots past
-    a tile's count have alpha 0 and change nothing)."""
-    tw = (width + tile_size - 1) // tile_size
-    th = (height + tile_size - 1) // tile_size
+    (img (H, W, D), alpha (H, W, 1)), differentiable in every input
+    (dense_weights, then w^T colours). Tiles are blended in groups of at
+    most PLAIN_BUDGET plane elements, over the group's longest count (slots
+    past a tile's count have alpha 0 and change nothing)."""
     P, D, dev = tile_size * tile_size, colors.shape[-1], means2d.device
-    lin = torch.arange(P, device=dev)
-    lx = (lin % tile_size).float() + 0.5
-    ly = (lin // tile_size).float() + 0.5
     outs, alphas = [], []
     for t0, t1, K in tile_groups(bins.counts, P):
         if K == 0:
             outs.append(means2d.new_zeros(t1 - t0, P, D))
             alphas.append(means2d.new_zeros(t1 - t0, P))
             continue
-        g = torch.arange(t0, t1, device=dev)
-        ids = bins.gauss_ids[t0:t1, :K].long()                          # (G, K)
-        live = torch.arange(K, device=dev)[None, :] < bins.counts[t0:t1, None]
-        px = ((g % tw) * tile_size).float()[:, None] + lx[None, :]       # (G, P)
-        py = ((g // tw) * tile_size).float()[:, None] + ly[None, :]
-        dx = px[:, None, :] - means2d[ids, 0][..., None]                 # (G, K, P)
-        dy = py[:, None, :] - means2d[ids, 1][..., None]
-        ca, cb, cc = (conics[ids, i][..., None] for i in range(3))
-        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        alpha = torch.clamp_max(opacities[ids][..., None] * torch.exp(-sigma), 0.999)
-        keep = (sigma >= 0) & (alpha >= ALPHA_THRESHOLD) & live[..., None]
-        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
-        lg = torch.log1p(-alpha)
-        t_before = torch.exp(torch.cumsum(lg, dim=1) - lg)
-        t_after = t_before * (1.0 - alpha)
-        w = torch.where(t_after > T_EPS, alpha * t_before, torch.zeros_like(alpha))
+        ids, live = group_entries(bins, t0, t1, K)
+        w = dense_weights(means2d, conics, opacities, ids, live,
+                          *tile_pixels(t0, t1, width, tile_size, dev))
         outs.append(torch.einsum("gkp,gkd->gpd", w, colors[ids]))
         alphas.append(w.sum(dim=1))
+    img = _from_tiles(torch.cat(outs), width, height, tile_size)
+    alpha = _from_tiles(torch.cat(alphas), width, height, tile_size)
+    return img, alpha[..., None]
+
+
+def _blend_world(means, iscl_rots, colors, opacities, live, ray_o, ray_d):
+    """One group's world-space blend (rasterizer.py `_blend_tile_world`):
+    each splat is evaluated at its closest approach to the pixel's ray in
+    its own normalised frame. means (G, K, 3), iscl_rots (G, K, 3, 3) =
+    diag(1/s) R^T, colors (G, K, D), opacities, live (G, K), ray_o (3,) or
+    per pixel (G, P, 3), ray_d (G, P, 3) -> (out (G, P, D), alpha (G, P))."""
+    if ray_o.dim() == 1:
+        gro = torch.einsum("gkij,gkj->gki", iscl_rots, ray_o - means)[:, :, None]
+    else:
+        gro = torch.einsum("gkij,gkpj->gkpi", iscl_rots,
+                           ray_o[:, None] - means[:, :, None])
+    grd = torch.einsum("gkij,gpj->gkpi", iscl_rots, ray_d)            # (G, K, P, 3)
+    grd = grd / torch.clamp_min(torch.linalg.norm(grd, dim=-1, keepdim=True), 1e-12)
+    cr = torch.linalg.cross(*torch.broadcast_tensors(grd, gro))
+    gray_dist = torch.sum(cr * cr, dim=-1)                             # (G, K, P)
+    alpha = torch.clamp_max(opacities[..., None] * torch.exp(-0.5 * gray_dist), 0.999)
+    keep = (alpha >= ALPHA_THRESHOLD) & live[..., None]
+    w = monotone_weights(torch.where(keep, alpha, torch.zeros_like(alpha)))
+    return torch.einsum("gkp,gkd->gpd", w, colors), w.sum(dim=1)
+
+
+def rasterize_binned_world(means: torch.Tensor, iscl_rots: torch.Tensor,
+                           colors: torch.Tensor, opacities: torch.Tensor,
+                           bins: tiles.TileBins, ray_o: torch.Tensor,
+                           ray_dirs: torch.Tensor, width: int, height: int,
+                           tile_size: int):
+    """World-space (eval3d) blend of one camera's dense bins -> (img
+    (H, W, D), alpha (H, W, 1)), differentiable in means, iscl_rots, colors
+    and opacities. ray_dirs (th ts, tw ts, 3) are the unit world directions
+    of the padded pixel grid, ray_o the camera origin (3,) or per pixel
+    (th ts, tw ts, 3) under a rolling shutter. Tiles are blended in groups
+    of at most PLAIN_BUDGET elements of (tiles, entries, pixels, 3) planes,
+    each recomputed in the backward (`checkpointed`)."""
+    P, D = tile_size * tile_size, colors.shape[-1]
+    rays = _to_tiles(ray_dirs, tile_size)
+    origs = _to_tiles(ray_o, tile_size) if ray_o.dim() == 3 else None
+    outs, alphas = [], []
+    for t0, t1, K in tile_groups(bins.counts, 3 * P):
+        if K == 0:
+            outs.append(means.new_zeros(t1 - t0, P, D))
+            alphas.append(means.new_zeros(t1 - t0, P))
+            continue
+        ids, live = group_entries(bins, t0, t1, K)
+        o = ray_o if origs is None else origs[t0:t1]
+        out, a = checkpointed(_blend_world, means[ids], iscl_rots[ids], colors[ids],
+                              opacities[ids], live, o, rays[t0:t1])
+        outs.append(out)
+        alphas.append(a)
     img = _from_tiles(torch.cat(outs), width, height, tile_size)
     alpha = _from_tiles(torch.cat(alphas), width, height, tile_size)
     return img, alpha[..., None]

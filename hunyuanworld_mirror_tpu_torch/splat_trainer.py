@@ -11,13 +11,13 @@ sparse, and images/; splats from its gaussians.ply, else from its points),
 optimises the splats against the views (training/splat_opt.py: the
 default or MCMC strategy, selective Adam, pose optimisation, the depth
 loss, a random background, the regularisers, the bilateral grid) through
-`--rasterizer pallas` (kernels K2 and K3, the default) or `jax` (K4), and
-writes gaussians_opt.ply, with cameras_opt.npz after --pose-opt,
+`--rasterizer pallas` (kernels K2 and K3, the default) or `jax` (K4), or as
+2D surfels with --gs2d (ops/gs2d.py, plain PyTorch), and writes
+gaussians_opt.ply, with cameras_opt.npz after --pose-opt,
 compressed/ after --compress and optimized.mp4 after --video (cv2).
 --test-every N holds every Nth view out and scores it (PSNR, SSIM) after
 training, and every --eval-every steps; --tb writes TensorBoard events;
---viewer serves a live viewer while it trains. --gs2d raises
-NotImplementedError naming the ROADMAP item that ports it.
+--viewer serves a live viewer while it trains.
 """
 
 import argparse
@@ -34,10 +34,6 @@ from .io import ply as io_ply
 from .io import render as render_lib
 from .training import splat_opt
 from .utils.sh import rgb_to_sh
-
-# flag -> the ROADMAP queue item that ports it
-UNPORTED = {"--gs2d": "Queue 1 item 9 (2DGS training, ops/gs2d.py)"}
-
 
 def init_splats_from_points(points: np.ndarray, rgb: np.ndarray,
                             init_opacity: float = 0.1,
@@ -151,8 +147,6 @@ def run(result_dir: Optional[str] = None, images_dir: Optional[str] = None,
     `result_dir`, else the dataset, and return the optimised splats
     (numpy). Runs on CUDA unless `device` names another; without a GPU,
     device=None raises."""
-    if gs2d:
-        raise NotImplementedError(f"--gs2d is not ported yet: ROADMAP {UNPORTED['--gs2d']}")
     if video:
         render_lib.require_cv2("--video")
     dev = resolve_device(device)
@@ -179,6 +173,7 @@ def run(result_dir: Optional[str] = None, images_dir: Optional[str] = None,
     cfg = splat_opt.SplatOptConfig(
         iters=iters, rasterizer_impl=rasterizer, max_per_tile=max_per_tile,
         strategy=strategy, use_selective_adam=selective_adam, pose_opt=pose_opt,
+        mode="2dgs" if gs2d else "3dgs",
         depth_loss=depth_loss and depths is not None, depth_lambda=depth_lambda,
         random_bkgd=random_bkgd, opacity_reg=opacity_reg, scale_reg=scale_reg,
         use_bilateral_grid=bilateral_grid, tb_save_image=bool(tb),
@@ -267,7 +262,7 @@ def main(argv: Optional[list] = None, device=None):
     p.add_argument("--selective-adam", action="store_true",
                    help="visibility-masked Adam (gsplat SelectiveAdam)")
     p.add_argument("--gs2d", action="store_true",
-                   help=f"2D Gaussian surfels: not ported ({UNPORTED['--gs2d']})")
+                   help="optimise as 2D Gaussian surfels (ops/gs2d.py) instead of 3DGS")
     p.add_argument("--pose-opt", action="store_true",
                    help="optimise per-camera SE(3) deltas")
     p.add_argument("--depth-loss", action="store_true",

@@ -15,10 +15,12 @@ TensorBoard events (training/tb_writer.py), in-loop held-out eval
 The render is ops/rasterizer.rasterize: on the default route
 (rasterizer_impl="pallas") kernel K2 forward and K3 backward, on "jax" the
 dense-bin route (kernel K4 forward, the plain blend replayed under autograd
-backward). The raw dict keeps the JAX package's key names (means,
-log_scales, quats (wxyz), opacity_logits, sh, alive, and cam_deltas,
-bil_grids when on), so a numpy dict moves between the two packages as it
-is. Not ported: 2DGS (mode="2dgs", ROADMAP Queue 1 item 9).
+backward). With mode="2dgs" it is ops/gs2d.rasterize_2dgs (surfels, plain
+PyTorch under autograd, as the JAX package's is plain XLA; only the RGB
+channels drive the photometric loss). The raw dict keeps the JAX package's
+key names (means, log_scales, quats (wxyz), opacity_logits, sh, alive, and
+cam_deltas, bil_grids when on), so a numpy dict moves between the two
+packages as it is.
 """
 
 import math
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import rasterizer
+from ..ops import gs2d, rasterizer
 from ..utils import camera as cam_utils
 from ..utils import rotation as rot_utils
 from ..utils.metrics import nvs_metrics
@@ -67,7 +69,8 @@ class SplatOptConfig:
     noise_lr: float = 5e5             # MCMC position-noise scale
     min_opacity: float = 0.005        # MCMC: at or below, a splat is dying
     use_selective_adam: bool = False
-    # "3dgs"; "2dgs" (surfels, ops/gs2d.py) is not ported
+    # "3dgs" or "2dgs" (surfels, ops/gs2d.py: RGB+ED and normals; the
+    # render ignores rasterizer_impl and takes no absgrad tap)
     mode: str = "3dgs"
     # per-camera 9-dim deltas (3 translation + 6D rotation) on the c2w side,
     # AdamW(pose_opt_lr, decay pose_opt_reg), lr decayed to 1% over iters
@@ -101,25 +104,24 @@ class SplatOptConfig:
     densify_signal: str = "auto"
 
     def __post_init__(self):
-        if self.mode == "2dgs":
-            raise NotImplementedError(
-                "mode='2dgs' (2DGS training, ops/gs2d.py) is not ported yet: "
-                "ROADMAP Queue 1 item 9")
-        for name, allowed in (("mode", ("3dgs",)),
+        for name, allowed in (("mode", ("3dgs", "2dgs")),
                               ("strategy", ("default", "mcmc")),
                               ("rasterizer_impl", ("pallas", "jax"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got "
                                  f"{getattr(self, name)!r}")
+        if self.mode == "2dgs" and self.densify_signal == "absgrad":
+            raise ValueError("the 2DGS render has no absgrad tap: use "
+                             "densify_signal 'mean3d' or 'auto'")
 
     def resolved_signal(self, device) -> str:
-        """"auto" is absgrad where the backward runs kernel K3 (the flat
-        route on CUDA) and mean3d elsewhere, as the JAX package maps it to
-        absgrad only for its Pallas route on a TPU. The two signals have
-        different units; grow_grad2d is meant for absgrad."""
+        """"auto" is absgrad where the backward runs kernel K3 (the 3DGS
+        flat route on CUDA) and mean3d elsewhere, as the JAX package maps it
+        to absgrad only for its 3DGS Pallas route on a TPU. The two signals
+        have different units; grow_grad2d is meant for absgrad."""
         if self.densify_signal != "auto":
             return self.densify_signal
-        return ("absgrad" if (self.rasterizer_impl == "pallas"
+        return ("absgrad" if (self.rasterizer_impl == "pallas" and self.mode == "3dgs"
                               and torch.device(device).type == "cuda")
                 else "mean3d")
 
@@ -215,6 +217,13 @@ def render_splats(raw: Dict, viewmats: torch.Tensor, Ks: torch.Tensor,
                   width: int, height: int, cfg: SplatOptConfig,
                   abs_tap: Optional[torch.Tensor] = None):
     means, quats, scales, opac, sh = _activate(raw)
+    if cfg.mode == "2dgs":
+        colors, alphas, normals = gs2d.rasterize_2dgs(
+            means, quats, scales, opac, sh, viewmats, Ks, width, height,
+            tile_size=cfg.tile_size, render_mode="RGB+ED",
+            max_per_tile=cfg.max_per_tile, quat_order="wxyz",
+            sh_degree=int(round(sh.shape[-2] ** 0.5)) - 1, device=means.device)
+        return colors, alphas, {"normals": normals}
     return rasterizer.rasterize(
         means, quats, scales, opac, sh, viewmats, Ks, width, height,
         tile_size=cfg.tile_size, max_per_tile=cfg.max_per_tile,

@@ -229,5 +229,8 @@ def test_splat_trainer_run_writes_ply(tmp_path):
     back = pply.read_ply(d / "gaussians_opt.ply")
     assert len(back["x"]) == len(out["means"]) == 50
     np.testing.assert_allclose(back["x"], out["means"][:, 0], atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        splat_trainer.main([str(d), str(tmp_path), "--gs2d"])
+    # --gs2d trains the same directory as surfels
+    out2 = splat_trainer.main([str(d), str(tmp_path / "images.npy"), "--iters", "1",
+                               "--size", str(W), "--max-per-tile", "512", "--gs2d"],
+                              device="cpu")
+    assert len(pply.read_ply(d / "gaussians_opt.ply")["x"]) == len(out2["means"]) == 50

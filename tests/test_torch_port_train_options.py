@@ -282,8 +282,10 @@ def test_nvs_metrics_match_jax(tmp_path, monkeypatch):
 
 
 def test_config_rejects_2dgs_and_unknown_values():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        popt.SplatOptConfig(mode="2dgs")
+    # 2DGS trains (ops/gs2d.py) but has no absgrad tap: "auto" is mean3d
+    with pytest.raises(ValueError, match="absgrad"):
+        popt.SplatOptConfig(mode="2dgs", densify_signal="absgrad")
+    assert popt.SplatOptConfig(mode="2dgs").resolved_signal("cuda") == "mean3d"
     for kw in (dict(strategy="x"), dict(rasterizer_impl="x"), dict(mode="x")):
         with pytest.raises(ValueError):
             popt.SplatOptConfig(**kw)

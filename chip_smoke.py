@@ -154,6 +154,28 @@ Phases (any failure exits non-zero before the last line is printed):
      losses, the last below the first, no K2, K3 or K4 launch a step, the
      median step split into render forward, backward and optimizer beside
      phase 8's default step, the peak memory;
+ 15. the CenterSnap 6D-pose trainer (K1 forward, the JAX VJP's einsum
+     replay backward): (a) K1 at B=20, N=581, 583 and 1031, H=6 and at
+     (4, 1376, 16, 64), bf16: the forward against its plain version, then
+     under grad: a grad_fn, one launch forward and none backward, dq / dk
+     / dv against autograd through the replay math with seeded
+     cotangents, the forward launch timed beside its bound, its plain
+     version and SDPA, and the replay timed; (b) the CLI twin's main() at
+     every default (B=20, 384 px, no depth) on 200 train and 40 test
+     synthetic samples packed by the wds_tools twin with generated
+     targets: one epoch (10 steps, a test pass, a checkpoint), then
+     --resume for one more (steps 11-20):
+     finite losses, 4 K1 launches and 4 replays a step, the checkpoint's
+     step, the median step split into forward, backward and optimizer, the
+     peak memory; then one step of the same config under torch.profiler:
+     device time by kernel family and the idle share; (c)
+     CenterSnapConfig's defaults (512 px, depth condition) for 10 steps
+     on one in-memory batch of 20: finite, the last loss below the first,
+     4 K1 launches a step, median step and peak; (d) --arch res_fpn, the
+     same: no K1 launch; (e) patch_embed="dinov3_vits16" at 384 px: one
+     step with 16 K1 launches (12 encoder + 4 trunk), every gradient
+     finite; (f) a small CenterSnap (width 128, 64 px) on the card against
+     the port on the CPU: the loss and each leaf's gradient norm;
 then the script's total wall time, a `kernels` JSON line, the card line,
 and as the last line {"ok": true, "device": {...}}. Each phase prints its
 wall time.
@@ -200,7 +222,12 @@ render forward and plain backward ms). Phase 14's add: K2's and K4's
 the route's f32 lists, the rasterize call's ms beside the pinhole route's,
 and the kernel's ms on the pinhole route's f32 lists), K2's and K2m's
 `render_modes` (K2 on camera 0's list, K2m on the 4-camera batch list) and
-K3's `fisheye_lists` (per step of the 4 fisheye lists).
+K3's `fisheye_lists` (per step of the 4 fisheye lists). Phase 15's adds
+K1's (N <= 4095) `centersnap_step`: per training step of the CLI's
+defaults (B=20, 384 px, N=581), the 4 forward launches (`ms`,
+`plain_ms`, `library_ms`, `bound_ms` totals), none in the backward, the 4
+replays' `replay_ms`, the gradient's max|d| against the replay math, and
+the step's median ms.
 """
 
 import json
@@ -2385,6 +2412,399 @@ def phase_camera_models(preds, imgs, train_inputs, train_ref):
     return res
 
 
+# --- phase 15: the CenterSnap 6D-pose trainer ---------------------------------
+
+# K1's forward and gradient on the trainer's shapes: (label, (B, N, H, D))
+# bf16, the CLI's 384 px (576 patches + 5 special tokens, + 2 with
+# --depth-cond), CenterSnapConfig's 512 px with the depth condition
+# (1024 + 7), each N ending in a partial key tile, and one frame layer of
+# the main path
+K1_GRAD_SHAPES = [("centersnap_384", (20, 581, 6, 64)),
+                  ("centersnap_384_depth", (20, 583, 6, 64)),
+                  ("centersnap_512", (20, 1031, 6, 64)),
+                  ("frame", (4, 1376, 16, 64))]
+# dq, dk, dv against autograd through the same math on the same bf16 inputs:
+# two bf16 ulps of the largest gradient (the CPU tests' band against JAX)
+K1_GRAD_BAND = 2.0 ** -6
+# (f): the card's forward is K1 (f32 logits) and its backward the bf16-logit
+# replay, the CPU's both attention_plain (f32 logits): the loss within this
+# share, each leaf's gradient norm within this share of itself (or of 1e-3
+# of the largest norm, for a leaf whose gradient cancels to near 0)
+CS_CPU_LOSS_BAND = 1e-3
+CS_CPU_NORM_BAND = 5e-2
+
+
+def k1_counts():
+    """(K1 launches, K1 backward replays)."""
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
+    return attention.launches, attention.backward_replays
+
+
+def k1_grad_check(label, shape, gen):
+    """K1 under grad on CUDA: the output has a grad_fn, one launch forward
+    and none backward, dq / dk / dv against autograd through
+    attention_replay on the same inputs -> the forward launch's time, its
+    bound and the replay's time."""
+    from hunyuanworld_mirror_tpu_torch.ops import attention as A
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for _ in range(4))
+    scale = shape[-1] ** -0.5
+    fwd_err = k1_check(label, q, k, v)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = k1_counts()
+    out = A.attention(*leaves, scale)
+    if out.grad_fn is None:
+        raise AssertionError(f"K1 grad {label}: the output has no grad_fn")
+    mid = k1_counts()
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    after = k1_counts()
+    if (mid[0] - before[0], after[0] - mid[0], after[1] - mid[1]) != (1, 0, 1):
+        raise AssertionError(f"K1 grad {label}: launches forward {mid[0] - before[0]}, "
+                             f"backward {after[0] - mid[0]}, replays {after[1] - mid[1]}")
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(A.attention_replay(*ref_leaves, scale), ref_leaves, g)
+    errs = []
+    for name, a, b in zip("qkv", grads, ref):
+        err = float((a.float() - b.float()).abs().max())
+        band = K1_GRAD_BAND * float(b.float().abs().max())
+        if not (err <= band and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"K1 grad {label} d{name}: max|d| {err} > {band}")
+        errs.append(err)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: A.attention(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, scale), reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale))
+    replay_ms = cuda_ms(lambda: A.attention_replay_grads(q, k, v, scale, g), reps=5)
+    bound = k1_bound_ms(shape, torch.bfloat16)
+    log(f"K1 grad {label:15s} {str(shape):20s} grad_fn {type(out.grad_fn).__name__}  "
+        f"max|d| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}  forward "
+        f"{fwd_ms:.4f} ms (bound {bound:.4f}, plain {plain_ms:.4f}, sdpa {lib_ms:.4f})  "
+        f"replay {replay_ms:.4f} ms")
+    del q, k, v, g, leaves, ref_leaves, out, grads, ref, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"err": max(errs), "fwd_err": fwd_err, "ms": fwd_ms, "bound_ms": bound,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "replay_ms": replay_ms}
+
+
+def synthetic_sope(rng, size):
+    """One synthetic SOPE-style frame at size x size: 1-3 boxes (random
+    rotation, 5-20 cm sides, 0.6-1.5 m away, centred at a random pixel) seen
+    through a pinhole camera (focal 0.8 size), each drawn as a flat-coloured
+    ellipse mask over a smooth background; depth 3 m behind them."""
+    f = 0.8 * size
+    K = np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    rgb = np.stack([xx / size, yy / size, np.full((size, size), rng.uniform())], -1)
+    depth = np.full((size, size), 3.0, np.float32)
+    masks, rots, trans, sizes = [], [], [], []
+    for _ in range(int(rng.integers(1, 4))):
+        u, v = rng.uniform(0.2, 0.8, 2) * size
+        z = rng.uniform(0.6, 1.5)
+        t = np.array([(u - size / 2) * z / f, (v - size / 2) * z / f, z], np.float32)
+        q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+        rot = (q * np.sign(np.diag(r))).astype(np.float32)
+        if np.linalg.det(rot) < 0:
+            rot[:, 0] *= -1
+        ext = rng.uniform(0.05, 0.2, 3).astype(np.float32)
+        ry, rx = np.clip(f * ext[:2] / z / 2, 3, size / 5)
+        m = ((yy - v) / ry) ** 2 + ((xx - u) / rx) ** 2 <= 1
+        rgb[m] = rng.uniform(size=3)
+        depth[m] = z
+        masks.append(m)
+        rots.append(rot)
+        trans.append(t)
+        sizes.append(ext)
+    return {"rgb": (rgb * 255).astype(np.uint8), "depth": depth, "masks": masks,
+            "rotations": rots, "translations": trans, "sizes": sizes, "K": K}
+
+
+def write_sope_samples(out_dir, n, size, seed):
+    """n synthetic samples in the layout the wds_tools twin's `convert
+    --gen-targets` packs: <key>.color.png (the port's PNG writer, filter-0
+    rows), <key>.meta.json and <key>.targets.json (rotations, translations,
+    sizes, intrinsics, and the path of the instance masks under masks/)."""
+    from pathlib import Path
+    from hunyuanworld_mirror_tpu_torch.training.tb_writer import png_encode
+    out = Path(out_dir)
+    (out / "masks").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        s, key = synthetic_sope(rng, size), f"{seed:03d}{i:06d}"
+        np.savez_compressed(out / "masks" / f"{key}.npz", masks=np.stack(s["masks"]))
+        (out / f"{key}.color.png").write_bytes(png_encode(s["rgb"]))
+        (out / f"{key}.meta.json").write_text(json.dumps({"objects": len(s["masks"])}))
+        (out / f"{key}.targets.json").write_text(json.dumps({
+            "masks": str(out / "masks" / f"{key}.npz"),
+            "rotations": [r.tolist() for r in s["rotations"]],
+            "translations": [t.tolist() for t in s["translations"]],
+            "sizes": [x.tolist() for x in s["sizes"]], "intrinsics": s["K"].tolist()}))
+    return out
+
+
+def sope_batch(n, size, seed):
+    """An in-memory batch of n synthetic frames, as the loader gives it
+    (rgb in [0, 1], depth in metres, generated targets)."""
+    from hunyuanworld_mirror_tpu_torch import preprocessing as prep
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        s = synthetic_sope(rng, size)
+        heat, pose = prep.make_targets(s["masks"], s["rotations"], s["translations"],
+                                       s["sizes"], s["K"])
+        rows.append({"rgb": s["rgb"].astype(np.float32) / 255.0, "depth": s["depth"],
+                     "heatmap": heat, "pose_map": pose})
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def step_phases(marks):
+    return {name: marks[j - 1][1].elapsed_time(ev) for j, (name, ev) in enumerate(marks) if j}
+
+
+def median_phases(label, phases):
+    med = {k: float(np.median([p[k] for p in phases])) for k in phases[0]}
+    med["total"] = float(np.median([sum(p.values()) for p in phases]))
+    log(f"{label} step (median of {len(phases)}): "
+        + "  ".join(f"{k} {v:.2f} ms" for k, v in med.items()))
+    return med
+
+
+def phase15_cli(tmp):
+    """(b) the CLI twin at every default on synthetic shards, one epoch with
+    a checkpoint, then --resume for one more."""
+    import glob
+    from hunyuanworld_mirror_tpu_torch import train as train_cli
+    from hunyuanworld_mirror_tpu_torch import wds_tools
+    from hunyuanworld_mirror_tpu_torch.training import checkpoint as ckpt_lib
+    t0 = time.time()
+    splits = (("train", 200, 1), ("test", 40, 2))
+    for split, n, seed in splits:
+        wds_tools.do_convert(str(write_sope_samples(f"{tmp}/{split}_samples", n, 384, seed)),
+                             f"{tmp}/{split}", shard_size=50, prefix=split,
+                             gen_targets=True)
+    log(f"CenterSnap CLI: {splits} samples at 384 px written and sharded with "
+        f"generated targets in {time.time() - t0:.1f} s")
+    ckpt = f"{tmp}/centersnap.npz"
+    base = ["--train-shards", f"{tmp}/train/train-*.tar",
+            "--test-shards", f"{tmp}/test/test-*.tar", "--epochs", "1",
+            "--ckpt", ckpt, "--ckpt-every-epochs", "1"]
+    runs = {}
+    for run, extra in (("first", []), ("resumed", ["--resume", ckpt])):
+        steps, lines, prev = [], [], [k1_counts()]
+
+        def on_step(step, loss, logs, marks):
+            now = k1_counts()
+            steps.append({"step": step, "loss": float(loss),
+                          "k1": (now[0] - prev[0][0], now[1] - prev[0][1]),
+                          "phases": step_phases(marks)})
+            prev[0] = now
+
+        def log_fn(msg):
+            lines.append(msg)
+            log(f"  train.main: {msg}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        train_cli.main(base + extra, device="cuda", on_step=on_step, log_fn=log_fn)
+        torch.cuda.synchronize()
+        wall, peak = time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
+        tests = [float(m.split("test loss ")[1].split()[0]) for m in lines if "test loss" in m]
+        losses = [s["loss"] for s in steps]
+        med = median_phases(f"CenterSnap CLI ({run})", [s["phases"] for s in steps[1:]])
+        log(f"CenterSnap CLI ({run}): {len(steps)} steps {steps[0]['step']}..{steps[-1]['step']} "
+            f"in {wall:.1f} s wall; train losses {losses[0]:.5f} .. {losses[-1]:.5f}; "
+            f"test loss {tests}; (K1, replays) a step {sorted({s['k1'] for s in steps})}; "
+            f"peak {peak:.2f} GB")
+        want_first = 1 if run == "first" else 11
+        if len(steps) != 10 or steps[0]["step"] != want_first:
+            raise AssertionError(f"CenterSnap CLI ({run}): steps "
+                                 f"{[s['step'] for s in steps]}")
+        if not (np.isfinite(losses).all() and len(tests) == 1 and np.isfinite(tests[0])):
+            raise AssertionError(f"CenterSnap CLI ({run}): losses {losses}, test {tests}")
+        if any(s["k1"] != (4, 4) for s in steps):
+            raise AssertionError(f"CenterSnap CLI ({run}): (K1, replays) a step "
+                                 f"{[s['k1'] for s in steps]}, want (4, 4)")
+        _, saved = ckpt_lib.load_train_state(ckpt)
+        if saved != steps[-1]["step"]:
+            raise AssertionError(f"CenterSnap CLI ({run}): checkpoint step {saved}")
+        runs[run] = {"median": med, "peak_gb": peak, "wall_s": wall,
+                     "losses": (losses[0], losses[-1]), "test": tests[0]}
+    return runs
+
+
+def train_loop(label, cfg, batch, n_steps, want_k1):
+    """n_steps of make_train_step on one fixed batch (the loader's layout,
+    through _prepare_batch) -> losses, median step split and peak."""
+    from hunyuanworld_mirror_tpu_torch.training import trainer
+    from hunyuanworld_mirror_tpu_torch.utils.profiling import mark
+    model = trainer.model_init(cfg, "cuda")
+    opt = trainer.make_optimizer(cfg, model)
+    step = trainer.make_train_step(cfg, model, opt)
+    b = trainer._prepare_batch(cfg, batch, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, phases, counts = [], [], []
+    t0 = time.time()
+    for _ in range(n_steps):
+        before = k1_counts()
+        marks = []
+        mark(marks, "start")
+        loss, _ = step(b, marks)
+        losses.append(float(loss))
+        now = k1_counts()
+        counts.append((now[0] - before[0], now[1] - before[1]))
+        phases.append(step_phases(marks))
+    wall, peak = time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
+    med = median_phases(label, phases[1:])
+    log(f"{label}: {n_steps} steps in {wall:.2f} s wall; losses {losses[0]:.5f} .. "
+        f"{losses[-1]:.5f}; (K1, replays) a step {sorted(set(counts))}; peak {peak:.2f} GB")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}")
+    if any(c != (want_k1, want_k1) for c in counts):
+        raise AssertionError(f"{label}: (K1, replays) a step {counts}, want {want_k1}")
+    return {"median": med, "peak_gb": peak, "losses": (losses[0], losses[-1])}
+
+
+def phase15_profile(batch):
+    """Where the CLI's default step (B=20, 384 px) spends device time: one
+    warm step, then one under torch.profiler -> device ms by op family."""
+    from hunyuanworld_mirror_tpu_torch.training import trainer
+    cfg = trainer.TrainConfig()
+    model = trainer.model_init(cfg, "cuda")
+    step = trainer.make_train_step(cfg, model, trainer.make_optimizer(cfg, model))
+    b = trainer._prepare_batch(cfg, batch, "cuda")
+    step(b)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.time()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(b)
+        torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    dev = {}
+    for e in prof.events():   # the kernels themselves (as tools/k3_ab.py reads them)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.name] = dev.get(e.name, 0.0) + e.device_time_total / 1e3
+    total = sum(dev.values())
+    if total == 0:
+        log("CenterSnap step profile: the profiler shows no device time (not measured)")
+        return None
+    # the first family whose pattern a kernel's name holds (the top ten
+    # names are printed below, to check the sorting)
+    families = {"K1": ("attn_bf16_kernel", "attn_f32_kernel"),
+                # cuDNN's f32 convolutions: direct, implicit GEMM, and FFT
+                # (complex cf32 GEMMs between the transforms)
+                "conv": ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                         "cudnn", "fft", "cf32", "region_transform"),
+                "gemm": ("gemm", "cutlass", "nvjet"), "softmax": ("softmax",)}
+    fam = {k: 0.0 for k in families}
+    fam["other"] = 0.0
+    for key, ms in dev.items():
+        name = next((f for f, pats in families.items()
+                     if any(p in key.lower() for p in pats)), "other")
+        fam[name] += ms
+    log(f"CenterSnap step profile (B=20, 384 px): device {total:.2f} ms of {wall_ms:.2f} ms "
+        f"wall (idle share {max(0.0, 1 - total / wall_ms):.3f}); "
+        + "  ".join(f"{k} {v:.2f}" for k, v in fam.items()))
+    for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {ms:9.3f} ms  {key[:110]}")
+    return {"device_ms": total, "wall_ms": wall_ms, "families": fam}
+
+
+def phase15_dinov3(batch):
+    """(e) patch_embed="dinov3_vits16" at 384 px: one step, 12 encoder + 4
+    trunk K1 launches, every gradient finite."""
+    from hunyuanworld_mirror_tpu_torch.models.centersnap import CenterSnapConfig
+    from hunyuanworld_mirror_tpu_torch.training import losses as L
+    from hunyuanworld_mirror_tpu_torch.training import trainer
+    cfg = trainer.TrainConfig(model=CenterSnapConfig(img_size=384,
+                                                     patch_embed="dinov3_vits16",
+                                                     use_depth_condition=False))
+    model = trainer.model_init(cfg, "cuda")
+    opt = trainer.make_optimizer(cfg, model)
+    b = trainer._prepare_batch(cfg, batch, "cuda")
+    before = k1_counts()
+    loss, _ = L.centersnap_loss(trainer.model_forward(cfg, model, b), b)
+    mid = k1_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    after = k1_counts()
+    reached = [p for p in opt.params if p.grad is not None]
+    bad = [leaf.name for leaf, p in zip(opt.leaves, opt.params)
+           if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    opt.step()
+    log(f"CenterSnap dinov3_vits16 384 px: loss {float(loss.detach()):.5f}; K1 launches forward "
+        f"{mid[0] - before[0]}, backward {after[0] - mid[0]}, replays {after[1] - mid[1]}; "
+        f"{len(reached)} of {len(opt.params)} leaves reached by the loss (the unused "
+        f"pos_embed steps on zeros)")
+    if (mid[0] - before[0], after[0] - mid[0], after[1] - mid[1]) != (16, 0, 16):
+        raise AssertionError("CenterSnap dinov3: want 16 K1 launches and 16 replays")
+    if bad or not np.isfinite(float(loss.detach())):
+        raise AssertionError(f"CenterSnap dinov3: non-finite gradients {bad[:5]}")
+
+
+def phase15_card_vs_cpu(batch):
+    """(f) a small CenterSnap (width 128, 2 heads of 64, depth 2, 64 px, depth
+    condition) on the card against the same port on the CPU: the loss and
+    each leaf's gradient norm."""
+    from hunyuanworld_mirror_tpu_torch.models.centersnap import CenterSnapConfig
+    from hunyuanworld_mirror_tpu_torch.training import losses as L
+    from hunyuanworld_mirror_tpu_torch.training import trainer
+    cfg = trainer.TrainConfig(model=CenterSnapConfig(
+        img_size=64, embed_dim=128, trunk_depth=2, trunk_heads=2, heatmap_features=32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = trainer.model_init(cfg, dev)
+        b = trainer._prepare_batch(cfg, batch, dev)
+        loss, _ = L.centersnap_loss(trainer.model_forward(cfg, model, b), b)
+        loss.backward()
+        out[dev] = (float(loss.detach()), {n: float(p.grad.double().norm()) for n, p in
+                                  model.named_parameters() if p.grad is not None})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    scale = max(g_cpu.values())
+    rel = {n: abs(g_gpu[n] - g_cpu[n]) / max(g_cpu[n], 1e-3 * scale) for n in g_cpu}
+    worst = max(rel, key=rel.get)
+    total = math.sqrt(sum((g_gpu[n] - g_cpu[n]) ** 2 for n in g_cpu)) / math.sqrt(
+        sum(v * v for v in g_cpu.values()))
+    log(f"CenterSnap card vs CPU (64 px, width 128): loss {l_gpu:.6f} / {l_cpu:.6f}; "
+        f"leaf gradient norms: worst {worst} {rel[worst]:.3e} (relative, floor 1e-3 of "
+        f"the largest), all leaves {total:.3e}")
+    if set(g_gpu) != set(g_cpu):
+        raise AssertionError("CenterSnap card vs CPU: different leaves reached")
+    if abs(l_gpu - l_cpu) > CS_CPU_LOSS_BAND * abs(l_cpu) or rel[worst] > CS_CPU_NORM_BAND:
+        raise AssertionError("CenterSnap card vs CPU: outside the bands")
+
+
+def phase_centersnap():
+    """Phase 15: the CenterSnap 6D-pose trainer -> the numbers of the
+    kernels line's `centersnap_step` key and PERF.md."""
+    import tempfile
+    from hunyuanworld_mirror_tpu_torch.models.centersnap import CenterSnapConfig
+    from hunyuanworld_mirror_tpu_torch.models.panoptic import PanopticConfig
+    from hunyuanworld_mirror_tpu_torch.training import trainer
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    res["k1"] = {label: k1_grad_check(label, shape, gen) for label, shape in K1_GRAD_SHAPES}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["cli"] = phase15_cli(tmp)
+    b512 = sope_batch(20, 512, 3)
+    res["defaults"] = train_loop("CenterSnapConfig defaults (512 px, depth cond, B=20)",
+                                 trainer.TrainConfig(model=CenterSnapConfig()), b512, 10, 4)
+    res["res_fpn"] = train_loop("res_fpn (512 px, B=20)",
+                                trainer.TrainConfig(arch="res_fpn", model=PanopticConfig()),
+                                b512, 10, 0)
+    del b512
+    torch.cuda.empty_cache()
+    b384 = sope_batch(20, 384, 4)
+    res["profile"] = phase15_profile(b384)
+    phase15_dinov3(b384)
+    phase15_card_vs_cpu(sope_batch(2, 64, 5))
+    return res
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -2416,6 +2836,7 @@ def main():
                     train_ref)
     cams = timed("camera models", phase_camera_models, preds, imgs, train_inputs,
                  train_ref)
+    cs = timed("CenterSnap trainer", phase_centersnap)
     kernels = [
         {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -2494,6 +2915,17 @@ def main():
     kernels[2]["render_modes"] = {m: sub(r["k2"], 4) for m, r in cams["modes"].items()}
     kernels[4]["render_modes"] = {m: sub(r["k2m"], 1) for m, r in cams["modes"].items()}
     kernels[3]["fisheye_lists"] = sub(cams["k3"], 4)
+    # phase 15: K1 in a CenterSnap training step at the CLI's defaults (B=20,
+    # 384 px, N=581): 4 launches forward, the backward 4 replays of the JAX
+    # VJP's einsum math (no launch)
+    k1cs = cs["k1"]["centersnap_384"]
+    kernels[0]["centersnap_step"] = {
+        "launches": 4, "backward_launches": 0, "max_abs_err": k1cs["err"],
+        "forward_max_abs_err": k1cs["fwd_err"],
+        "ms": 4 * k1cs["ms"], "plain_ms": 4 * k1cs["plain_ms"],
+        "bound_ms": 4 * k1cs["bound_ms"], "library_ms": 4 * k1cs["library_ms"],
+        "replay_ms": 4 * k1cs["replay_ms"],
+        "step_ms": cs["cli"]["first"]["median"]["total"]}
     log(f"chip_smoke: {time.time() - T_START:.1f} s wall in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,13 +10,23 @@ flipped back to the reference IOHW layout.
 Usage: `model.load_state_dict(from_jax_params(load_npz(path)))` for an npz
 checkpoint of the JAX package, or `from_jax_params(params)` for the JAX
 pytree as numpy arrays.
+
+For the 6D-pose models (models/centersnap.CenterSnap, models/panoptic.
+Panoptic) the map goes both ways and is read off the module itself:
+`jax_leaves(model)` pairs each parameter with its JAX path (a rule table
+over the module path, the kind of layer from the module's type),
+`to_jax_tree(model)` builds the JAX pytree and `from_jax_tree(model, tree)`
+the state dict; the checkpoints (training/checkpoint.py) carry the Adam
+moments through the same map.
 """
 
 import re
-from typing import Dict
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .models import nn as pnn
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -178,3 +188,160 @@ def load_npz(path: str):
         return {k: listify(v) for k, v in node.items()}
 
     return listify(root)
+
+
+# --- the 6D-pose models: a two-way map read off the module ------------------
+
+class Leaf(NamedTuple):
+    """One parameter of a port module and its JAX leaf: `path` names the
+    leaf in the JAX pytree, `layer` its index along a stacked (scanned)
+    block axis or None, `kind` the layout change ("linear", "conv",
+    "conv_t" or "id")."""
+    name: str
+    path: Tuple[str, ...]
+    layer: Optional[int]
+    kind: str
+
+
+# module path -> JAX path, applied in order
+_PATH_RULES = [
+    (r"(^|\.)(pose_embed|ray_embed)\.0$", r"\1\2.fc1"),
+    (r"(^|\.)(pose_embed|ray_embed)\.2$", r"\1\2.fc2"),
+    (r"\.proj\.2\.", ".mlp."),                  # PatchEmbedMlp's Mlp
+    (r"resize_layers\.(\d)", r"resize\1"),
+    (r"scratch\.layer(\d)_rn", lambda m: f"layer_rn.{int(m.group(1)) - 1}"),
+    (r"scratch\.refinenet(\d)", r"refine\1"),
+    (r"resConfUnit(\d)", r"res\1"),
+    (r"scratch\.output_conv2\.0", "output_conv2.conv1"),
+    (r"scratch\.output_conv2\.2", "output_conv2.conv2"),
+    (r"scratch\.", ""),
+    (r"input_merger\.0", "input_merger"),
+]
+_STACKED = re.compile(r"^(.*?\b(?:frame_blocks|global_blocks|blocks))\.(\d+)(?:\.(.*))?$")
+# parameters the JAX pytree does not hold (DINOv2's masked-image token)
+_UNMAPPED = ("mask_token",)
+
+
+def _kind(module) -> Tuple[str, Dict[str, str]]:
+    """The layout kind of a module's weight and its leaf names."""
+    if isinstance(module, torch.nn.Linear):
+        return "linear", {"weight": "w", "bias": "b"}
+    if isinstance(module, torch.nn.ConvTranspose2d):
+        return "conv_t", {"weight": "w", "bias": "b"}
+    if isinstance(module, torch.nn.Conv2d):
+        return "conv", {"weight": "w", "bias": "b"}
+    if isinstance(module, (pnn.LayerNorm, pnn.GroupNorm)):
+        return "id", {"weight": "scale", "bias": "bias"}
+    return "id", {}
+
+
+def jax_leaves(model: torch.nn.Module) -> List[Leaf]:
+    """Every parameter of `model` that the JAX pytree holds, with its path."""
+    out = []
+    for mod_name, module in model.named_modules():
+        kind, leaf_names = _kind(module)
+        for pname, _ in module.named_parameters(recurse=False):
+            if pname in _UNMAPPED:
+                continue
+            path = mod_name
+            for pat, rep in _PATH_RULES:
+                path = re.sub(pat, rep, path)
+            layer = None
+            m = _STACKED.match(path)
+            if m:
+                path = m.group(1) + ("." + m.group(3) if m.group(3) else "")
+                layer = int(m.group(2))
+            segs = tuple(x for x in path.split(".") if x)
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            out.append(Leaf(full, segs + (leaf_names.get(pname, pname),), layer,
+                            kind if pname == "weight" else "id"))
+    return out
+
+
+def leaf_to_jax(kind: str, a: np.ndarray) -> np.ndarray:
+    """A port tensor's layout -> its JAX leaf's."""
+    if kind == "linear":
+        return a.T
+    if kind == "conv":                       # OIHW -> HWIO
+        return a.transpose(2, 3, 1, 0)
+    if kind == "conv_t":                     # IOHW -> HWOI, spatially flipped
+        return a.transpose(2, 3, 1, 0)[::-1, ::-1]
+    return a
+
+
+def leaf_from_jax(kind: str, a: np.ndarray) -> np.ndarray:
+    """A JAX leaf's layout -> the port tensor's (leaf_to_jax's inverse)."""
+    if kind == "linear":
+        return a.T
+    if kind == "conv":
+        return a.transpose(3, 2, 0, 1)
+    if kind == "conv_t":
+        return a[::-1, ::-1].transpose(3, 2, 0, 1)
+    return a
+
+
+def _listify(node):
+    """Nested dicts whose keys are all digits -> lists; an index with no
+    entry (an empty optax state between two others) becomes None."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(re.fullmatch(r"\d+", k) for k in node):
+        n = max(int(k) for k in node) + 1
+        return [_listify(node.get(str(i))) for i in range(n)]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def to_jax_tree(model: torch.nn.Module,
+                tensors: Optional[Dict[str, torch.Tensor]] = None):
+    """The JAX pytree (numpy f32 leaves) of `model`'s parameters, or of
+    `tensors` (parameter name -> a tensor of that parameter's shape, such
+    as an optimizer moment) laid out as those parameters."""
+    stacked: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    root: Dict = {}
+    for leaf in jax_leaves(model):
+        src = tensors[leaf.name] if tensors is not None else model.get_parameter(leaf.name)
+        # a copy: a CPU tensor's numpy view would follow later in-place updates
+        a = np.array(leaf_to_jax(leaf.kind, src.detach().cpu().float().numpy()),
+                     dtype=np.float32, order="C", copy=True)
+        if leaf.layer is not None:
+            stacked.setdefault(leaf.path, {})[leaf.layer] = a
+            continue
+        node = root
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf.path[-1]] = a
+    for path, layers in stacked.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack([layers[i] for i in range(len(layers))])
+    return _listify(root)
+
+
+def jax_leaf(tree, leaf: Leaf) -> np.ndarray:
+    """The JAX tree's array for one port parameter, in the port's layout."""
+    node = tree
+    for k in leaf.path:
+        node = node[int(k)] if isinstance(node, (list, tuple)) else node[k]
+    a = np.asarray(node, np.float32)
+    if leaf.layer is not None:
+        a = a[leaf.layer]
+    return np.ascontiguousarray(leaf_from_jax(leaf.kind, a))
+
+
+def from_jax_tree(model: torch.nn.Module, tree) -> StateDict:
+    """The JAX pytree `tree` (numpy or JAX leaves) as `model`'s parameters,
+    by name; load with `load_jax_tree`."""
+    return {leaf.name: torch.from_numpy(jax_leaf(tree, leaf))
+            for leaf in jax_leaves(model)}
+
+
+def load_jax_tree(model: torch.nn.Module, tree) -> None:
+    """Copy the JAX pytree into `model`'s parameters in place."""
+    with torch.no_grad():
+        for name, value in from_jax_tree(model, tree).items():
+            p = model.get_parameter(name)
+            if p.shape != value.shape:
+                raise ValueError(f"{name}: JAX leaf {tuple(value.shape)} for "
+                                 f"a parameter of shape {tuple(p.shape)}")
+            p.copy_(value)

@@ -6,7 +6,11 @@ distinct), prior prompting under `enable_cond` (a pose token and a ray
 token, zero when their flag is off or their prior absent, and depth-prior
 tokens added to the patch tokens), 2D RoPE, `depth` pairs of (frame,
 global) blocks run as a Python loop over two ModuleLists, and capture of
-concat(frame_out, global_out) at `intermediate_idxs`.
+concat(frame_out, global_out) at `intermediate_idxs`. With `frame_only`
+(the 6D-pose fork's trunk) no global block is built and the capture is the
+frame output itself. The patch embed is the DINOv2 encoder named by
+`patch_embed`, or for a name holding "conv" a conv patchify ("conv…mlp":
+the PixelUnshuffle + Mlp patchify).
 """
 
 from dataclasses import dataclass, replace
@@ -40,6 +44,7 @@ class VGTConfig:
     init_values: float = 0.01
     enable_cond: bool = False
     intermediate_idxs: Tuple[int, ...] = (4, 11, 17, 23)
+    frame_only: bool = False
 
     @property
     def patch_start_idx(self) -> int:
@@ -84,12 +89,15 @@ class VisualGeometryTransformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         C = cfg.embed_dim
-        if cfg.patch_embed == "conv":
-            self.patch_embed = dinov2.PatchEmbed(cfg.patch_size, 3, C)
+        if "conv" in cfg.patch_embed:
+            if "mlp" in cfg.patch_embed:
+                self.patch_embed = PatchEmbedMlp(cfg.patch_size, 3, C)
+            else:
+                self.patch_embed = dinov2.PatchEmbed(cfg.patch_size, 3, C)
         elif cfg.patch_embed in dinov2.VIT_FACTORIES:
             self.patch_embed = dinov2.DinoVisionTransformer(cfg.vit_config)
         else:
-            raise NotImplementedError(f"patch_embed {cfg.patch_embed!r} is not ported")
+            raise ValueError(f"unknown patch_embed {cfg.patch_embed!r}")
         # (1, 2, X, C): slot 0 is frame 0's token, slot 1 every other frame's
         self.cam_token = nn.Parameter(torch.zeros(1, 2, 1, C))
         self.reg_token = nn.Parameter(torch.zeros(1, 2, cfg.num_register_tokens, C))
@@ -101,7 +109,7 @@ class VisualGeometryTransformer(nn.Module):
                 for _ in range(cfg.depth)])
 
         self.frame_blocks = blocks()
-        self.global_blocks = blocks()
+        self.global_blocks = None if cfg.frame_only else blocks()
         if cfg.enable_cond:
             self.pose_embed = silu_mlp(7, C, C)
             self.depth_embed = PatchEmbedMlp(cfg.patch_size, 1, C)
@@ -122,7 +130,7 @@ class VisualGeometryTransformer(nn.Module):
                 dtype=torch.bfloat16, marks: Optional[List] = None
                 ) -> Tuple[List[torch.Tensor], int]:
         """(B, S, H, W, 3) images in [0, 1] -> (4 intermediates, each
-        (B, S, N, 2C), patch_start_idx).
+        (B, S, N, 2C), or (B, S, N, C) with `frame_only`; patch_start_idx).
 
         priors: optional (depth maps (B,S,H,W), rays (B,S,4), poses
         (B,S,7)), any of them None; cond_flags: (pose, depth, rays) switches.
@@ -136,7 +144,7 @@ class VisualGeometryTransformer(nn.Module):
         mean = torch.tensor(_RESNET_MEAN, device=dev).to(dtype)
         std = torch.tensor(_RESNET_STD, device=dev).to(dtype)
         imgs = (images.reshape(B * S, H, W, 3).to(dtype) - mean) / std
-        if cfg.patch_embed == "conv":
+        if "conv" in cfg.patch_embed:
             patch_tokens = self.patch_embed(imgs)
         else:
             patch_tokens = self.patch_embed.forward_features(imgs)
@@ -164,13 +172,18 @@ class VisualGeometryTransformer(nn.Module):
             pos = grid_positions(h0, w0, cfg.patch_start_idx)
             rope_frame = make_rope_tables(pos, C // cfg.num_heads,
                                           cfg.rope_freq, device=dev)
-            rope_global = tile_tables(rope_frame, S)
+            rope_global = None if cfg.frame_only else tile_tables(rope_frame, S)
 
         x = tokens
         captured = {}
         capture = set(cfg.intermediate_idxs)
         for i in range(cfg.depth):
             xf = self.frame_blocks[i](x.reshape(B * S, N, C), rope_frame)
+            if cfg.frame_only:
+                x = xf
+                if i in capture:
+                    captured[i] = xf.reshape(B, S, N, C)
+                continue
             x = self.global_blocks[i](xf.reshape(B, S * N, C), rope_global)
             if i in capture:
                 captured[i] = torch.cat([xf.reshape(B, S, N, C),

@@ -12,7 +12,7 @@ from typing import Optional
 from torch import nn
 
 from ..ops.attention import attention
-from .nn import LayerNorm, LayerScale, Linear, Mlp
+from .nn import LayerNorm, LayerScale, Linear, Mlp, SwiGLUFFN, swiglu_hidden_fused
 from .rope import RopeTables, apply_rope2d
 
 
@@ -43,17 +43,24 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with optional LayerScale."""
+    """Pre-LN transformer block with optional LayerScale. `ffn_layer`:
+    "mlp" (fc1, GELU, fc2) or "swiglu" / "swiglufused", which both take the
+    fused SwiGLU at its 2/3-rounded width, as the reference does."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: Optional[float] = None, qk_norm: bool = False,
-                 norm_eps: float = 1e-5):
+                 norm_eps: float = 1e-5, ffn_layer: str = "mlp"):
         super().__init__()
         self.norm1 = LayerNorm(dim, norm_eps)
         self.attn = Attention(dim, num_heads, qk_norm=qk_norm, norm_eps=norm_eps)
         self.ls1 = LayerScale(dim, init_values) if init_values else None
         self.norm2 = LayerNorm(dim, norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        if ffn_layer == "mlp":
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        elif ffn_layer in ("swiglu", "swiglufused"):
+            self.mlp = SwiGLUFFN(dim, swiglu_hidden_fused(int(dim * mlp_ratio)), dim)
+        else:
+            raise ValueError(f"unknown ffn_layer {ffn_layer!r}")
         self.ls2 = LayerScale(dim, init_values) if init_values else None
 
     def forward(self, x, rope: Optional[RopeTables] = None):

@@ -7,6 +7,11 @@ LayerScale, LayerNorm eps 1e-6), final LayerNorm; returns the normalized
 patch tokens. State-dict names follow the reference DINOv2
 (`patch_embed.proj`, `cls_token`, `register_tokens`, `pos_embed`,
 `mask_token`, `blocks.{i}`, `norm`).
+
+The factories add giant2 (fused SwiGLU FFN) and the DINOv3-style ViTs
+(patch 16, 2D RoPE inside the blocks over the patch grid with the cls and
+register tokens pinned at the origin, no learned pos embed: `pos_embed` is
+kept as a parameter, unused, as the JAX package keeps it).
 """
 
 import functools
@@ -17,6 +22,7 @@ from torch import nn
 
 from .block import Block
 from .nn import Conv2d, LayerNorm, trunc_normal_
+from .rope import grid_positions, make_rope_tables
 
 
 @dataclass(frozen=True)
@@ -31,12 +37,24 @@ class DinoViTConfig:
     num_register_tokens: int = 4
     init_values: float = 1.0
     norm_eps: float = 1e-6
+    ffn_layer: str = "mlp"
+    use_rope: bool = False
+    rope_freq: float = 100.0
+    use_pos_embed: bool = True
 
 
 VIT_FACTORIES = {
     "dinov2_vits14_reg": DinoViTConfig(embed_dim=384, depth=12, num_heads=6),
     "dinov2_vitb14_reg": DinoViTConfig(embed_dim=768, depth=12, num_heads=12),
     "dinov2_vitl14_reg": DinoViTConfig(embed_dim=1024, depth=24, num_heads=16),
+    "dinov2_vitg2_reg": DinoViTConfig(embed_dim=1536, depth=40, num_heads=24,
+                                      ffn_layer="swiglufused"),
+    "dinov3_vits16": DinoViTConfig(img_size=592, patch_size=16, embed_dim=384,
+                                   depth=12, num_heads=6, use_rope=True,
+                                   use_pos_embed=False),
+    "dinov3_vitb16": DinoViTConfig(img_size=592, patch_size=16, embed_dim=768,
+                                   depth=12, num_heads=12, use_rope=True,
+                                   use_pos_embed=False),
 }
 
 
@@ -127,7 +145,8 @@ class DinoVisionTransformer(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, cfg.embed_dim))
         self.blocks = nn.ModuleList([
             Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio,
-                  init_values=cfg.init_values, norm_eps=cfg.norm_eps)
+                  init_values=cfg.init_values, norm_eps=cfg.norm_eps,
+                  ffn_layer=cfg.ffn_layer)
             for _ in range(cfg.depth)])
         self.norm = LayerNorm(cfg.embed_dim, cfg.norm_eps)
 
@@ -139,15 +158,24 @@ class DinoVisionTransformer(nn.Module):
 
     def forward_features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) ImageNet-normalized images -> (B, h*w, D) tokens."""
+        cfg = self.cfg
         B, H, W, _ = images.shape
         dtype = images.dtype
         x = self.patch_embed(images)
         cls = self.cls_token.to(dtype).expand(B, 1, -1)
-        pos = interpolate_pos_embed(self.pos_embed, self.cfg.patch_size, H, W)
-        x = torch.cat([cls, x], dim=1) + pos.to(dtype)
+        x = torch.cat([cls, x], dim=1)
+        if cfg.use_pos_embed:
+            pos = interpolate_pos_embed(self.pos_embed, cfg.patch_size, H, W)
+            x = x + pos.to(dtype)
         regs = self.register_tokens.to(dtype).expand(B, -1, -1)
         x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
+        rope = None
+        if cfg.use_rope:
+            grid = grid_positions(H // cfg.patch_size, W // cfg.patch_size,
+                                  1 + cfg.num_register_tokens)
+            rope = make_rope_tables(grid, cfg.embed_dim // cfg.num_heads,
+                                    cfg.rope_freq, device=images.device)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, rope)
         x = self.norm(x)
-        return x[:, 1 + self.cfg.num_register_tokens:]
+        return x[:, 1 + cfg.num_register_tokens:]

@@ -10,6 +10,11 @@ computes in `compute_dtype` (f32 by default, as the reference's heads;
 "bfloat16" halves its memory traffic); the final activations are f32
 either way.
 
+The 6D-pose fork's heads switch off the UV pos-embeds (`pos_embed`),
+resize the fused map to `patch * grid / down_ratio` (`down_ratio`), and
+with `with_conf=False` take every output channel as the attribute under one
+activation (`sigmoid`, `linear`), with no confidence.
+
 The decoder runs NCHW internally; inputs and outputs keep the JAX layout
 (NHWC). State-dict names follow the reference DPTHead (`projects`,
 `resize_layers`, `scratch.layer*_rn`, `scratch.refinenet*`, ...).
@@ -35,7 +40,10 @@ class DPTConfig:
     activation: str = "inv_log+expp1"
     features: int = 256
     out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
+    pos_embed: bool = True
+    down_ratio: int = 1
     is_gsdpt: bool = False
+    with_conf: bool = True
     compute_dtype: str = "float32"
 
 
@@ -93,6 +101,8 @@ _ATTR_ACT = {
     "norm": lambda x: x / torch.linalg.norm(x, dim=-1, keepdim=True),
     "exp": torch.exp,
     "inv_log": _inv_log,
+    "sigmoid": torch.sigmoid,
+    "linear": lambda x: x,
 }
 _CONF_ACT = {"expp1": lambda c: 1 + torch.exp(c)}
 
@@ -143,8 +153,9 @@ class DPTHead(nn.Module):
         for lvl in range(4):
             t = token_list[lvl][:, :, patch_start_idx:].to(cdtype)
             t = self.norm(t.reshape(B * S, ph * pw, t.shape[-1]))
-            f = t.transpose(1, 2).reshape(B * S, -1, ph, pw)
-            f = _pos_embed(self.projects[lvl](f), W, H)
+            f = self.projects[lvl](t.transpose(1, 2).reshape(B * S, -1, ph, pw))
+            if cfg.pos_embed:
+                f = _pos_embed(f, W, H)
             feats.append(self.resize_layers[lvl](f))
 
         sc = self.scratch
@@ -154,9 +165,11 @@ class DPTHead(nn.Module):
         out = sc.refinenet2(out, l2, size=l1.shape[-2:])
         out = sc.refinenet1(out, l1)
         out = sc.output_conv1(out)
-        fused = resize_bilinear(out, (ph * cfg.patch_size, pw * cfg.patch_size),
-                                nchw=True)
-        fused = _pos_embed(fused, W, H)
+        target = (int(ph * cfg.patch_size / cfg.down_ratio),
+                  int(pw * cfg.patch_size / cfg.down_ratio))
+        fused = resize_bilinear(out, target, nchw=True)
+        if cfg.pos_embed:
+            fused = _pos_embed(fused, W, H)
         head = sc.output_conv2(fused).float().permute(0, 2, 3, 1)
         if cfg.is_gsdpt:
             img = images.reshape(B * S, H, W, 3).to(cdtype).permute(0, 3, 1, 2)
@@ -166,13 +179,18 @@ class DPTHead(nn.Module):
 
     def forward(self, token_list, images, patch_start_idx: int):
         """-> (preds (B,S,H,W,C-1), conf (B,S,H,W)), plus the fused map
-        (B,S,H,W,f/2) first for gsdpt."""
+        (B,S,H,W,f/2) first for gsdpt; with `with_conf=False`, preds
+        (B,S,H',W',C) and conf None."""
+        cfg = self.cfg
         B, S = images.shape[:2]
         out = self.forward_raw(token_list, images, patch_start_idx)
-        head = out[0] if self.cfg.is_gsdpt else out
-        preds, conf = activate_head(head, self.cfg.activation)
+        head = out[0] if cfg.is_gsdpt else out
+        if cfg.with_conf:
+            preds, conf = activate_head(head, cfg.activation)
+            conf = conf.reshape(B, S, *conf.shape[1:])
+        else:
+            preds, conf = _ATTR_ACT[cfg.activation.split("+")[0]](head), None
         preds = preds.reshape(B, S, *preds.shape[1:])
-        conf = conf.reshape(B, S, *conf.shape[1:])
-        if self.cfg.is_gsdpt:
+        if cfg.is_gsdpt:
             return out[1].reshape(B, S, *out[1].shape[1:]), preds, conf
         return preds, conf

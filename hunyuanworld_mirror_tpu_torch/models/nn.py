@@ -95,6 +95,26 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+def swiglu_hidden_fused(hidden_dim: int) -> int:
+    """The fused SwiGLU's hidden width: 2/3 of the MLP width, rounded up to
+    a multiple of 8."""
+    return (int(hidden_dim * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLUFFN(nn.Module):
+    """One projection to 2 * hidden, silu(x1) * x2, then back (the reference
+    SwiGLUFFNFused of DINOv2's giant2; state-dict names `w12`, `w3`)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.w12 = Linear(in_dim, 2 * hidden_dim)
+        self.w3 = Linear(hidden_dim, out_dim)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
 def silu_mlp(in_dim: int, hidden_dim: int, out_dim: int) -> nn.Sequential:
     """Linear -> SiLU -> Linear (state-dict names .0 / .2)."""
     return nn.Sequential(Linear(in_dim, hidden_dim), nn.SiLU(),
@@ -107,13 +127,37 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
-                        self.padding)
+                        self.padding, self.dilation)
 
     def init_own(self, gen):
         fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
         uniform_(self.weight, 1.0 / math.sqrt(fan_in), gen)
         if self.bias is not None:
             uniform_(self.bias, 1.0 / math.sqrt(fan_in), gen)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW with f32 statistics and affine, output in the
+    input dtype. The group count clamps to the largest divisor of the
+    channel count not above `num_groups` (one channel: instance norm), as
+    the JAX package's group_norm does."""
+
+    def __init__(self, dim: int, num_groups: int = 16, eps: float = 1e-5):
+        super().__init__()
+        g = min(num_groups, dim)
+        while dim % g:
+            g -= 1
+        self.groups, self.eps = g, eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+    def init_own(self, gen):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

@@ -11,6 +11,12 @@ tiles with an online softmax, so one kernel serves every N.
 Layout is the JAX package's (B, N, H, D) for q, k, v and the output. The
 head dim must be contiguous; other strides are free, so the q/k/v views of
 a fused qkv projection go to the kernel without a copy.
+
+The gradient is the JAX package's: `onepass_attention`'s custom VJP replays
+the einsum formulation (attn_onepass._einsum_ref) through autodiff, so on
+the card K1 runs the forward of an autograd Function whose backward replays
+that math (`attention_replay`) on the saved q, k and v. The backward
+launches no kernel and counts its replays in `attention.backward_replays`.
 """
 
 import ctypes
@@ -34,6 +40,28 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhnm,bmhd->bnhd", w.float(), v.float()).to(q.dtype)
+
+
+def attention_replay(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """attn_onepass._einsum_ref's math, which the JAX VJP differentiates:
+    q * scale, the logits in the input dtype, an f32 softmax rounded to the
+    input dtype, then the PV einsum in the input dtype. Its bf16 logits are
+    not the kernel's f32 ones (attention_plain's), so its gradients are
+    JAX's and not those of attention_plain."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", w, v)
+
+
+def attention_replay_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, grad_out: torch.Tensor):
+    """(dq, dk, dv) of attention_replay at (q, k, v) for the cotangent
+    grad_out: the backward of K1's autograd Function, on any device."""
+    with torch.enable_grad():
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        out = attention_replay(q, k, v, scale)
+        return torch.autograd.grad(out, (q, k, v), grad_out)
 
 
 def declare(lib):
@@ -76,17 +104,8 @@ def _check(q, k, v):
                              "that are multiples of 8 elements")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (B, N, H, D); the model's one seam.
-
-    A CPU tensor takes attention_plain; a CUDA tensor launches the kernel
-    (and counts the launch in `attention.launches`) or raises.
-    """
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    """One K1 launch on CUDA tensors; counts it in `attention.launches`."""
     _check(q, k, v)
     B, N, H, D = q.shape
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
@@ -108,5 +127,43 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+class _AttentionK1(torch.autograd.Function):
+    """K1 forward; the backward replays attention_replay on the saved
+    (un-negated) q, k, v, as onepass_attention's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_replay_grads(q, k, v, ctx.scale, grad_out)
+        attention.backward_replays += 1
+        return dq, dk, dv, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, N, H, D); the model's one seam.
+
+    A CPU tensor takes attention_plain (differentiable as it stands); a CUDA
+    tensor launches the kernel (and counts the launch in
+    `attention.launches`) or raises. Under grad with an input that requires
+    it, the launch is the forward of an autograd Function whose backward
+    replays the JAX VJP's math.
+    """
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _AttentionK1.apply(q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
 attention.launches = 0
 attention.flash_route_launches = 0
+attention.backward_replays = 0

@@ -1,12 +1,55 @@
-"""Photometric losses for splat optimisation.
+"""Training losses.
 
-Port of the NVS losses of hunyuanworld_mirror_tpu/training/losses.py
-(gsplat's example trainer: (1 - lambda) L1 + lambda (1 - SSIM)). Images
-stay NHWC at the public functions, as in the JAX package.
+Port of hunyuanworld_mirror_tpu/training/losses.py. The CenterSnap loss:
+100 MSE(heatmap) + masked L1(pose map), the pose mask the GT heatmap
+> 0.3 sampled at the pose map's stride, the pose term split into its rot6d
+and translation + size halves. The photometric losses of splat
+optimisation (gsplat's example trainer: (1 - lambda) L1 + lambda
+(1 - SSIM)). Images stay NHWC at the public functions, as in the JAX
+package.
 """
+
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+def masked_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   heatmap_gt: torch.Tensor, centroid_threshold: float = 0.3,
+                   downscale_factor: int = 2) -> torch.Tensor:
+    """pred/target (B, h, w, C); heatmap_gt (B, H, W) at full resolution.
+    The L1 summed over channels and over the valid pixels, over their count
+    (the plain sum, which is 0, when none is valid)."""
+    valid = heatmap_gt[:, ::downscale_factor, ::downscale_factor] > centroid_threshold
+    per_px = torch.sum(torch.abs(pred - target), dim=-1)
+    per_px = torch.where(valid, per_px, torch.zeros_like(per_px))
+    n = torch.sum(valid)
+    total = torch.sum(per_px)
+    return torch.where(n == 0, total, total / torch.clamp_min(n, 1))
+
+
+def centersnap_loss(preds: Dict, batch: Dict, heat_weight: float = 100.0,
+                    pose_weight: float = 1.0, centroid_threshold: float = 0.3
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """preds: heatmap (B,H,W,1), pose_map (B,h,w,12); batch: heatmap (B,H,W),
+    pose_map (B,h,w,12)."""
+    heat_gt = batch["heatmap"]
+    heatmap_loss = mse_loss(preds["heatmap"][..., 0], heat_gt)
+    pose_pred, pose_gt = preds["pose_map"], batch["pose_map"]
+    dr = heat_gt.shape[-1] // pose_pred.shape[-2]
+    abs_rot = masked_l1_loss(pose_pred[..., :6], pose_gt[..., :6], heat_gt,
+                             centroid_threshold, dr)
+    tran_size = masked_l1_loss(pose_pred[..., 6:], pose_gt[..., 6:], heat_gt,
+                               centroid_threshold, dr)
+    pose_loss = abs_rot + tran_size
+    total = heat_weight * heatmap_loss + pose_weight * pose_loss
+    return total, {"heatmap_loss": heatmap_loss, "abs_rot_loss": abs_rot,
+                   "tran_size_loss": tran_size, "pose_loss": pose_loss}
 
 
 def _gaussian_kernel1d(size: int = 11, sigma: float = 1.5, device=None):

@@ -95,7 +95,7 @@ Phases (any failure exits non-zero before the last line is printed):
      --video trajectory through the 4 cameras (46 frames, 46 K2 launches),
      every frame finite and lit, ms a frame, K2 against its plain version on
      frame 0's list, then 3 frames with the spread effect (3 K2) and 3 on
-     impl="jax" (3 K4), no cv2; (d) refine_cameras (--ba) on the flat
+     impl="jax" (3 K4), no mp4 written; (d) refine_cameras (--ba) on the flat
      forward's predictions, 12 iterations at stride 16, timed, cost not
      raised, cost0 within 1e-4 relative of the same call on the CPU, then
      the same on a bundle made consistent from that forward (its depth
@@ -176,6 +176,33 @@ Phases (any failure exits non-zero before the last line is printed):
      step with 16 K1 launches (12 encoder + 4 trunk), every gradient
      finite; (f) a small CenterSnap (width 128, 64 px) on the card against
      the port on the CPU: the loss and each leaf's gradient norm;
+ 16. evaluation and the demo server (the decoders PIL and cv2 printed
+     first): (a) the app twin (`python -m hunyuanworld_mirror_tpu_torch.app
+     --preset large --size 518`, its main() serve=False, served on port 0
+     in a thread): GET /health; three POST /run of phase 5's 4 views as
+     uploaded PNGs, then one with example= (a temporary examples directory
+     of the same PNGs, mask_sky and as_mesh), one with video=on and one
+     with the model switched to rasterizer_impl="jax", each with the
+     counts set to 0 just before it and read after: (K1, K1 at N >= 4096,
+     K2, K4) = (88, 24, 4, 0), (88, 24, 50, 0) with the video's 46 frames,
+     (88, 24, 0, 4) on the jax route; every file of the run written,
+     scene.glb fetched back through /out/ a valid glTF; the first
+     request's images equal to prepare_images of the same files and its
+     depth to infer.reconstruct's on them; the request's wall time split
+     into the images' decode, the forward's elapsed, the PNGs, the GLB, the
+     Gaussians' files and the rest (medians of the 3 uploads), beside 7
+     forwards of the same model timed by CUDA events, that forward on the
+     host clock and its predictions' copy to the host, and the peak
+     memory; /viewer; (b)
+     accuracy_completeness on phase 5's point map against a copy with
+     noise of 1% of its mean radius (65,536 points a side, mean and
+     median) on the card and on the CPU beside the f64 answer (the card
+     no further from it than 3x the CPU, or 1e-5 relative), timed; LPIPS on random weights over the 4 rendered views against the
+     inputs at 518 px, the card against the CPU (1e-5 relative), timed;
+     the eval twin's main() in its three modes on files from
+     infer.export_maps (points.ply, .npy clouds with --align --median,
+     camera npz, PNG directories with $WM_LPIPS_WEIGHTS set): the JAX
+     tool's keys, finite;
 then the script's total wall time, a `kernels` JSON line, the card line,
 and as the last line {"ok": true, "device": {...}}. Each phase prints its
 wall time.
@@ -227,9 +254,13 @@ K1's (N <= 4095) `centersnap_step`: per training step of the CLI's
 defaults (B=20, 384 px, N=581), the 4 forward launches (`ms`,
 `plain_ms`, `library_ms`, `bound_ms` totals), none in the backward, the 4
 replays' `replay_ms`, the gradient's max|d| against the replay math, and
-the step's median ms.
+the step's median ms. Phase 16's add K1's (both routes) and K2's
+`app_request` (the launches of one POST /run of 4 uploaded views, its
+median wall `request_ms` and forward `elapsed_ms`) and K4's
+`app_request_jax` (the same on the --rasterizer jax route).
 """
 
+import contextlib
 import json
 import math
 import os
@@ -2032,7 +2063,7 @@ def train_jax_route(train_inputs, ref):
 def trainer_cli(preds, imgs):
     """(d): the CLI's main() on a COLMAP directory (infer.export's sparse/
     and gaussians.ply, the 4 images as PNGs) with every flag but --video
-    (no cv2 on the card machine) and --gs2d. --test-every 2 trains on 2 of
+    (phase 16 writes an mp4 through the app twin) and --gs2d. --test-every 2 trains on 2 of
     the 4 views, so a step launches 2 K2 and 2 K3; each in-loop eval and the
     final eval render the 2 held-out views (2 K2). The viewer's endpoints
     are fetched once, just before it closes. Its files go to
@@ -2805,6 +2836,378 @@ def phase_centersnap():
     return res
 
 
+# --- phase 16: evaluation and the demo server ---------------------------------
+
+# LPIPS on the card against the CPU (relative). accuracy / completeness
+# evaluate |q|^2 + |r|^2 - 2 q.r in f32, whose cancellation (not the device)
+# sets their error: the card's values are held to the f64 answer within
+# EVAL_F64_TIMES the CPU's own error, or EVAL_CPU_BAND relative
+EVAL_CPU_BAND = 1e-5
+EVAL_F64_TIMES = 3
+
+
+def nn_exact(q, r, chunk=1024):
+    """Each q point's distance to its nearest r point, in f64 on the card."""
+    q = torch.as_tensor(q, dtype=torch.float64, device="cuda")
+    r = torch.as_tensor(r, dtype=torch.float64, device="cuda")
+    return torch.cat([((q[i:i + chunk, None] - r[None]) ** 2).sum(-1).amin(1).sqrt()
+                      for i in range(0, len(q), chunk)])
+
+
+def post_run(port, fields, files=()):
+    """POST /run as the page's form sends it (multipart/form-data) -> (page,
+    wall ms from the request to the page read back)."""
+    import urllib.request
+    b = "wmsmokeboundary"
+    parts = [f'--{b}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    for path in files:
+        parts.append(f'--{b}\r\nContent-Disposition: form-data; name="images"; '
+                     f'filename="{os.path.basename(path)}"\r\nContent-Type: image/png'
+                     f'\r\n\r\n'.encode() + open(path, "rb").read() + b"\r\n")
+    parts.append(f"--{b}--\r\n".encode())
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/run", data=b"".join(parts),
+                                 headers={"Content-Type": f"multipart/form-data; boundary={b}"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        page = r.read().decode()
+    return page, (time.time() - t0) * 1e3
+
+
+def glb_ok(data):
+    return (len(data) > 20 and data[:4] == b"glTF"
+            and int.from_bytes(data[4:8], "little") == 2
+            and int.from_bytes(data[8:12], "little") == len(data))
+
+
+def app_request(label, port, demo, fields, files, want, extra=()):
+    """One POST /run with every count set to 0 just before and read just
+    after: (K1, K1 at N >= 4096, K2, K4) == want, every file of the run
+    written (plus `extra`), scene.glb fetched back through /out/ a valid
+    glTF -> the request's numbers."""
+    import urllib.request
+    reset_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    page, ms = post_run(port, fields, files)
+    got = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    m = re.search(r"/out/(run_[0-9a-f]+)/", page)
+    if m is None:
+        raise AssertionError(f"{label}: no result in the page")
+    run_id = m.group(1)
+    run_dir = os.path.join(demo.args.workdir, run_id)
+    S = sum(1 for f in os.listdir(run_dir) if f.startswith("input_"))
+    want_files = (["scene.glb", "gaussians.ply", "gaussians.splat", "cameras.json"]
+                  + [f"{k}_{s:02d}.png" for s in range(S)
+                     for k in ("depth", "normal", "input")] + list(extra))
+    missing = [f for f in want_files
+               if not os.path.isfile(os.path.join(run_dir, f))
+               or os.path.getsize(os.path.join(run_dir, f)) == 0]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/out/{run_id}/scene.glb",
+                                timeout=60) as r:
+        glb = r.read()
+    elapsed_ms = demo.last_elapsed * 1e3
+    log(f"app {label}: launches (K1, K1 at N >= 4096, K2, K4) {got}; {S} views; "
+        f"request {ms:.1f} ms wall, forward elapsed {elapsed_ms:.1f} ms; peak "
+        f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} "
+        f"GB allocated before it); {len(want_files) - len(missing)} of "
+        f"{len(want_files)} files, scene.glb {len(glb)} bytes")
+    if got != want or missing or not glb_ok(glb) or S != 4:
+        raise AssertionError(f"app {label}: launches {got} != {want}, missing "
+                             f"{missing}, glTF ok {glb_ok(glb)}, {S} views")
+    return dict(ms=ms, elapsed_ms=elapsed_ms, peak_gb=peak / 1e9,
+                above_gb=(peak - base) / 1e9, run_dir=run_dir)
+
+
+@contextlib.contextmanager
+def request_split():
+    """Host ms of the app's steps after the upload, summed over one request
+    into the dict it yields: the images' decode and resize, the forward up
+    to its predictions on the host (`elapsed`), the PNGs, the GLB and the
+    Gaussians' PLY and .splat; the module functions wrapped, then restored."""
+    from hunyuanworld_mirror_tpu_torch import app
+    split = {}
+    steps = [(app.io_images, "prepare_images", "decode"),
+             (app.io_ply, "save_depth_png", "pngs"), (app.io_ply, "save_normal_png", "pngs"),
+             (app.io_ply, "save_image_png", "pngs"),
+             (app.scene_lib, "predictions_to_glb", "glb"),
+             (app.infer, "export_gaussians", "gaussians")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in steps]
+
+    def wrap(fn, label):
+        def timed_call(*a, **kw):
+            t0 = time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[label] = split.get(label, 0.0) + (time.time() - t0) * 1e3
+        return timed_call
+
+    for (mod, name, label), (_, _, fn) in zip(steps, originals):
+        setattr(mod, name, wrap(fn, label))
+    try:
+        yield split
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def phase16_app(imgs):
+    """(a) The app twin at --preset large --size 518 on port 0 in a thread:
+    GET /health; three POST /run of phase 5's 4 views as uploaded PNGs, one
+    with example= (mask_sky, as_mesh), one with video=on, one on the
+    rasterizer_impl="jax" route -> the numbers for the kernels line."""
+    import shutil
+    import threading
+    import urllib.request
+    from dataclasses import replace
+    from pathlib import Path
+    from PIL import Image
+    from hunyuanworld_mirror_tpu_torch import app, infer
+    from hunyuanworld_mirror_tpu_torch.io import images as io_images
+    root = Path(__file__).resolve().parent / "build" / "smoke_app"
+    shutil.rmtree(root, ignore_errors=True)
+    scene = root / "examples" / "smoke" / "four_views"
+    scene.mkdir(parents=True)
+    S = imgs.shape[1]
+    paths = []
+    for s in range(S):
+        Image.fromarray((imgs[0, s] * 255).astype(np.uint8)).save(scene / f"view_{s}.png")
+        paths.append(str(scene / f"view_{s}.png"))
+    t0 = time.time()
+    srv = app.main(["--preset", "large", "--size", "518", "--port", "0", "--workdir",
+                    str(root / "work"), "--examples", str(root / "examples")],
+                   serve=False)
+    demo = srv.demo
+    log(f"app twin: model built in {time.time() - t0:.1f} s")
+    predict, captured = demo.predict, []
+
+    def capture(image_paths):
+        out = predict(image_paths)
+        captured.append(out)
+        demo.last_elapsed = out[2]
+        return out
+
+    demo.predict = capture
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+    res = {}
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        if health != {"ok": True, "model": "large"}:
+            raise AssertionError(f"/health: {health}")
+        want = (88, 24, 4, 0)
+        reqs = []
+        with request_split() as split:
+            for i in range(3):
+                split.clear()
+                reqs.append(app_request(f"upload {i}", port, demo, {"conf": "20"},
+                                        paths, want))
+                reqs[-1]["split"] = dict(split)
+                log(f"app upload {i} split (host ms): " + "  ".join(
+                    f"{k} {v:.1f}" for k, v in split.items()))
+        # the first request's depth against infer.reconstruct on the same files
+        imgs_app, preds_app, _ = captured[0]
+        ref_imgs = io_images.prepare_images(paths, target_size=518)
+        with demo.lock:
+            ref = infer.reconstruct(demo.model, ref_imgs)
+        ref_depth = ref["depth"].float().cpu().numpy()
+        d_img = float(np.abs(imgs_app - ref_imgs).max())
+        d_depth = float(np.abs(preds_app["depth"] - ref_depth).max())
+        log(f"app upload 0 against infer.reconstruct on prepare_images of the same "
+            f"files: images max|d| {d_img:.3g}, depth max|d| {d_depth:.3g} (depth "
+            f"max {float(np.abs(ref_depth).max()):.4g})")
+        if d_img != 0.0 or not d_depth <= 1e-5 * float(np.abs(ref_depth).max()):
+            raise AssertionError(f"app depth differs from infer.reconstruct's: {d_depth}")
+        del ref
+        res["example"] = app_request(
+            "example", port, demo, {"example": "smoke/four_views", "conf": "20",
+                                    "mask_sky": "on", "as_mesh": "on"}, (), want)
+        # the novel-view video: 46 frames along the 4 cameras, one K2 each
+        res["video"] = app_request("video=on", port, demo, {"video": "on"}, paths,
+                                   (88, 24, 4 + 46, 0), extra=("rendered.mp4",))
+        base = demo.model.gs_renderer.cfg
+        demo.model.gs_renderer.cfg = replace(base, rasterizer_impl="jax")
+        res["jax"] = app_request("rasterizer_impl=jax", port, demo, {"conf": "20"},
+                                 paths, (88, 24, 0, 4))
+        demo.model.gs_renderer.cfg = base
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/viewer?run=x",
+                                    timeout=60) as r:
+            if b"<canvas" not in r.read():
+                raise AssertionError("/viewer: no canvas")
+        # forwards of the app's model, CUDA events, in this call; then the
+        # forward's host wall time and the copy of its predictions to the host
+        med = {}
+        timed_forwards("app model", lambda marks: infer.reconstruct(
+            demo.model, ref_imgs, marks=marks), medians=med)
+        wall, copy = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = infer.reconstruct(demo.model, ref_imgs)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            infer.numpy_preds(out)
+            wall.append((t1 - t0) * 1e3)
+            copy.append((time.time() - t1) * 1e3)
+            del out
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    res["request_ms"] = float(np.median([r["ms"] for r in reqs]))
+    res["elapsed_ms"] = float(np.median([r["elapsed_ms"] for r in reqs]))
+    res["forward_ms"] = med["total"]
+    res["forward_wall_ms"], res["copy_ms"] = float(np.median(wall)), float(np.median(copy))
+    res["peak_gb"] = max(r["peak_gb"] for r in reqs)
+    res["split_ms"] = {k: float(np.median([r["split"][k] for r in reqs]))
+                       for k in reqs[0]["split"]}
+    res["split_ms"]["forward elapsed"] = res["elapsed_ms"]
+    res["split_ms"]["rest"] = res["request_ms"] - sum(res["split_ms"].values())
+    log(f"app request split, medians of 3 (host ms): {json.dumps(res['split_ms'])}")
+    log(f"app requests (3 uploads): median wall {res['request_ms']:.1f} ms, median "
+        f"forward elapsed {res['elapsed_ms']:.1f} ms against {med['total']:.2f} ms "
+        f"(CUDA events, median of 7 forwards of the same model): ratio "
+        f"{res['elapsed_ms'] / med['total']:.3f}; the same forward on the host clock "
+        f"{res['forward_wall_ms']:.1f} ms and its predictions' copy to the host "
+        f"{res['copy_ms']:.1f} ms (medians of 3); peak {res['peak_gb']:.2f} GB")
+    del demo, srv
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def phase16_eval(preds, imgs):
+    """(b) Evaluation on the card: accuracy_completeness on phase 5's point
+    map against a 1%-noise copy (65,536 a side, mean and median) beside the
+    same calls on the CPU; LPIPS on random weights over the 4 rendered views
+    against the inputs at 518 px, card against CPU; eval.main in its three
+    modes on files from infer.export_maps."""
+    import tempfile
+    from pathlib import Path
+    from PIL import Image
+    from hunyuanworld_mirror_tpu_torch import eval as eval_cli
+    from hunyuanworld_mirror_tpu_torch.infer import export_maps
+    from hunyuanworld_mirror_tpu_torch.training import checkpoint as ckpt
+    from hunyuanworld_mirror_tpu_torch.utils import lpips, metrics
+    from hunyuanworld_mirror_tpu_torch import convert
+    res = {}
+    rng = np.random.default_rng(16)
+    pts = preds["pts3d"][0].float().cpu().numpy().reshape(-1, 3)
+    spread = float(np.linalg.norm(pts - pts.mean(0), axis=1).mean())
+    noisy = pts + rng.normal(size=pts.shape).astype(np.float32) * 0.01 * spread
+    metrics.accuracy_completeness(pts, noisy, device="cuda")               # warm-up
+    # the f64 answer on the subsample the function draws (seed 0, pred first)
+    draw = np.random.default_rng(0)
+    q = pts[draw.choice(len(pts), 65536, replace=False)] if len(pts) > 65536 else pts
+    r = noisy[draw.choice(len(noisy), 65536, replace=False)] if len(noisy) > 65536 else noisy
+    d_qr, d_rq = nn_exact(q, r), nn_exact(r, q)
+    for stat in ("mean", "median"):
+        f = {"mean": torch.mean, "median": metrics._median}[stat]
+        exact = np.array([float(f(d_qr)), float(f(d_rq))])
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            card = metrics.accuracy_completeness(pts, noisy, statistic=stat, device="cuda")
+            ms.append((time.time() - t0) * 1e3)
+        t0 = time.time()
+        cpu = metrics.accuracy_completeness(pts, noisy, statistic=stat, device="cpu")
+        cpu_ms = (time.time() - t0) * 1e3
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        err, err_cpu = np.abs(np.array(card) - exact), np.abs(np.array(cpu) - exact)
+        log(f"accuracy_completeness ({stat}, {len(pts)} points to 65536 a side, noise "
+            f"0.01 x {spread:.4g}): card {card}, CPU {cpu}, f64 {exact.tolist()}; card "
+            f"vs CPU max rel {rel:.3g}; |card - f64| {err.tolist()}, |CPU - f64| "
+            f"{err_cpu.tolist()}; card {float(np.median(ms)):.2f} ms (median of 3, both "
+            f"directions), CPU {cpu_ms:.0f} ms")
+        if not np.all(err <= np.maximum(EVAL_F64_TIMES * err_cpu, EVAL_CPU_BAND * exact)):
+            raise AssertionError(f"accuracy_completeness {stat}: card {card} further "
+                                 f"from the f64 {exact} than {EVAL_F64_TIMES}x the CPU's {cpu}")
+        res[f"acc_comp_{stat}"] = dict(card=card, cpu=cpu, f64=exact.tolist(), rel=rel,
+                                       ms=float(np.median(ms)), cpu_ms=cpu_ms)
+    del d_qr, d_rq
+
+    net = lpips.init_random(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    net_cpu = lpips.as_module(convert.lpips_to_jax_params(net), "cpu")
+    rendered = preds["rendered_colors"][0].float().clamp(0, 1)
+    inputs = torch.as_tensor(imgs[0], device="cuda")
+    with torch.no_grad():
+        d_card = lpips.distance(net, rendered, inputs)
+        d_cpu = lpips.distance(net_cpu, rendered.cpu(), inputs.cpu())
+        lp_ms = cuda_ms(lambda: lpips.distance(net, rendered, inputs), reps=5)
+    rel = float(((d_card.cpu() - d_cpu).abs() / d_cpu.abs()).max())
+    log(f"LPIPS (random weights) over {len(inputs)} pairs at {inputs.shape[1]} px: card "
+        f"{d_card.tolist()}, CPU {d_cpu.tolist()}, max rel {rel:.3g}; "
+        f"{lp_ms:.3f} ms a call")
+    if not rel <= EVAL_CPU_BAND:
+        raise AssertionError(f"LPIPS card vs CPU: {rel}")
+    res["lpips"] = dict(rel=rel, ms=lp_ms)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        export_maps(preds, imgs, tmp / "export")
+        np.save(tmp / "pts.npy", pts)
+        np.save(tmp / "noisy.npy", noisy)
+        poses = preds["camera_poses"][0].float().cpu().numpy()
+        moved = poses.copy()
+        for i, a in enumerate(rng.normal(size=len(poses)) * 0.02):  # radians about z
+            rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+            moved[i, :3, :3] = rz @ poses[i, :3, :3]
+        moved[:, :3, 3] += rng.normal(size=(len(poses), 3)) * 0.01
+        np.savez(tmp / "pred.npz", c2w=poses)
+        np.savez(tmp / "gt.npz", camera_poses=moved)
+        for name, frames in (("pred", rendered.cpu().numpy()), ("gt", imgs[0])):
+            (tmp / name).mkdir()
+            for s, f in enumerate(frames):
+                Image.fromarray((np.clip(f, 0, 1) * 255).round().astype(np.uint8)).save(
+                    tmp / name / f"{s:03d}.png")
+        flat = ckpt._flatten({"params": convert.lpips_to_jax_params(net)})
+        np.savez(tmp / "lpips.npz", **flat)
+        os.environ["WM_LPIPS_WEIGHTS"] = str(tmp / "lpips.npz")
+        try:
+            t0 = time.time()
+            outs = {
+                "points_ply": eval_cli.main(["points", "--pred", str(tmp / "export" / "points.ply"),
+                                             "--gt", str(tmp / "noisy.npy")]),
+                "points_align_median": eval_cli.main(
+                    ["points", "--pred", str(tmp / "pts.npy"), "--gt", str(tmp / "noisy.npy"),
+                     "--align", "--median"]),
+                "cameras": eval_cli.main(["cameras", "--pred", str(tmp / "pred.npz"),
+                                          "--gt", str(tmp / "gt.npz")]),
+                "nvs": eval_cli.main(["nvs", "--pred", str(tmp / "pred"), "--gt",
+                                      str(tmp / "gt")]),
+            }
+            eval_s = time.time() - t0
+        finally:
+            del os.environ["WM_LPIPS_WEIGHTS"]
+    keys = {"points_ply": {"accuracy", "completeness", "chamfer", "n_pred", "n_gt"},
+            "cameras": {"ate_rmse", "rpe_rot_deg", "rpe_trans", "n_frames"},
+            "nvs": {"psnr", "ssim", "lpips", "n_frames"}}
+    keys["points_align_median"] = keys["points_ply"]
+    log(f"eval.main, 4 runs in {eval_s:.1f} s: {json.dumps(outs)}")
+    for k, v in outs.items():
+        if set(v) != keys[k] or not all(np.isfinite(x) for x in v.values()):
+            raise AssertionError(f"eval {k}: {v}")
+    if outs["points_align_median"]["n_pred"] != len(pts) or outs["nvs"]["n_frames"] != 4:
+        raise AssertionError(f"eval counts: {outs}")
+    res["eval"] = outs
+    return res
+
+
+def phase_app_eval(preds, imgs):
+    """Phase 16: the demo server twin (a) and evaluation (b) on the card."""
+    import importlib.util
+    versions = {m: (getattr(importlib.import_module(m), "__version__", "?")
+                    if importlib.util.find_spec(m) else "absent") for m in ("PIL", "cv2")}
+    log(f"decoders on this machine: {versions}")
+    torch.cuda.empty_cache()
+    return {"app": phase16_app(imgs), **phase16_eval(preds, imgs)}
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -2837,6 +3240,7 @@ def main():
     cams = timed("camera models", phase_camera_models, preds, imgs, train_inputs,
                  train_ref)
     cs = timed("CenterSnap trainer", phase_centersnap)
+    ev = timed("app and eval", phase_app_eval, preds, imgs)
     kernels = [
         {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -2926,6 +3330,15 @@ def main():
         "bound_ms": 4 * k1cs["bound_ms"], "library_ms": 4 * k1cs["library_ms"],
         "replay_ms": 4 * k1cs["replay_ms"],
         "step_ms": cs["cli"]["first"]["median"]["total"]}
+    # phase 16: a POST /run of 4 uploaded views to the app twin (medians of 3
+    # requests; each launch count from every request), and one on the
+    # --rasterizer jax route
+    a = ev["app"]
+    for row, n in ((kernels[0], 64), (kernels[1], 24), (kernels[2], 4)):
+        row["app_request"] = {"launches": n, "request_ms": a["request_ms"],
+                              "elapsed_ms": a["elapsed_ms"]}
+    kernels[-1]["app_request_jax"] = {"launches": 4, "request_ms": a["jax"]["ms"],
+                                      "elapsed_ms": a["jax"]["elapsed_ms"]}
     log(f"chip_smoke: {time.time() - T_START:.1f} s wall in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,8 @@ flipped back to the reference IOHW layout.
 
 Usage: `model.load_state_dict(from_jax_params(load_npz(path)))` for an npz
 checkpoint of the JAX package, or `from_jax_params(params)` for the JAX
-pytree as numpy arrays.
+pytree as numpy arrays. The LPIPS net's map goes both ways
+(`lpips_from_jax_params`, `lpips_to_jax_params`).
 
 For the 6D-pose models (models/centersnap.CenterSnap, models/panoptic.
 Panoptic) the map goes both ways and is read off the module itself:
@@ -188,6 +189,29 @@ def load_npz(path: str):
         return {k: listify(v) for k, v in node.items()}
 
     return listify(root)
+
+
+# --- LPIPS (utils/lpips.py) ---------------------------------------------------
+
+def lpips_from_jax_params(params) -> StateDict:
+    """The JAX LPIPS pytree ({"convs": [{"w": HWIO, "b"}], "lins": [{"w":
+    (1, 1, C, 1)}]}, numpy or JAX leaves) -> the state dict of
+    utils/lpips.LPIPS (OIHW)."""
+    sd: StateDict = {}
+    for i, p in enumerate(params["convs"]):
+        _conv(sd, f"convs.{i}", p)
+    for i, p in enumerate(params["lins"]):
+        _conv(sd, f"lins.{i}", p)
+    return sd
+
+
+def lpips_to_jax_params(model: torch.nn.Module):
+    """utils/lpips.LPIPS -> the JAX LPIPS pytree (numpy f32, HWIO)."""
+    def hwio(w):
+        return np.ascontiguousarray(w.detach().cpu().float().numpy().transpose(2, 3, 1, 0))
+    return {"convs": [{"w": hwio(c.weight), "b": c.bias.detach().cpu().float().numpy()}
+                      for c in model.convs],
+            "lins": [{"w": hwio(lin.weight)} for lin in model.lins]}
 
 
 # --- the 6D-pose models: a two-way map read off the module ------------------

@@ -126,9 +126,17 @@ def export(preds: Dict[str, torch.Tensor], images: np.ndarray, out_dir: Path,
     export_colmap(preds, images, out_dir, conf_percent, log)
 
 
-def _np_preds(preds: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.float().cpu().numpy() for k, v in preds.items()
-            if isinstance(v, torch.Tensor)}
+def numpy_preds(preds: Dict) -> Dict:
+    """Predictions (tensors, and the splats' dict of tensors) -> numpy on
+    the host, f32 for floating types."""
+    out = {}
+    for k, v in preds.items():
+        if isinstance(v, dict):
+            out[k] = numpy_preds(v)
+        elif isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            out[k] = (v.float() if v.is_floating_point() else v).numpy()
+    return out
 
 
 def export_maps(preds: Dict[str, torch.Tensor], images: np.ndarray,
@@ -136,7 +144,7 @@ def export_maps(preds: Dict[str, torch.Tensor], images: np.ndarray,
     """export's files before the COLMAP model (points.ply to gaussians.splat),
     each line logged as the JAX CLI prints it."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    p = _np_preds(preds)
+    p = numpy_preds(preds)
     S = images.shape[1]
     pts = p["pts3d"][0].reshape(-1, 3)
     conf = p["pts3d_conf"][0].reshape(-1)
@@ -152,22 +160,28 @@ def export_maps(preds: Dict[str, torch.Tensor], images: np.ndarray,
             io_ply.save_normal_png(out_dir / f"normal_{s:03d}.png", p["normals"][0, s])
     log("  wrote per-view depth/normal maps")
     io_ply.save_camera_params(p["camera_poses"][0], p["camera_intrs"][0], out_dir)
-    if "splats" in preds:
-        sp = {k: v.float().cpu().numpy() for k, v in preds["splats"].items()}
-        alive = sp["opacities"][0] > 1e-4
-        op = np.clip(sp["opacities"][0], 1e-6, 1 - 1e-6)
-        io_ply.save_gs_ply(out_dir / "gaussians.ply", sp["means"][0][alive],
-                           sp["scales"][0][alive], sp["quats"][0][alive],
-                           sp["sh"][0][:, 0][alive], np.log(op / (1 - op))[alive])
-        io_ply.gs_ply_to_splat(out_dir / "gaussians.ply", out_dir / "gaussians.splat")
-        log(f"  wrote gaussians.ply/.splat ({int(alive.sum())} splats)")
+    if "splats" in p:
+        n = export_gaussians(p["splats"], out_dir)
+        log(f"  wrote gaussians.ply/.splat ({n} splats)")
+
+
+def export_gaussians(splats: Dict[str, np.ndarray], out_dir: Path) -> int:
+    """gaussians.ply and gaussians.splat of batch 0's live splats (opacity
+    above 1e-4; numpy arrays) -> how many were written."""
+    alive = splats["opacities"][0] > 1e-4
+    op = np.clip(splats["opacities"][0], 1e-6, 1 - 1e-6)
+    io_ply.save_gs_ply(out_dir / "gaussians.ply", splats["means"][0][alive],
+                       splats["scales"][0][alive], splats["quats"][0][alive],
+                       splats["sh"][0][:, 0][alive], np.log(op / (1 - op))[alive])
+    io_ply.gs_ply_to_splat(out_dir / "gaussians.ply", out_dir / "gaussians.splat")
+    return int(alive.sum())
 
 
 def export_colmap(preds: Dict[str, torch.Tensor], images: np.ndarray,
                   out_dir: Path, conf_percent: float = 20.0, log=_quiet) -> None:
     """The COLMAP model sparse/: the point head's points at every 4th
     pixel, the bottom conf_percent left out."""
-    p = _np_preds(preds)
+    p = numpy_preds(preds)
     S, H, W = images.shape[1:4]
     c2w, K = p["camera_poses"][0], p["camera_intrs"][0]
     stride = 4

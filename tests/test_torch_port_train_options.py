@@ -24,6 +24,8 @@ from torch_port_helpers import close, np_, t
 from hunyuanworld_mirror_tpu.training import bilagrid as jbil
 from hunyuanworld_mirror_tpu.training import splat_opt as jopt
 from hunyuanworld_mirror_tpu.utils import camera as jcam
+from hunyuanworld_mirror_tpu.training import checkpoint as jckpt
+from hunyuanworld_mirror_tpu.utils import lpips as jlpips
 from hunyuanworld_mirror_tpu.utils import metrics as jmetrics
 from hunyuanworld_mirror_tpu.utils import rotation as jrot
 from hunyuanworld_mirror_tpu_torch.training import bilagrid as pbil
@@ -273,12 +275,12 @@ def test_nvs_metrics_match_jax(tmp_path, monkeypatch):
         close(mp["ssim"], mj["ssim"], 1e-5)
     close(pmetrics.nvs_metrics(t(a), t(b))["psnr"], jmetrics.nvs_metrics(a, b)["psnr"],
           1e-4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pmetrics.nvs_metrics(a, b, lpips_params={})
-    (tmp_path / "w.npz").write_bytes(b"")
+    # with LPIPS weights (JAX-saved, named by $WM_LPIPS_WEIGHTS) both add it
+    jckpt.save_params(str(tmp_path / "w.npz"), jlpips.init_random(jax.random.PRNGKey(0)))
     monkeypatch.setenv("WM_LPIPS_WEIGHTS", str(tmp_path / "w.npz"))
-    with pytest.raises(NotImplementedError, match="lpips"):
-        pmetrics.nvs_metrics(a, b)
+    mj, mp = jmetrics.nvs_metrics(a, b), pmetrics.nvs_metrics(a, b)
+    assert set(mp) == set(mj) == {"psnr", "ssim", "lpips"}
+    close(mp["lpips"], mj["lpips"], 0.0, rtol=1e-5)
 
 
 def test_config_rejects_2dgs_and_unknown_values():

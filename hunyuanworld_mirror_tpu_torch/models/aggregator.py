@@ -119,22 +119,30 @@ class VisualGeometryTransformer(nn.Module):
         trunc_normal_(self.cam_token, 1e-6, gen)
         trunc_normal_(self.reg_token, 1e-6, gen)
 
-    def _special(self, token, b: int, s: int, dtype):
-        """(1, 2, X, C) -> (B*S, X, C): slot 0 for frame 0, slot 1 the rest."""
-        t = torch.cat([token[:, 0:1].expand(b, 1, *token.shape[2:]),
-                       token[:, 1:2].expand(b, s - 1, *token.shape[2:])], dim=1)
+    def _special(self, token, b: int, s: int, dtype, first: bool = True):
+        """(1, 2, X, C) -> (B*S, X, C): slot 0 for frame 0, slot 1 the rest.
+        first=False: the frames hold no global frame 0 (a view rank past the
+        first), slot 1 for all of them."""
+        n0 = 1 if first else 0
+        t = torch.cat([token[:, 0:1].expand(b, n0, *token.shape[2:]),
+                       token[:, 1:2].expand(b, s - n0, *token.shape[2:])], dim=1)
         return t.reshape(b * s, *token.shape[2:]).to(dtype)
 
     def forward(self, images: torch.Tensor, priors: Optional[Tuple] = None,
                 cond_flags: Sequence[int] = (0, 0, 0),
-                dtype=torch.bfloat16, marks: Optional[List] = None
-                ) -> Tuple[List[torch.Tensor], int]:
+                dtype=torch.bfloat16, marks: Optional[List] = None,
+                mesh=None) -> Tuple[List[torch.Tensor], int]:
         """(B, S, H, W, 3) images in [0, 1] -> (4 intermediates, each
         (B, S, N, 2C), or (B, S, N, C) with `frame_only`; patch_start_idx).
 
         priors: optional (depth maps (B,S,H,W), rays (B,S,4), poses
         (B,S,7)), any of them None; cond_flags: (pose, depth, rays) switches.
-        `marks`: see utils/profiling.py."""
+        `marks`: see utils/profiling.py.
+
+        mesh: B and S are this rank's shard (parallel/mesh.py); the global
+        layers then run ring attention over the mesh's view axis, and only
+        the first view rank holds global frame 0. The encoder and the frame
+        layers stay on the rank's own frames."""
         cfg = self.cfg
         B, S, H, W, _ = images.shape
         C = cfg.embed_dim
@@ -150,8 +158,9 @@ class VisualGeometryTransformer(nn.Module):
             patch_tokens = self.patch_embed.forward_features(imgs)
         mark(marks, "encoder")
 
-        parts = [self._special(self.cam_token, B, S, dtype),
-                 self._special(self.reg_token, B, S, dtype)]
+        first = mesh is None or mesh.index("view") == 0
+        parts = [self._special(self.cam_token, B, S, dtype, first),
+                 self._special(self.reg_token, B, S, dtype, first)]
         if cfg.enable_cond:
             depths, rays, poses = priors if priors is not None else (None,) * 3
             zero = torch.zeros(B * S, 1, C, dtype=dtype, device=dev)
@@ -184,7 +193,7 @@ class VisualGeometryTransformer(nn.Module):
                 if i in capture:
                     captured[i] = xf.reshape(B, S, N, C)
                 continue
-            x = self.global_blocks[i](xf.reshape(B, S * N, C), rope_global)
+            x = self.global_blocks[i](xf.reshape(B, S * N, C), rope_global, mesh)
             if i in capture:
                 captured[i] = torch.cat([xf.reshape(B, S, N, C),
                                          x.reshape(B, S, N, C)], dim=-1)

@@ -11,8 +11,11 @@ from typing import Optional
 
 from torch import nn
 
-from ..ops.attention import attention
-from .nn import LayerNorm, LayerScale, Linear, Mlp, SwiGLUFFN, swiglu_hidden_fused
+from ..ops.attention import attention, attention_replay
+from ..parallel import comm
+from ..parallel.ring import ring_self_attention
+from .nn import (LayerNorm, LayerScale, Linear, Mlp, SwiGLUFFN, row_parallel,
+                 swiglu_hidden_fused)
 from .rope import RopeTables, apply_rope2d
 
 
@@ -20,26 +23,36 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qk_norm: bool = False,
                  norm_eps: float = 1e-5):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads          # this rank's heads under TP
+        self.head_dim = dim // num_heads
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
         if qk_norm:
-            self.q_norm = LayerNorm(dim // num_heads, norm_eps)
-            self.k_norm = LayerNorm(dim // num_heads, norm_eps)
+            self.q_norm = LayerNorm(self.head_dim, norm_eps)
+            self.k_norm = LayerNorm(self.head_dim, norm_eps)
         else:
             self.q_norm = self.k_norm = None
+        self.tp = None
 
-    def forward(self, x, rope: Optional[RopeTables] = None):
-        B, N, C = x.shape
-        head_dim = C // self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, head_dim)
+    def forward(self, x, rope: Optional[RopeTables] = None, mesh=None):
+        B, N, _ = x.shape
+        H, D = self.num_heads, self.head_dim
+        if self.tp is not None:
+            x = comm.copy_to_tp(x, self.tp)
+        qkv = self.qkv(x).reshape(B, N, 3, H, D)
         q, k, v = qkv.unbind(2)                    # (B, N, H, D) views
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if rope is not None:
             q, k = apply_rope2d(q, rope), apply_rope2d(k, rope)
-        out = attention(q, k, v, head_dim ** -0.5)
-        return self.proj(out.reshape(B, N, C))
+        scale = D ** -0.5
+        if mesh is not None:
+            out = ring_self_attention(q, k, v, mesh, scale)
+        elif q.is_cuda and D % 64:
+            out = attention_replay(q, k, v, scale)
+        else:
+            out = attention(q, k, v, scale)
+        return row_parallel(self.proj, out.reshape(B, N, H * D), self.tp)
 
 
 class Block(nn.Module):
@@ -63,8 +76,8 @@ class Block(nn.Module):
             raise ValueError(f"unknown ffn_layer {ffn_layer!r}")
         self.ls2 = LayerScale(dim, init_values) if init_values else None
 
-    def forward(self, x, rope: Optional[RopeTables] = None):
-        h = self.attn(self.norm1(x), rope)
+    def forward(self, x, rope: Optional[RopeTables] = None, mesh=None):
+        h = self.attn(self.norm1(x), rope, mesh)
         x = x + (self.ls1(h) if self.ls1 is not None else h)
         h = self.mlp(self.norm2(x))
         return x + (self.ls2(h) if self.ls2 is not None else h)

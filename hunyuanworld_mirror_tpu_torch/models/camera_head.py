@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
 from .block import Block
 from .nn import LayerNorm, Linear, Mlp
 
@@ -52,10 +53,18 @@ class CameraHead(nn.Module):
     def init_own(self, gen):
         nn.init.zeros_(self.init_token)
 
-    def forward(self, feat_seq: List[torch.Tensor], steps: int = 4
-                ) -> List[torch.Tensor]:
-        """Intermediates (B, S, N, 2C) -> list of (B, S, 9), one per step."""
-        cam = self.token_norm(feat_seq[-1][:, :, 0].float())   # (B, S, D)
+    def forward(self, feat_seq: List[torch.Tensor], steps: int = 4,
+                mesh=None) -> List[torch.Tensor]:
+        """Intermediates (B, S, N, 2C) -> list of (B, S, 9), one per step.
+
+        mesh: S is this rank's views; the trunk attends across all views, so
+        the camera tokens are gathered over the view axis (a differentiable
+        all_gather), the head runs on every view and the rank keeps its own."""
+        tok = feat_seq[-1][:, :, 0]
+        s_local = tok.shape[1]
+        if mesh is not None:
+            tok = comm.all_gather(tok, mesh.group("view"), dim=1)
+        cam = self.token_norm(tok.float())                       # (B, S, D)
         B, S, _ = cam.shape
         preds, curr = [], None
         for _ in range(steps):
@@ -69,4 +78,7 @@ class CameraHead(nn.Module):
             delta = self.param_predictor(self.out_norm(feat))
             curr = delta if curr is None else curr + delta
             preds.append(activate(curr))
+        if mesh is not None:
+            v = mesh.index("view")
+            preds = [p[:, v * s_local:(v + 1) * s_local] for p in preds]
         return preds

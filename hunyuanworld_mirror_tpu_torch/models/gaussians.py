@@ -23,6 +23,8 @@ import torch
 from torch import nn
 
 from ..ops import rasterizer
+from ..ops.distributed import rasterize_distributed
+from ..parallel import comm
 from ..utils import camera as cam_utils
 from ..utils import geometry, gs_act
 from ..utils import sh as sh_utils
@@ -166,8 +168,9 @@ def prepare_splats(cfg: GSRendererConfig, gs_params: torch.Tensor,
         intr = views["camera_intrinsics"].reshape(B * S, 3, 3)
     else:
         raise ValueError(f"invalid position_from={mode!r}")
+    # the cameras pass no gradient to the splats (JAX's stop_gradient)
     pts, _, _ = geometry.depth_to_world_coords_points(
-        depth.reshape(B * S, H, W), c2w, intr)
+        depth.reshape(B * S, H, W), c2w.detach(), intr.detach())
     splats["means"] = pts.reshape(B, N, 3) + offsets
     return splats
 
@@ -258,23 +261,66 @@ def compact_splats(cfg: GSRendererConfig, splats: Dict) -> Dict:
     return out
 
 
+# the predictions prepare_splats and confidence_filter read, by position_from
+_SPLAT_INPUTS = {"pts3d": ("pts3d",),
+                 "preddepth+predcamera": ("depth", "camera_params"),
+                 "gsdepth+predcamera": ("gs_depth", "camera_params"),
+                 "gsdepth+gtcamera": ("gs_depth",)}
+
+
+def _all_views(cfg: GSRendererConfig, gs_params, images, predictions, views,
+               mesh):
+    """A view-sharded render's inputs over all S views (a differentiable
+    all_gather over the mesh's view axis): the splats are made, filtered,
+    merged and compacted from every view, as JAX's GSPMD program makes them
+    from the global arrays, identically on every view rank."""
+    group = mesh.group("view")
+    B, s_local, H, W, _ = images.shape
+
+    def whole(x):
+        return comm.all_gather(x, group, dim=1)
+
+    gs_params = whole(gs_params.reshape(B, s_local, H, W, -1)).reshape(
+        -1, H, W, gs_params.shape[-1])
+    keys = _SPLAT_INPUTS.get(cfg.position_from, ()) + (
+        ("gs_depth_conf",) if cfg.enable_conf_filter else ())
+    preds = {k: whole(predictions[k]) for k in keys if k in predictions}
+    if views is not None:
+        views = {k: whole(views[k]) for k in ("camera_pose", "camera_intrinsics")
+                 if k in views}
+    return gs_params, whole(images), preds, views
+
+
 def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
            images: torch.Tensor, predictions: Dict, do_render: bool = True,
            views: Optional[Dict] = None,
-           gs_params: Optional[torch.Tensor] = None) -> Dict:
+           gs_params: Optional[torch.Tensor] = None, mesh=None) -> Dict:
     """Head conv -> splats -> confidence filter -> voxel merge ->
     compaction -> per-camera rasterize, each stage as the config asks.
     Takes the fused features (B, S, H, W, f/2), or `gs_params` (B*S, H, W,
     raw) with the head conv already applied (the frame-chunked heads).
     Fills predictions["splats"] and, with `do_render`, rendered_colors /
-    rendered_depths / rendered_alphas / render_n_dropped."""
+    rendered_depths / rendered_alphas (and, off the distributed render,
+    render_n_dropped / render_n_isects).
+
+    mesh: S is this rank's views (parallel/mesh.py). The splats come from
+    all views on every view rank (`_all_views`); where S and the splat
+    count split over the view axis (JAX's `use_dist`), each rank renders
+    its cameras through ops.distributed.rasterize_distributed with its
+    contiguous N/V slice of the splats, else its cameras over all splats."""
     cfg = renderer.cfg
     B, S, H, W, _ = images.shape
     if gs_params is None:
         gs_params = renderer.head(gs_feats.reshape(B * S, H, W, -1))
-    splats = prepare_splats(cfg, gs_params, images, predictions, views)
-    if cfg.enable_conf_filter and "gs_depth_conf" in predictions:
-        splats = confidence_filter(cfg, splats, predictions["gs_depth_conf"])
+    v_size = 1 if mesh is None else mesh.size("view")
+    if v_size > 1:
+        gs_params, all_images, all_preds, views = _all_views(
+            cfg, gs_params, images, predictions, views, mesh)
+    else:
+        all_images, all_preds = images, predictions
+    splats = prepare_splats(cfg, gs_params, all_images, all_preds, views)
+    if cfg.enable_conf_filter and "gs_depth_conf" in all_preds:
+        splats = confidence_filter(cfg, splats, all_preds["gs_depth_conf"])
     if cfg.enable_prune:
         splats = {**splats, **voxel_prune(cfg, {k: splats[k] for k in SPLAT_KEYS})}
     if cfg.enable_compact and (cfg.enable_prune or cfg.enable_conf_filter):
@@ -285,10 +331,26 @@ def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
 
     ext, intr = cam_utils.vector_to_camera_matrices(
         predictions["camera_params"].reshape(B * S, 9), (H, W))
-    w2c = cam_utils.to_homogeneous(ext).reshape(B, S, 4, 4)
-    Ks = intr.reshape(B, S, 3, 3)
+    w2c = cam_utils.to_homogeneous(ext).reshape(B, S, 4, 4).detach()
+    Ks = intr.reshape(B, S, 3, 3).detach()
+    n_splats = splats["means"].shape[1]
+    # JAX's use_dist: S and the splat count split over the axis (the global
+    # S here always does: every rank holds S views)
+    use_dist = v_size > 1 and n_splats % v_size == 0
     outs, alphas, drops, isects = [], [], [], []
     for b in range(B):
+        if use_dist:
+            lo = mesh.index("view") * (n_splats // v_size)
+            part = {k: splats[k][b][lo:lo + n_splats // v_size] for k in SPLAT_KEYS}
+            colors, alpha = rasterize_distributed(
+                part["means"], part["quats"][:, [1, 2, 3, 0]], part["scales"],
+                part["opacities"], part["sh"], w2c[b], Ks[b], W, H, mesh,
+                axis="view", render_mode="RGB+ED", max_per_tile=cfg.max_per_tile,
+                max_tiles_per_gauss=cfg.max_tiles_per_gauss,
+                impl=cfg.rasterizer_impl, sh_degree=cfg.sh_degree)
+            outs.append(colors)
+            alphas.append(alpha)
+            continue
         colors, alpha, meta = rasterizer.rasterize(
             splats["means"][b], splats["quats"][b], splats["scales"][b],
             splats["opacities"][b], splats["sh"][b], w2c[b], Ks[b], W, H,
@@ -307,6 +369,7 @@ def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
     predictions["rendered_colors"] = rendered[..., :3]
     predictions["rendered_depths"] = rendered[..., 3:]
     predictions["rendered_alphas"] = torch.stack(alphas)
-    predictions["render_n_dropped"] = torch.stack(drops)
-    predictions["render_n_isects"] = torch.stack(isects)
+    if drops:
+        predictions["render_n_dropped"] = torch.stack(drops)
+        predictions["render_n_isects"] = torch.stack(isects)
     return predictions

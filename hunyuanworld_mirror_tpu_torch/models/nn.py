@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
+
 
 def trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator):
     """N(0, 1) truncated to [-2, 2], times std (jax.random.truncated_normal)."""
@@ -83,16 +85,32 @@ class LayerScale(nn.Module):
         nn.init.constant_(self.gamma, self.init_value)
 
 
+def row_parallel(layer: Linear, x, tp):
+    """A row-parallel linear layer (parallel/sharding.py): this rank's
+    partial product summed over the model group `tp`, then the bias, once.
+    Without a group, the layer itself."""
+    if tp is None:
+        return layer(x)
+    y = comm.reduce_from_tp(F.linear(x, layer.weight.to(x.dtype)), tp)
+    return y if layer.bias is None else y + layer.bias.to(x.dtype)
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact (erf) GELU -> fc2."""
+    """fc1 -> exact (erf) GELU -> fc2. Under tensor parallelism (`tp`, the
+    model group, set by parallel.sharding.shard_model) fc1 holds this
+    rank's hidden units (column parallel) and fc2 the matching inputs (row
+    parallel)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, out_dim)
+        self.tp = None
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        if self.tp is not None:
+            x = comm.copy_to_tp(x, self.tp)
+        return row_parallel(self.fc2, F.gelu(self.fc1(x), approximate="none"), self.tp)
 
 
 def swiglu_hidden_fused(hidden_dim: int) -> int:

@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..parallel import comm
+from ..parallel.sharding import axis_part
 from ..utils import camera as cam_utils
 from ..utils import priors as prior_utils
 from ..utils.profiling import mark
@@ -200,12 +202,12 @@ class WorldMirror(nn.Module):
         return (raw.reshape(B * S, H, W, -1), torch.cat(depths, dim=1),
                 torch.cat(confs, dim=1))
 
-    @torch.no_grad()
     def forward(self, views: Dict[str, torch.Tensor],
                 cond_flags: Sequence[int] = (0, 0, 0), render: bool = True,
                 trunk_dtype=torch.bfloat16,
                 camera_params: Optional[torch.Tensor] = None,
-                marks: Optional[List] = None) -> Dict[str, torch.Tensor]:
+                marks: Optional[List] = None, mesh=None,
+                grad: bool = False) -> Dict[str, torch.Tensor]:
         """views["img"]: (B, S, H, W, 3) in [0, 1], NHWC, on the model's
         device; optional priors views["camera_pose"] (B, S, 4, 4),
         views["depthmap"] (B, S, H, W), views["camera_intrinsics"] (B, S,
@@ -218,23 +220,53 @@ class WorldMirror(nn.Module):
         marks: pass a list to have a CUDA event appended after each phase
         (priors where they are used, encoder, trunk, heads, gs_render), for
         phase timing on the card.
+
+        mesh: a (data, view, model) mesh of process groups (parallel/
+        mesh.py); `views` (and camera_params) are then this rank's batch
+        and view shard (parallel.sharding.shard_views), the model this
+        rank's tensor-parallel shard (sharding.shard_model). The global
+        layers run ring attention over the view axis, the camera head and
+        the splats see every view, the render is the distributed one; the
+        outputs are this rank's views (the splats: all of its batch).
+
+        grad: build the autograd graph (a training step); by default the
+        forward runs under no_grad.
         """
+        with torch.set_grad_enabled(grad):
+            return self._forward(views, cond_flags, render, trunk_dtype,
+                                 camera_params, marks, mesh)
+
+    def _priors(self, views, hw, mesh):
+        """extract_priors over every view: the pose normalisation spans S,
+        so a view-sharded forward normalises the gathered priors and keeps
+        its own views."""
+        if mesh is None or mesh.size("view") == 1:
+            return extract_priors(views, hw)
+        group = mesh.group("view")
+        whole = {k: comm.gather_raw(views[k], group, 1)
+                 for k in ("camera_pose", "depthmap", "camera_intrinsics")
+                 if k in views}
+        return tuple(None if p is None else axis_part(p, mesh)
+                     for p in extract_priors(whole, hw))
+
+    def _forward(self, views, cond_flags, render, trunk_dtype, camera_params,
+                 marks, mesh):
         cfg = self.cfg
         imgs = views["img"]
         S, H, W = imgs.shape[1:4]
         use_cond = cfg.enable_cond and sum(cond_flags) > 0
         priors = None
         if use_cond:
-            priors = extract_priors(views, (H, W))
+            priors = self._priors(views, (H, W), mesh)
             mark(marks, "priors")
         token_list, start = self.visual_geometry_transformer(
             imgs, priors, cond_flags if use_cond else (0, 0, 0),
-            dtype=trunk_dtype, marks=marks)
+            dtype=trunk_dtype, marks=marks, mesh=mesh)
         mark(marks, "trunk")
 
         preds: Dict[str, torch.Tensor] = {}
         if cfg.enable_cam:
-            cam = self.cam_head(token_list)[-1]                  # (B, S, 9)
+            cam = self.cam_head(token_list, mesh=mesh)[-1]       # (B, S, 9)
             if camera_params is not None:
                 preds["camera_params_pred"] = cam
                 cam = torch.as_tensor(camera_params, dtype=torch.float32,
@@ -267,6 +299,6 @@ class WorldMirror(nn.Module):
         if cfg.enable_gs:
             preds = gaussians.render(self.gs_renderer, gs_feat, imgs, preds,
                                      do_render=render, views=views,
-                                     gs_params=gs_params)
+                                     gs_params=gs_params, mesh=mesh)
             mark(marks, "gs_render")
         return preds

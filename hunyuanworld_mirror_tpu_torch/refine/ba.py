@@ -1,9 +1,10 @@
-"""Levenberg-Marquardt bundle adjustment with Schur-complement reduction, on
-one device.
+"""Levenberg-Marquardt bundle adjustment with Schur-complement reduction.
 
-Port of hunyuanworld_mirror_tpu/refine/ba.py without its `mesh` argument
-(landmarks sharded over devices, the reduced system summed by a collective),
-which waits for the port's multi-GPU work.
+Port of hunyuanworld_mirror_tpu/refine/ba.py. With a mesh the landmarks are
+sharded over its view axis: each rank builds its landmarks' part of the
+reduced camera system and of the cost, the parts are summed by an
+all_reduce every iteration (JAX's four psums and the cost's), and every
+rank solves the same camera system.
 
 Problem: minimize sum_{j,s} w_js || pi(K_s, T_s, X_j) - uv_js ||^2 over the
 world->camera poses T_s (SE(3), left-multiplied twist updates; camera 0
@@ -21,10 +22,12 @@ landmarks, re-observed in the other views by reprojection and the depth
 consistency gate of utils/frustum.py.
 """
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel import comm
+from ..parallel.sharding import axis_part
 from ..utils.camera import se3_inverse
 from ..utils.frustum import bilinear_sample
 from ..utils.rotation import hat, se3_exp
@@ -82,10 +85,13 @@ def _gn_system(points, w2c, K, tracks: Tracks):
     return r, Jc, Jp, w
 
 
-def _schur_step(points, w2c, K, tracks: Tracks, lam, fix_first: bool = True):
+def _schur_step(points, w2c, K, tracks: Tracks, lam, fix_first: bool = True,
+                group=None):
     """One damped Gauss-Newton step through the Schur complement -> (new
     w2c, new points). fix_first pins camera 0, the world anchor: without
-    its 6 dof most of the gauge null space leaves the f32 solve."""
+    its 6 dof most of the gauge null space leaves the f32 solve. `group`:
+    the ranks holding the other landmarks, over which the camera system's
+    parts are summed."""
     S = tracks.mask.shape[1]
     r, Jc, Jp, w = _gn_system(points, w2c, K, tracks)
     wJc = w[..., None, None] * Jc
@@ -102,6 +108,7 @@ def _schur_step(points, w2c, K, tracks: Tracks, lam, fix_first: bool = True):
     Cinv = torch.linalg.inv(C + lam * eye3)
     ECE = torch.einsum("msij,mjk,mtlk->sitl", E, Cinv, E)    # (S, 6, S, 6)
     ECc = torch.einsum("msij,mjk,mk->si", E, Cinv, c)        # (S, 6)
+    B, b, ECE, ECc = (comm.all_reduce(x, group) for x in (B, b, ECE, ECc))
 
     A4 = torch.block_diag(*B).reshape(S, 6, S, 6) - ECE
     rhs2 = b - ECc
@@ -122,30 +129,46 @@ def _schur_step(points, w2c, K, tracks: Tracks, lam, fix_first: bool = True):
 
 
 def bundle_adjust(w2c: torch.Tensor, K: torch.Tensor, tracks: Tracks,
-                  iters: int = 12, init_lambda: float = 1e-3
+                  iters: int = 12, init_lambda: float = 1e-3, mesh=None,
+                  point_axis: str = "view"
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """LM bundle adjustment of w2c (S, 4, 4) world->camera poses with fixed
     intrinsics K (S, 3, 3) -> (w2c', points', cost0, cost). A step is kept
     where it lowers the cost (the damping then halves), else dropped (the
-    damping grows 4x), both decided on the device."""
-    cost0 = reprojection_cost(tracks.points, w2c, K, tracks)
+    damping grows 4x), both decided on the device.
+
+    mesh: the landmarks (M of them, a multiple of the `point_axis` size)
+    are sharded over that axis, each rank taking its contiguous M / V; the
+    camera system and the cost are summed over the axis every iteration.
+    Every rank passes the same tracks and gets the same poses and all M
+    points back."""
+    group = None if mesh is None else mesh.group(point_axis)
+    if group is not None:
+        tracks = Tracks(*(axis_part(t, mesh, point_axis, 0) for t in tracks))
+
+    def cost_of(pts, poses):
+        return comm.all_reduce(reprojection_cost(pts, poses, K, tracks), group)
+
+    cost0 = cost_of(tracks.points, w2c)
     poses, pts, cost = w2c, tracks.points, cost0
     lam = torch.tensor(init_lambda, dtype=tracks.points.dtype,
                        device=tracks.points.device)
     for _ in range(iters):
-        new_poses, new_pts = _schur_step(pts, poses, K, tracks, lam)
-        new_cost = reprojection_cost(new_pts, new_poses, K, tracks)
+        new_poses, new_pts = _schur_step(pts, poses, K, tracks, lam, group=group)
+        new_cost = cost_of(new_pts, new_poses)
         accept = new_cost < cost
         poses = torch.where(accept, new_poses, poses)
         pts = torch.where(accept, new_pts, pts)
         cost = torch.where(accept, new_cost, cost)
         lam = torch.where(accept, lam * 0.5, lam * 4.0)
+    if group is not None:
+        pts = comm.gather_raw(pts, group, 0)
     return poses, pts, cost0, cost
 
 
 def build_tracks(pts3d: torch.Tensor, conf: torch.Tensor, depth: torch.Tensor,
                  w2c: torch.Tensor, K: torch.Tensor, stride: int = 16,
-                 depth_tol: float = 0.05) -> Tracks:
+                 depth_tol: float = 0.05, pad_to: Optional[int] = None) -> Tracks:
     """Data association from the feed-forward predictions of one scene:
     pts3d (S, H, W, 3) world point maps, conf (S, H, W), depth (S, H, W),
     w2c (S, 4, 4), K (S, 3, 3).
@@ -157,7 +180,9 @@ def build_tracks(pts3d: torch.Tensor, conf: torch.Tensor, depth: torch.Tensor,
     its own. The observation is the reprojection under the initial cameras;
     the landmark starts at the mean of the agreeing views' unprojections, so
     the bundle is inconsistent exactly where the views' geometry disagrees.
-    Landmarks seen once are masked out (they constrain nothing)."""
+    Landmarks seen once are masked out (they constrain nothing). `pad_to`
+    truncates the landmarks, or pads them with unobserved zero rows, to that
+    count (sharding needs a multiple of the axis size)."""
     S, H, W, _ = pts3d.shape
     dev = pts3d.device
     ys = torch.arange(0, H, stride, device=dev)
@@ -192,23 +217,37 @@ def build_tracks(pts3d: torch.Tensor, conf: torch.Tensor, depth: torch.Tensor,
     keep = mask.sum(-1) >= 2
     X = torch.where(keep[:, None], consensus, X)
     weight = mask * w_src[:, None] * keep[:, None]
-    return Tracks(points=X, uv=uv, mask=mask & keep[:, None],
-                  weight=weight.float())
+    tracks = Tracks(points=X, uv=uv, mask=mask & keep[:, None],
+                    weight=weight.float())
+    if pad_to is None:
+        return tracks
+    pad = pad_to - X.shape[0]
+    if pad <= 0:
+        return Tracks(*(t[:pad_to] for t in tracks))
+    return Tracks(*(torch.cat([t, t.new_zeros((pad,) + t.shape[1:])]) for t in tracks))
 
 
 def refine_cameras(predictions: Dict[str, torch.Tensor], stride: int = 16,
-                   iters: int = 12) -> Dict[str, torch.Tensor]:
+                   iters: int = 12, mesh=None) -> Dict[str, torch.Tensor]:
     """BA-refine batch element 0 of a prediction dict (pts3d, pts3d_conf,
-    depth, camera_poses c2w, camera_intrs) -> a copy with camera_poses
-    replaced by the refined poses and the costs before and after under
-    'ba_cost0' and 'ba_cost'."""
+    depth, camera_poses c2w, camera_intrs; all views, as
+    parallel.sharding.gather_predictions gives them) -> a copy with
+    camera_poses replaced by the refined poses and the costs before and
+    after under 'ba_cost0' and 'ba_cost'. mesh: the landmarks are sharded
+    over its view axis (padded to a multiple of its size)."""
     pts3d = predictions["pts3d"][0].float()
     conf = predictions["pts3d_conf"][0].float()
     depth = predictions["depth"][0, ..., 0].float()
     K = predictions["camera_intrs"][0].float()
     w2c = se3_inverse(predictions["camera_poses"][0].float())
-    tracks = build_tracks(pts3d, conf, depth, w2c, K, stride=stride)
-    w2c_ref, _, cost0, cost = bundle_adjust(w2c, K, tracks, iters=iters)
+    pad_to = None
+    if mesh is not None:
+        ax = mesh.size("view")
+        S, H, W, _ = pts3d.shape
+        m = S * ((H + stride - 1) // stride) * ((W + stride - 1) // stride)
+        pad_to = -(-m // ax) * ax
+    tracks = build_tracks(pts3d, conf, depth, w2c, K, stride=stride, pad_to=pad_to)
+    w2c_ref, _, cost0, cost = bundle_adjust(w2c, K, tracks, iters=iters, mesh=mesh)
     out = dict(predictions)
     out["camera_poses"] = se3_inverse(w2c_ref)[None]
     out["ba_cost0"] = cost0

@@ -82,9 +82,10 @@ class AdamWCosine:
     """optax.adamw(cosine_decay_schedule(lr, decay_steps), weight_decay)
     over the parameters the JAX pytree holds (convert.jax_leaves), on
     torch's AdamW (decoupled decay, eps outside the square root) with the
-    rate set before each update."""
+    rate set before each update. decay_steps=None keeps the rate constant
+    (optax.adamw(lr, weight_decay=...))."""
 
-    def __init__(self, model: torch.nn.Module, lr: float, decay_steps: int,
+    def __init__(self, model: torch.nn.Module, lr: float, decay_steps: Optional[int],
                  weight_decay: float):
         self.lr, self.decay_steps = lr, decay_steps
         self.leaves = convert.jax_leaves(model)
@@ -94,6 +95,8 @@ class AdamWCosine:
                                      eps=1e-8, weight_decay=weight_decay)
 
     def learning_rate(self) -> float:
+        if self.decay_steps is None:
+            return self.lr
         return cosine_decay(self.lr, self.decay_steps, self.count)
 
     def zero_grad(self) -> None:

@@ -11,7 +11,12 @@ Phases (any failure exits non-zero before the last line is printed):
      bound); the ragged and tile-edge N (37, 127, 129, 130, 193, 4097), D = 128 bf16, the encoder's
      q/k/v as views of one fused qkv, the trunk's q/k (LayerNorm, RoPE) and
      strided v, and 3 batches whose middle one has 100x keys and values,
-     each batch held to its own band;
+     each batch held to its own band; then K1c, the f32 route (the camera
+     head, (1, N, 16, 128) at N = S views), at N = 1, 4, 5, 32, 97, 130,
+     on q, k, v views of one fused qkv and on inputs 4 bytes off 16-byte
+     alignment, timed at N = 4 (the main path) and N = 32: device time
+     under torch.profiler, per-call wall time of a back-to-back loop, both
+     for SDPA too, and the bound;
   4. K2 (rasterize_flat_fwd): its ptxas report (fails on a stack frame or a
      spill) and the blocks an SM holds; then K2 against its plain version on
      a synthetic 518 px scene of ~500k splats, f32 and f16-pair payloads,
@@ -76,11 +81,14 @@ Phases (any failure exits non-zero before the last line is printed):
      0 K2 and 4 K3 launches a step, the losses within 1e-5 relative,
      n_dropped equal (the window clamp cut nothing, so K3 read the same
      counts K5 blended);
- 11. K4 (rasterize_binned_fwd): `render_local_cameras`, the
+ 11. K4 (rasterize_binned_fwd): its ptxas report (fails on a stack frame
+     or a spill: the packing kernel, the blend at D = 1..8); then
+     `render_local_cameras`, the
      per-rank body of the multi-device render, on phase 5's splats and 4
      cameras with the render's caps (untightened radii, 1089 x 4096 id
      table per camera): 4 K4 launches, K4 against its plain version (the
-     JAX package's log-space blend) on each camera's bins, both timed;
+     JAX package's log-space blend) on each camera's bins, both timed (the
+     wrapper's call: the C entry packs the table, sorts the tiles, blends);
  12. the CLI's remaining flags, on one model of phase 5's configuration
      and weights with phase 5's images and cameras (the render's route
      switched on the model's renderer config between forwards): one flat
@@ -382,7 +390,6 @@ K1_SHAPES = [
     ("encoder", (4, 1374, 16, 64), torch.bfloat16, 24),
     ("frame", (4, 1376, 16, 64), torch.bfloat16, 24),
     ("global", (1, 5504, 16, 64), torch.bfloat16, 24),
-    ("camera_head", (1, 4, 16, 128), torch.float32, 16),
     ("ragged", (2, 37, 16, 64), torch.bfloat16, 0),
     ("ragged_d128", (3, 130, 4, 128), torch.bfloat16, 0),
     ("n127", (1, 127, 16, 64), torch.bfloat16, 0),
@@ -391,6 +398,16 @@ K1_SHAPES = [
     ("n4097", (1, 4097, 16, 64), torch.bfloat16, 0),
     ("d128_n300", (2, 300, 8, 128), torch.bfloat16, 0),
 ]
+
+
+# K1c, the f32 route: the camera head's (1, N, 16, 128) at N = S views;
+# held at the edges of its register kernel's instances (4, 8, 16 keys), of
+# its 16-row blocks (N <= 64), of its resident K/V (3 tiles of 32 keys) and
+# of its ring, timed at the main path's N = 4 (16 launches a forward) and at
+# S = 32 views
+K1C_CHECK_N = (1, 4, 5, 16, 17, 32, 97, 130)
+K1C_TIMED_N = (4, 32)
+K1C_PER_FWD = 16
 
 
 def k1_route(n):
@@ -521,7 +538,87 @@ def phase_k1():
         log(f"K1 {name} per forward: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.2f} ms  "
             f"sdpa {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  "
             f"max|d| {r['err']:.3e}")
+    routes["K1c"] = phase_k1c(gen)
     return routes
+
+
+def device_ms_per_call(fn, reps=50):
+    """fn's device time per call: the CUDA kernels' time under
+    torch.profiler over `reps` calls (after one warm call), summed, / reps
+    -> (ms or None if the profiler shows no device time, kernel names)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, set()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.device_time_total / 1e3
+            names.add(e.name)
+    return (total / reps if total > 0 else None), sorted(names)
+
+
+def phase_k1c(gen):
+    """K1c, K1's f32 route, against its plain version at K1C_CHECK_N (and
+    on fused-qkv views and misaligned inputs), then timed at K1C_TIMED_N
+    against SDPA both ways -> the route's per-forward totals (at N = 4,
+    K1C_PER_FWD launches) with the N = 32 numbers beside them."""
+    from hunyuanworld_mirror_tpu_torch.ops import attention as A
+    err = 0.0
+    for n in K1C_CHECK_N:
+        q, k, v = (torch.randn(1, n, 16, 128, generator=gen, device="cuda")
+                   for _ in range(3))
+        err = max(err, k1_check(f"K1c n{n}", q, k, v))
+    # on each of its kernels: the camera head's layout (views of one qkv
+    # projection), and a base 4 bytes off 16-byte alignment (the tiled
+    # kernel's 4-byte copies)
+    for n in (4, 33):
+        x = torch.randn(1, n, 3, 16, 128, generator=gen, device="cuda")
+        err = max(err, k1_check(f"K1c fused n{n}", *x.unbind(2)))
+        y = torch.randn(3, 1, n * 16 * 128 + 1, generator=gen, device="cuda")
+        q, k, v = (t[0, 1:].view(1, n, 16, 128) for t in y)
+        assert q.data_ptr() % 16 == 4
+        err = max(err, k1_check(f"K1c misaligned n{n}", q, k, v))
+        del x, y, q, k, v
+    out = {"err": err}
+    for n in K1C_TIMED_N:
+        shape = (1, n, 16, 128)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        scale = 128 ** -0.5
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def kern():
+            return A.attention(q, k, v, scale)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+        ms, lib_ms = cuda_ms(kern, reps=200, warmup=20), cuda_ms(sdpa, reps=200, warmup=20)
+        dev_ms, dev_names = device_ms_per_call(kern)
+        lib_dev_ms, lib_names = device_ms_per_call(sdpa)
+        plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, scale), reps=20)
+        bound = k1_bound_ms(shape, torch.float32)
+        ops_ms = 4.0 * 16 * n * n * 128 / F32_FLOPS * 1e3
+        fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
+        log(f"K1c n{n} {shape}: per call (back-to-back loop) kernel {ms:.5f} ms, sdpa "
+            f"{lib_ms:.5f} ms ({ms / lib_ms:.3f}x); device (profiler) kernel "
+            f"{fmt(dev_ms)} {dev_names}, sdpa {fmt(lib_dev_ms)} {lib_names}; plain "
+            f"{plain_ms:.5f} ms; bound {bound:.2e} ms")
+        out[f"n{n}"] = {"ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
+                        "library_device_ms": lib_dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound,
+                        "bound_by": "operations" if ops_ms >= bound else "bytes"}
+    main = out[f"n{K1C_TIMED_N[0]}"]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                "library_device_ms"):
+        out[key] = None if main[key] is None else K1C_PER_FWD * main[key]
+    out["bound_by"] = main["bound_by"]
+    log(f"K1 K1c per forward ({K1C_PER_FWD} launches at N = {K1C_TIMED_N[0]}): kernel "
+        f"{out['ms']:.4f} ms  plain {out['plain_ms']:.4f} ms  sdpa {out['library_ms']:.4f} "
+        f"ms  bound {out['bound_ms']:.2e} ms  max|d| {out['err']:.3e}")
+    return out
 
 
 # --- K2 ---------------------------------------------------------------------
@@ -640,17 +737,17 @@ def check_blend(label, kern, plain):
 
 
 def check_order(label, order, counts):
-    """The tile order K2's C entry sorted (counts in bins max / 1023 wide)
-    against its plain version, longest_first: a permutation whose counts
-    lie, place by place, within one bin of the exact descending sort."""
+    """The tile order K2's C entry sorted (raster_order.cuh) against its
+    plain version, longest_first_bins: a permutation whose tiles' count bins
+    equal the plain order's place by place (within a bin the kernel's
+    atomics decide)."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     n = counts.numel()
     perm = torch.equal(order.sort().values, torch.arange(n, device=order.device))
-    got, want = counts[order].long(), counts[R.longest_first(counts)].long()
-    width = int(counts.max()) // 1023 + 1
-    if not (perm and int((got - want).abs().max()) <= width):
+    bins = R.order_bins(counts)
+    if not (perm and torch.equal(bins[order], bins[R.longest_first_bins(counts)])):
         raise AssertionError(f"{label}: the tile order is not a permutation or not "
-                             f"longest first within {width}")
+                             f"longest first by count bin")
 
 
 def k2_check(label, bins, W, H, d_col, f16):
@@ -754,7 +851,7 @@ def phase_main_path():
     imgs = np.random.default_rng(0).uniform(size=(1, S, HW, HW, 3)).astype(np.float32)
     cams = fixed_cameras(S)
     torch.cuda.reset_peak_memory_stats()
-    attention.launches = attention.flash_route_launches = 0
+    attention.launches = attention.flash_route_launches = attention.f32_launches = 0
     rasterizer_flat.rasterize_flat.launches = 0
     t0 = time.time()
     preds = run(imgs, cfg, camera_params=cams)
@@ -762,14 +859,16 @@ def phase_main_path():
     wall = time.time() - t0
     launches = {"attention_fwd": attention.launches,
                 "attention_fwd_flash_route": attention.flash_route_launches,
+                "attention_fwd_f32": attention.f32_launches,
                 "rasterize_flat_fwd": rasterizer_flat.rasterize_flat.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path run: {wall:.2f} s wall incl. model build and first use; "
         f"peak memory {peak_gb:.2f} GB; launches {launches}")
     if launches != {"attention_fwd": 88, "attention_fwd_flash_route": 24,
-                    "rasterize_flat_fwd": 4}:
-        raise AssertionError(f"expected 88 attention launches (24 at N >= 4096) and "
-                             f"4 rasterizer launches per forward, got {launches}")
+                    "attention_fwd_f32": K1C_PER_FWD, "rasterize_flat_fwd": 4}:
+        raise AssertionError(f"expected 88 attention launches (24 at N >= 4096, "
+                             f"{K1C_PER_FWD} f32) and 4 rasterizer launches per forward, "
+                             f"got {launches}")
 
     # timing: one model, so no forward pays for a model build
     model = load_model(cfg, device="cuda")
@@ -1401,9 +1500,11 @@ def train_k5(train_inputs):
 
 
 def phase_k4(preds):
-    """K4: the per-rank render of the multi-device path on one card."""
+    """K4: its ptxas report (fails on a stack frame or a spill), then the
+    per-rank render of the multi-device path on one card."""
     from hunyuanworld_mirror_tpu_torch.ops import distributed, projection
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned as B
+    ptxas_check("rasterize_binned_fwd", "K4")
     means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
     covars = projection.quat_scale_to_covar_planes(quats, scales)
     proj = distributed.project_for_cameras(means, covars, opac, sh, w2c, Ks, HW, HW)
@@ -1435,10 +1536,11 @@ def k4_check(label, m2d, con, colors, op, bins, HW):
                       lambda: B.rasterize_binned_plain(*args))
     ms = cuda_ms(lambda: B.rasterize_binned(*args))
     plain_ms = cuda_ms(lambda: B.rasterize_binned_plain(*args), reps=2, warmup=1)
-    # the same blend as a flat list: the live slots' rows in tile order
+    # the same blend as a flat list: the live slots' rows in tile order (the
+    # 6 + D fields a blend needs, without the kernel's padding)
     mpt = bins.gauss_ids.shape[1]
     live = torch.arange(mpt, device="cuda")[None, :] < bins.counts[:, None].long()
-    table = B.splat_table(m2d, con, colors, op)
+    table = B.splat_table(m2d, con, colors, op)[:, :6 + colors.shape[1]]
     packed = table[bins.gauss_ids[live].long()].T.contiguous()
     starts = (torch.cumsum(bins.counts.long(), 0) - bins.counts).to(torch.int32)
     bound, by, pairs, t_bytes, t_ops = blend_bound(
@@ -1518,7 +1620,7 @@ def phase_cpu_reference():
 def reset_counts():
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned, rasterizer_flat
     from hunyuanworld_mirror_tpu_torch.ops.attention import attention
-    attention.launches = attention.flash_route_launches = 0
+    attention.launches = attention.flash_route_launches = attention.f32_launches = 0
     rasterizer_flat.rasterize_flat.launches = 0
     rasterizer_binned.rasterize_binned.launches = 0
 
@@ -2920,16 +3022,19 @@ def glb_ok(data):
 
 def app_request(label, port, demo, fields, files, want, extra=()):
     """One POST /run with every count set to 0 just before and read just
-    after: (K1, K1 at N >= 4096, K2, K4) == want, every file of the run
-    written (plus `extra`), scene.glb fetched back through /out/ a valid
-    glTF -> the request's numbers."""
+    after: (K1, K1 at N >= 4096, K2, K4) == want and K1's f32 launches (K1c)
+    == K1C_PER_FWD, every file of the run written (plus `extra`), scene.glb
+    fetched back through /out/ a valid glTF -> the request's numbers."""
     import urllib.request
+
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
     reset_counts()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     page, ms = post_run(port, fields, files)
     got = read_counts()
+    f32 = attention.f32_launches
     peak = torch.cuda.max_memory_allocated()
     m = re.search(r"/out/(run_[0-9a-f]+)/", page)
     if m is None:
@@ -2947,15 +3052,17 @@ def app_request(label, port, demo, fields, files, want, extra=()):
                                 timeout=60) as r:
         glb = r.read()
     elapsed_ms = demo.last_elapsed * 1e3
-    log(f"app {label}: launches (K1, K1 at N >= 4096, K2, K4) {got}; {S} views; "
+    log(f"app {label}: launches (K1, K1 at N >= 4096, K2, K4) {got}, K1c {f32}; {S} views; "
         f"request {ms:.1f} ms wall, forward elapsed {elapsed_ms:.1f} ms; peak "
         f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} "
         f"GB allocated before it); {len(want_files) - len(missing)} of "
         f"{len(want_files)} files, scene.glb {len(glb)} bytes")
-    if got != want or missing or not glb_ok(glb) or S != 4:
-        raise AssertionError(f"app {label}: launches {got} != {want}, missing "
-                             f"{missing}, glTF ok {glb_ok(glb)}, {S} views")
-    return dict(ms=ms, elapsed_ms=elapsed_ms, peak_gb=peak / 1e9,
+    if got != want or f32 != K1C_PER_FWD or missing or not glb_ok(glb) or S != 4:
+        raise AssertionError(f"app {label}: launches {got} != {want} or K1c {f32} != "
+                             f"{K1C_PER_FWD}, missing {missing}, glTF ok {glb_ok(glb)}, "
+                             f"{S} views")
+    return dict(counts=got, f32_launches=f32, ms=ms, elapsed_ms=elapsed_ms,
+                peak_gb=peak / 1e9,
                 above_gb=(peak - base) / 1e9, run_dir=run_dir)
 
 
@@ -3097,6 +3204,11 @@ def phase16_app(imgs):
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
+    # each upload's launches, as counted in its request: (K1a, K1b, K1c, K2,
+    # K4); app_request held every request to them
+    res["launches"] = [(r["counts"][0] - r["counts"][1] - r["f32_launches"],
+                        r["counts"][1], r["f32_launches"], *r["counts"][2:])
+                       for r in reqs]
     res["request_ms"] = float(np.median([r["ms"] for r in reqs]))
     res["elapsed_ms"] = float(np.median([r["elapsed_ms"] for r in reqs]))
     res["forward_ms"] = med["total"]
@@ -3283,6 +3395,8 @@ def multi_sharded_forward(rank, device, dims, imgs, cams, n_timed=3):
     comm.reset()
     preds = model(views, camera_params=cam, mesh=mesh)
     counts = read_counts()
+    from hunyuanworld_mirror_tpu_torch.ops.attention import attention
+    f32_launches = attention.f32_launches
     stats = {k: dict(v) for k, v in comm.stats.items()}
     times = []
     for _ in range(n_timed):
@@ -3292,7 +3406,8 @@ def multi_sharded_forward(rank, device, dims, imgs, cams, n_timed=3):
         model(views, camera_params=cam, mesh=mesh)
         torch.cuda.synchronize()
         times.append((time.time() - t0) * 1e3)
-    out = {"counts": counts, "comm": stats, "ms": times, "coords": mesh.coords,
+    out = {"counts": counts, "f32_launches": f32_launches, "comm": stats, "ms": times,
+           "coords": mesh.coords,
            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
     whole = sharding.gather_predictions(preds, mesh)
     if rank == 0:
@@ -3505,7 +3620,8 @@ def phase_multichip(preds, imgs):
         for r, f in enumerate(fwd):
             k1, k1b, k2, k4 = f["counts"]
             log(f"({tag}) mesh {dims} rank {r} {f['coords']}: launches K1a {k1 - k1b} "
-                f"K1b {k1b} K2 {k2} K4 {k4}; forward ms {[round(t, 2) for t in f['ms']]}; "
+                f"(K1c {f['f32_launches']} of them) K1b {k1b} K2 {k2} K4 {k4}; forward ms "
+                f"{[round(t, 2) for t in f['ms']]}; "
                 f"peak {f['peak_gb']:.2f} GB")
             log(f"({tag})   rank {r} collectives a forward: " + json.dumps(f["comm"]))
             if (k1b, k2, k4) != (0, 0, S // dims[1]) or k1 - k1b != 64:
@@ -3518,7 +3634,8 @@ def phase_multichip(preds, imgs):
                 f"bf16 against f32 trunk {band[k]:.3e}")
             if not (np.isfinite(ours[k]).all() and err <= band[k]):
                 raise AssertionError(f"({tag}) {k}: {err} > {band[k]}")
-        res[tag] = {"launches": fwd[0]["counts"], "forward_ms": float(np.median(
+        res[tag] = {"launches": fwd[0]["counts"], "f32_launches": fwd[0]["f32_launches"],
+                    "forward_ms": float(np.median(
             [t for f in fwd for t in f["ms"]])), "peak_gb": max(f["peak_gb"] for f in fwd),
             "comm": fwd[0]["comm"], "rel_l2": {k: rel_l2(ours[k], ref["bf16"][k])
                                                for k in MULTI_KEYS}, "band": band}
@@ -3644,10 +3761,11 @@ def main():
     ev = timed("app and eval", phase_app_eval, preds, imgs)
     mc = timed("multi-device", phase_multichip, preds, imgs)
     kernels = [
-        {"name": "attention_fwd (N <= 4095: encoder, frame, camera head)",
+        {"name": "attention_fwd (N <= 4095, bf16: encoder, frame)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
          "replaces": "hunyuanworld_mirror_tpu/ops/attn_onepass.py:57",
-         "launches": launches["attention_fwd"] - launches["attention_fwd_flash_route"],
+         "launches": (launches["attention_fwd"] - launches["attention_fwd_flash_route"]
+                      - launches["attention_fwd_f32"]),
          "max_abs_err": k1["K1a"]["err"], "ms": k1["K1a"]["ms"],
          "plain_ms": k1["K1a"]["plain_ms"], "bound_ms": k1["K1a"]["bound_ms"],
          "bound_by": "operations", "library_ms": k1["K1a"]["library_ms"]},
@@ -3736,10 +3854,12 @@ def main():
     # requests; each launch count from every request), and one on the
     # --rasterizer jax route
     a = ev["app"]
-    for row, n in ((kernels[0], 64), (kernels[1], 24), (kernels[2], 4)):
+    a_k1a, a_k1b, a_k1c, a_k2, _ = a["launches"][0]
+    for row, n in ((kernels[0], a_k1a), (kernels[1], a_k1b), (kernels[2], a_k2)):
         row["app_request"] = {"launches": n, "request_ms": a["request_ms"],
                               "elapsed_ms": a["elapsed_ms"]}
-    kernels[-1]["app_request_jax"] = {"launches": 4, "request_ms": a["jax"]["ms"],
+    kernels[-1]["app_request_jax"] = {"launches": a["jax"]["counts"][3],
+                                      "request_ms": a["jax"]["ms"],
                                       "elapsed_ms": a["jax"]["elapsed_ms"]}
     # phase 17: K1a per rank on the sharded forward at mesh (1,2,1) (its
     # launches from rank 0's counted forward, its times at that rank's
@@ -3748,7 +3868,8 @@ def main():
     # 0's first camera's exchanged lists at V = 2)
     k1m = mc["k1"]
     kernels[0]["multichip_forward"] = {
-        "launches": mc["a"]["launches"][0], "launches_122": mc["b"]["launches"][0],
+        "launches": mc["a"]["launches"][0] - mc["a"]["f32_launches"],
+        "launches_122": mc["b"]["launches"][0] - mc["b"]["f32_launches"],
         "max_abs_err": k1m["err"], "ms": k1m["ms"], "plain_ms": k1m["plain_ms"],
         "bound_ms": k1m["bound_ms"], "bound_by": "operations",
         "library_ms": k1m["library_ms"], "forward_ms": mc["a"]["forward_ms"],
@@ -3758,6 +3879,22 @@ def main():
         "launches": mc["a"]["launches"][3], "max_abs_err": k4m[0], "ms": k4m[1],
         "plain_ms": k4m[2], "bound_ms": k4m[3], "bound_by": k4m[4], "library_ms": None,
         "call_ms_v2": mc["c"][2]["ms"], "call_ms_v4": mc["c"][4]["ms"]}
+    # K1c, K1's f32 route (the camera head), beside K1a and K1b: per forward
+    # at the main path's N = 4, its N = 32 numbers beside them
+    k1c = k1["K1c"]
+    kernels.insert(2, {
+        "name": "attention_fwd (f32: camera head, K1c)", "route": "cuda",
+        "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "hunyuanworld_mirror_tpu/ops/attn_onepass.py:57",
+        "launches": launches["attention_fwd_f32"], "max_abs_err": k1c["err"],
+        "ms": k1c["ms"], "plain_ms": k1c["plain_ms"], "bound_ms": k1c["bound_ms"],
+        "bound_by": k1c["bound_by"], "library_ms": k1c["library_ms"],
+        "device_ms": k1c["device_ms"], "library_device_ms": k1c["library_device_ms"],
+        "n32": k1c[f"n{K1C_TIMED_N[1]}"],
+        "app_request": {"launches": a_k1c, "request_ms": a["request_ms"],
+                        "elapsed_ms": a["elapsed_ms"]},
+        "multichip_forward": {"launches": mc["a"]["f32_launches"],
+                              "launches_122": mc["b"]["f32_launches"]}})
     log(f"chip_smoke: {time.time() - T_START:.1f} s wall in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

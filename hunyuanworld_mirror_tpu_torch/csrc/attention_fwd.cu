@@ -46,13 +46,31 @@
 //     others' products on the tensor cores.
 //   Epilogue: O / l, rounded to bf16, stored for rows < N.
 //
-// f32 inputs (the camera head: N = S views, D = 128) take a scalar kernel:
-// one warp per query row, an f32 dot per key reduced by shuffles, the same
-// online softmax, f32 P. At N = 4 its time is the launch.
+// f32 inputs (K1c: the camera head, whose tokens models/camera_head.py
+// casts to f32; N = S views, D = 128, a few to tens of views) take a
+// kernel of their own, f32 FFMA throughout (TF32 or bf16 products would
+// change the reference's precision), exact softmax with f32 P. What bounds
+// it: nothing on the card. At the camera head's (1, 4, 16, 128) the work
+// is ~128 KB and ~0.13 MFLOP, ~4e-5 ms at the card's rates, far below one
+// launch; at N = 32, 16 heads, ~2 MFLOP. So the design is for latency, in
+// two kernels. Up to N = 16 (the camera head's views), no shared memory and
+// no barrier: one warp a query row, each lane loading its D / 32 columns of
+// q and of every key's K and V row into registers in one round, the N dots
+// reduced across the warp together (independent shuffles), then an exact
+// softmax and O = P V. Past N = 16, a block of 4 warps takes 16 query rows
+// (N <= 64) or 64 (past that) of one (batch, head); Q and every K/V tile of
+// 32 keys go to shared memory in one round of cp.async (16-byte copies when
+// the addresses allow), so a block waits for device memory once; each lane
+// scores one key against its warp's rows (K read once a warp, Q broadcast),
+// an online softmax with one warp max a row, then O += P V with each lane
+// owning D / 32 columns. Past N = 96 (3 tiles, ~100 KB of K/V at D = 128)
+// the tiles stream through a two-stage ring under the same online softmax.
 //
-// C interface: attention_fwd(...) builds the tensor maps from the pointers
-// and strides (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so
-// the library needs no -lcuda) and returns a cudaError_t after launch.
+// C interface: attention_fwd(q, k, v, o, dims, scale, stream) reads the
+// shapes, strides and dtype from `dims` (14 values, so that the host passes
+// 7 arguments), builds the bf16 route's tensor maps from the pointers and
+// strides (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the
+// library needs no -lcuda) and returns a cudaError_t after launch.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -83,9 +101,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int D>
 constexpr int key_tile() { return D == 64 ? 128 : 64; }
 
-// f32 scalar kernel
+// f32 kernels (K1c): warps a block, the most keys the register kernel
+// takes, keys a tile (one a lane), the most key tiles kept resident
+// (N <= 96 staged whole), the ring's depth past that
 constexpr int F32_WARPS = 4;
+constexpr int F32_REG_N = 16;
 constexpr int F32_THREADS = F32_WARPS * 32;
+constexpr int F32_BK = 32;
+constexpr int F32_RESIDENT = 3;
+constexpr int F32_RING = 2;
 
 struct Strides {
   long long q_sb, q_sn, q_sh;
@@ -562,49 +586,283 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+// --- the f32 kernels (K1c) -----------------------------------------------------------
+
+// N <= NK keys (NK <= F32_REG_N): one warp a query row, F32_WARPS rows a
+// block. Lane l holds columns l + 32 c of the row's q and of every key's K
+// and V row; all of them are loaded before any is used, so a warp waits for
+// device memory once. The NK partial dots are summed across the warp by
+// five rounds of NK independent shuffles, each lane ending with every
+// score; then the row's exact softmax over the N scores and O = P V.
+template <int D, int NK>
+__global__ void __launch_bounds__(F32_THREADS)
+attn_f32_reg_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int N, int H,
+                    Strides st, float scale) {
+  constexpr int DC = D / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * F32_WARPS + warp;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  if (n >= N) return;  // no barrier below
+  const float* qr = q + b * st.q_sb + n * st.q_sn + h * st.q_sh + lane;
+  const float* kh = k + b * st.k_sb + h * st.k_sh + lane;
+  const float* vh = v + b * st.v_sb + h * st.v_sh + lane;
+  float qv[DC], kv[NK][DC], vv[NK][DC];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) qv[c] = qr[32 * c];
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      kv[j][c] = j < N ? kh[j * st.k_sn + 32 * c] : 0.f;
+      vv[j][c] = j < N ? vh[j * st.v_sn + 32 * c] : 0.f;
+    }
+  float s[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    s[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) s[j] = fmaf(qv[c], kv[j][c], s[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < NK; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+    if (j < N) mx = fmaxf(mx, s[j] * scale);
+  float l = 0.f, acc[DC];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    if (j >= N) break;
+    const float p = expf(s[j] * scale - mx);
+    l += p;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[c] = fmaf(p, vv[j][c], acc[c]);
+  }
+  const float inv = 1.f / l;
+  float* orow = o + ((static_cast<long long>(b) * N + n) * H + h) * D + lane;
+#pragma unroll
+  for (int c = 0; c < DC; ++c) orow[32 * c] = acc[c] * inv;
+}
+
+
+// cp.async of BYTES (4 or 16) from global to shared memory
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const uint32_t d = smem_u32(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` (0 .. F32_RESIDENT - 1) groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// shared memory of a block, in floats: Q (BQ rows), `stages` K tiles, as
+// many V tiles, and each warp's P (BK keys x RW rows). Rows are padded to
+// D + 4 floats, so that 8 lanes reading float4s of 8 rows hit distinct banks.
+template <int D, int RW>
+struct F32Layout {
+  static constexpr int LD = D + 4;
+  static constexpr int BQ = F32_WARPS * RW;
+  static constexpr int PLD = RW + 4;
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int TILE_FLOATS = F32_BK * LD;
+  static constexpr int P_FLOATS = F32_WARPS * F32_BK * PLD;
+  static constexpr size_t bytes(int stages) {
+    return size_t(Q_FLOATS + 2 * stages * TILE_FLOATS + P_FLOATS) * sizeof(float);
+  }
+};
+
+// rows row0 .. min(row0 + rows, N) - 1 of one head (row stride `ld_g`
+// elements) into dst (row stride LD); 16-byte copies when every address is
+// 16-byte aligned, else 4-byte ones. Rows past N are left as they are: a
+// key past N is masked before the softmax and skipped by P V, and a query
+// row past N is computed on its own and never stored.
+template <int D, int LD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* head, long long ld_g,
+                                           int row0, int rows, int N, bool vec16) {
+  rows = min(rows, N - row0);
+  if (vec16) {
+    constexpr int C = D / 4;
+    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+      const int r = i / C, c = i % C;
+      cp_async<16>(dst + r * LD + 4 * c, head + (row0 + r) * ld_g + 4 * c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const int r = i / D, c = i % D;
+      cp_async<4>(dst + r * LD + c, head + (row0 + r) * ld_g + c);
+    }
+  }
+}
+
+// A block of F32_WARPS warps takes BQ = F32_WARPS * RW query rows of one
+// (batch, head); warp w owns rows w * RW .. w * RW + RW - 1. Key tiles of
+// F32_BK = 32 keys, one a lane. Per tile: each lane's dot of its key with
+// the warp's RW rows (Q broadcast from shared memory, K a float4 per lane
+// and step), the online softmax (one warp max a row; each lane keeps its
+// own share of the row sum, summed once at the end), P to shared memory,
+// then O += P V with each lane owning D / 32 columns of the warp's rows.
+// K/V tiles: the first `stages` are loaded with Q up front (all of them
+// when stages == tiles); tile t + stages refills tile t's slot after it.
+template <int D, int RW>
 __global__ void __launch_bounds__(F32_THREADS)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o,
-                int N, int H, Strides st, float scale) {
-  constexpr int PER = D / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * F32_WARPS + warp;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  if (n >= N) return;  // no block-wide barrier below
+                const float* __restrict__ v, float* __restrict__ o, int N, int H,
+                Strides st, float scale, int stages, int vec16) {
+  using L = F32Layout<D, RW>;
+  constexpr int DC = D / 32;  // output columns a lane
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;
+  float* ks = qs + L::Q_FLOATS;
+  float* vs = ks + stages * L::TILE_FLOATS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ps = vs + stages * L::TILE_FLOATS + warp * F32_BK * L::PLD;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * L::BQ;
+  const float* qh = q + b * st.q_sb + h * st.q_sh;
+  const float* kh = k + b * st.k_sb + h * st.k_sh;
+  const float* vh = v + b * st.v_sb + h * st.v_sh;
+  const int tiles = (N + F32_BK - 1) / F32_BK;
 
-  const float* qrow = q + b * st.q_sb + n * st.q_sn + h * st.q_sh;
-  const float* kb = k + b * st.k_sb + h * st.k_sh;
-  const float* vb = v + b * st.v_sb + h * st.v_sh;
-  float qr[PER], acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    qr[i] = qrow[lane + 32 * i];
-    acc[i] = 0.f;
+  // group t holds K/V tile t (group 0 also Q)
+  stage_rows<D, L::LD>(qs, qh, st.q_sn, q0, L::BQ, N, vec16);
+  for (int t = 0; t < stages; ++t) {
+    stage_rows<D, L::LD>(ks + t * L::TILE_FLOATS, kh, st.k_sn, t * F32_BK, F32_BK, N, vec16);
+    stage_rows<D, L::LD>(vs + t * L::TILE_FLOATS, vh, st.v_sn, t * F32_BK, F32_BK, N, vec16);
+    cp_async_commit();
   }
-  float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < N; ++j) {
-    const float* krow = kb + j * st.k_sn;
-    float s = 0.f;
+
+  const int r0 = warp * RW;
+  const bool active = q0 + r0 < N;
+  float m[RW], l[RW], acc[RW][DC];
 #pragma unroll
-    for (int i = 0; i < PER; ++i) s += qr[i] * krow[lane + 32 * i];
+  for (int i = 0; i < RW; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    s *= scale;
-    const float m_new = fmaxf(m, s);
-    const float corr = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * corr + p;
-    const float* vrow = vb + j * st.v_sn;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] = acc[i] * corr + p * vrow[lane + 32 * i];
-    m = m_new;
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
-  float* orow = o + ((static_cast<long long>(b) * N + n) * H + h) * D;
-  const float inv = 1.f / l;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int slot = t % stages;
+    // one group is committed per tile below, so tile t has landed once at
+    // most stages - 1 groups are in flight
+    cp_async_wait(stages - 1);
+    __syncthreads();
+    if (active) {
+      const float* kt = ks + slot * L::TILE_FLOATS;
+      const float* vt = vs + slot * L::TILE_FLOATS;
+      // each dot as CH chains over the float4's components: with few rows a
+      // warp, one chain a row would be D dependent FMAs deep
+      constexpr int CH = RW <= 4 ? 4 : 1;
+      float s[RW], sc[RW][CH];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = acc[i] * inv;
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int c = 0; c < CH; ++c) sc[i][c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kt + lane * L::LD + d);
+#pragma unroll
+        for (int i = 0; i < RW; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (r0 + i) * L::LD + d);
+          sc[i][0] = fmaf(qv.x, kv.x, sc[i][0]);
+          sc[i][1 % CH] = fmaf(qv.y, kv.y, sc[i][1 % CH]);
+          sc[i][2 % CH] = fmaf(qv.z, kv.z, sc[i][2 % CH]);
+          sc[i][3 % CH] = fmaf(qv.w, kv.w, sc[i][3 % CH]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        s[i] = sc[i][0];
+#pragma unroll
+        for (int c = 1; c < CH; ++c) s[i] += sc[i][c];
+      }
+      const bool key_ok = t * F32_BK + lane < N;
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const float x = key_ok ? s[i] * scale : -INFINITY;
+        float mx = x;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float corr = expf(m[i] - m_new);
+        const float p = expf(x - m_new);
+        l[i] = l[i] * corr + p;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+        m[i] = m_new;
+        ps[lane * L::PLD + i] = p;
+      }
+      __syncwarp();
+      const int nk = min(F32_BK, N - t * F32_BK);
+      for (int j = 0; j < nk; ++j) {
+        float vv[DC];
+        if constexpr (DC == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vt + j * L::LD + 4 * lane);
+          vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vt + j * L::LD + 2 * lane);
+          vv[0] = x.x; vv[1] = x.y;
+        }
+        const float* pj = ps + j * L::PLD;
+#pragma unroll
+        for (int i = 0; i < RW; i += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pj + i);
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            acc[i][c] = fmaf(p4.x, vv[c], acc[i][c]);
+            acc[i + 1][c] = fmaf(p4.y, vv[c], acc[i + 1][c]);
+            acc[i + 2][c] = fmaf(p4.z, vv[c], acc[i + 2][c]);
+            acc[i + 3][c] = fmaf(p4.w, vv[c], acc[i + 3][c]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    // every warp is done with the slot before tile t + stages refills it
+    __syncthreads();
+    if (t + stages < tiles) {
+      const int t2 = t + stages;
+      stage_rows<D, L::LD>(ks + slot * L::TILE_FLOATS, kh, st.k_sn, t2 * F32_BK, F32_BK, N,
+                           vec16);
+      stage_rows<D, L::LD>(vs + slot * L::TILE_FLOATS, vh, st.v_sn, t2 * F32_BK, F32_BK, N,
+                           vec16);
+    }
+    cp_async_commit();  // empty past the last tile: keeps one group a tile
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int n = q0 + r0 + i;
+    if (n >= N) continue;
+    const float inv = 1.f / li;
+    float* orow = o + ((static_cast<long long>(b) * N + n) * H + h) * D;
+    if constexpr (DC == 4)
+      *reinterpret_cast<float4*>(orow + 4 * lane) =
+          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+    else
+      *reinterpret_cast<float2*>(orow + 2 * lane) = make_float2(acc[i][0] * inv,
+                                                                acc[i][1] * inv);
+  }
 }
 
 // --- host -------------------------------------------------------------------------
@@ -691,25 +949,81 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-                       int N, int H, const Strides& st, float scale, cudaStream_t s) {
+// whether every address the f32 kernel reads is 16-byte aligned: the bases,
+// and the strides of every dimension it steps along (size > 1)
+bool aligned16(const void* ptr, int B, int N, int H, long long sb, long long sn,
+               long long sh) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (B == 1 || sb % 4 == 0) &&
+         (N == 1 || sn % 4 == 0) && (H == 1 || sh % 4 == 0);
+}
+
+// rows a warp: 4 (16 query rows a block) while N <= 64, where the blocks
+// are few and short; 16 (64 a block) past that, where each block's K/V
+// traffic is shared by more rows
+template <int D, int RW>
+cudaError_t launch_f32_rows(const void* q, const void* k, const void* v, void* o, int B,
+                            int N, int H, const Strides& st, float scale, cudaStream_t s) {
+  using L = F32Layout<D, RW>;
+  const int tiles = (N + F32_BK - 1) / F32_BK;
+  const int stages = tiles <= F32_RESIDENT ? tiles : F32_RING;
+  // past the default 48 KB, raise the instance's limit once per device
+  if (L::bytes(stages) > 48 * 1024) {
+    constexpr int MAX_DEVICES = 64;
+    static bool raised[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= MAX_DEVICES || !raised[dev]) {
+      err = cudaFuncSetAttribute(attn_f32_kernel<D, RW>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 int(L::bytes(F32_RESIDENT)));
+      if (err != cudaSuccess) return err;
+      if (dev < MAX_DEVICES) raised[dev] = true;
+    }
+  }
+  const bool vec16 = aligned16(q, B, N, H, st.q_sb, st.q_sn, st.q_sh) &&
+                     aligned16(k, B, N, H, st.k_sb, st.k_sn, st.k_sh) &&
+                     aligned16(v, B, N, H, st.v_sb, st.v_sn, st.v_sh);
+  dim3 grid((N + L::BQ - 1) / L::BQ, B * H);
+  attn_f32_kernel<D, RW><<<grid, F32_THREADS, L::bytes(stages), s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), N, H, st, scale, stages,
+      vec16 ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// N <= F32_REG_N: the register kernel, an instance of 4, 8 or 16 keys
+template <int D, int NK>
+cudaError_t launch_f32_reg(const void* q, const void* k, const void* v, void* o, int B,
+                           int N, int H, const Strides& st, float scale, cudaStream_t s) {
   dim3 grid((N + F32_WARPS - 1) / F32_WARPS, B * H);
-  attn_f32_kernel<D><<<grid, F32_THREADS, 0, s>>>(
+  attn_f32_reg_kernel<D, NK><<<grid, F32_THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), N, H, st, scale);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+                       int N, int H, const Strides& st, float scale, cudaStream_t s) {
+  static_assert(F32_REG_N == 16, "the register kernel's instances are 4, 8 and 16 keys");
+  if (N <= 4) return launch_f32_reg<D, 4>(q, k, v, o, B, N, H, st, scale, s);
+  if (N <= 8) return launch_f32_reg<D, 8>(q, k, v, o, B, N, H, st, scale, s);
+  if (N <= F32_REG_N) return launch_f32_reg<D, 16>(q, k, v, o, B, N, H, st, scale, s);
+  return N <= 64 ? launch_f32_rows<D, 4>(q, k, v, o, B, N, H, st, scale, s)
+                 : launch_f32_rows<D, 16>(q, k, v, o, B, N, H, st, scale, s);
+}
+
 }  // namespace
 
+// dims: B, N, H, D, the (batch, token, head) strides in elements of q, of k
+// and of v, then 1 for bf16 or 0 for f32 (14 values, read before the launch)
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* o,
-                             int B, int N, int H, int D,
-                             long long q_sb, long long q_sn, long long q_sh,
-                             long long k_sb, long long k_sn, long long k_sh,
-                             long long v_sb, long long v_sn, long long v_sh,
-                             float scale, int is_bf16, void* stream) {
-  const Strides st{q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh};
+                             const long long* dims, float scale, void* stream) {
+  const int B = int(dims[0]), N = int(dims[1]), H = int(dims[2]), D = int(dims[3]);
+  const Strides st{dims[4], dims[5], dims[6], dims[7], dims[8], dims[9],
+                   dims[10], dims[11], dims[12]};
+  const bool is_bf16 = dims[13] != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H > 65535 || N < 1) return int(cudaErrorInvalidValue);
   cudaError_t err;

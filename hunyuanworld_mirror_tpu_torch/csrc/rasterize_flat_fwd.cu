@@ -69,62 +69,12 @@
 // return cudaGetLastError().
 
 #include "raster_common.cuh"
+#include "raster_order.cuh"
 
 namespace {
 
 // A block's threads at most: one per pixel of a 16 x 16 tile.
 constexpr int MAX_THREADS = 256;
-constexpr int ORDER_BINS = 1024;
-
-// The segments longest first, into order (n,): one block of ORDER_BINS
-// threads puts each segment in one of ORDER_BINS bins by count (the longest
-// in bin 0, bins max count / (ORDER_BINS - 1) wide), scans the bins' sizes
-// and scatters each segment's index to its bin's next free slot. Within a
-// bin the order is the atomics' (it does not change what a tile blends).
-__global__ void __launch_bounds__(ORDER_BINS)
-longest_first_kernel(const int* __restrict__ counts, int n, long long* __restrict__ order) {
-  __shared__ int s_bin[ORDER_BINS];
-  __shared__ int s_warp[ORDER_BINS / 32];
-  __shared__ int s_top;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int top = 0;
-  for (int i = tid; i < n; i += ORDER_BINS) top = max(top, counts[i]);
-  top = __reduce_max_sync(raster::FULL_MASK, top);
-  if (tid == 0) s_top = 1;
-  s_bin[tid] = 0;
-  __syncthreads();
-  if (lane == 0) atomicMax(&s_top, top);
-  __syncthreads();
-  const long long scale = s_top;
-  const auto bin_of = [&](int c) {
-    return ORDER_BINS - 1 - int(static_cast<long long>(max(c, 0)) * (ORDER_BINS - 1) / scale);
-  };
-  for (int i = tid; i < n; i += ORDER_BINS) atomicAdd(&s_bin[bin_of(counts[i])], 1);
-  __syncthreads();
-  // exclusive scan of the bins' sizes: in each warp, then over the warps
-  const int size = s_bin[tid];
-  int x = size;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(raster::FULL_MASK, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = s_warp[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(raster::FULL_MASK, w, o);
-      if (lane >= o) w += y;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  s_bin[tid] = x - size + (warp > 0 ? s_warp[warp - 1] : 0);
-  __syncthreads();
-  for (int i = tid; i < n; i += ORDER_BINS) order[atomicAdd(&s_bin[bin_of(counts[i])], 1)] = i;
-}
 
 template <int D>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -160,7 +110,7 @@ int launch(const void* packed, const void* starts, const void* counts, void* ord
     return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (order != nullptr)
-    longest_first_kernel<<<1, ORDER_BINS, 0, s>>>(static_cast<const int*>(counts),
+    raster::longest_first_kernel<<<1, raster::ORDER_BINS, 0, s>>>(static_cast<const int*>(counts),
                                                  n_tiles * n_cams,
                                                  static_cast<long long*>(order));
   return raster::with_d_col(d_col, [&](auto d) {

@@ -24,13 +24,27 @@ from .rasterizer_flat import (ALPHA_THRESHOLD, T_EPS, _from_tiles, _to_tiles,
                               launch, tile_groups)
 
 # the C entry's arguments before the trailing stream
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+         + [ctypes.c_int] * 7)
+
+
+def row_floats(d_col: int) -> int:
+    """Floats a row of splat_table: the 6 + d_col fields padded to whole
+    float4s (K4 reads a row as 16-byte copies)."""
+    return (6 + d_col + 3) // 4 * 4
 
 
 def splat_table(means2d, conics, colors, opacities) -> torch.Tensor:
-    """(N, 6 + D) rows [mx, my, ca, cb, cc, op, colours] (the JAX route's
-    staging table, before its per-tile gather)."""
-    return torch.cat([means2d, conics, opacities[:, None], colors], dim=-1)
+    """(N, row_floats(D)) f32 rows [mx, my, ca, cb, cc, op, colours] (the
+    JAX route's (N, 6 + D) staging table, before its per-tile gather), then
+    zeros to whole float4s: K4's layout, the port's own, which K4's C entry
+    packs on the card itself (this is its plain version)."""
+    n, d = colors.shape
+    parts = [means2d, conics, opacities[:, None], colors]
+    pad = row_floats(d) - 6 - d
+    if pad:
+        parts.append(means2d.new_zeros(1, 1).expand(n, pad))
+    return torch.cat(parts, dim=-1).float().contiguous()
 
 
 def tile_pixels(t0: int, t1: int, width: int, tile_size: int, device):
@@ -164,12 +178,17 @@ def rasterize_binned_world(means: torch.Tensor, iscl_rots: torch.Tensor,
     return img, alpha[..., None]
 
 
-def _check_bins(table, bins, width, height, tile_size, d_col):
+def _check_bins(params, bins, width, height, tile_size, d_col):
+    """Raise unless K4 takes these f32 (means2d, conics, colors, opacities)
+    and dense bins -> (tiles_x, tiles_y)."""
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
-    if table.dtype != torch.float32 or table.shape[1:] != (6 + d_col,):
-        raise ValueError(f"table must be f32 (N, {6 + d_col}), got {table.dtype} "
-                         f"{tuple(table.shape)}")
+    n, dev = params[0].shape[0], params[0].device
+    for name, x, shape in zip(("means2d", "conics", "colors", "opacities"), params,
+                              ((n, 2), (n, 3), (n, d_col), (n,))):
+        if x.shape != shape or x.device != dev:
+            raise ValueError(f"{name} must be {shape} on {dev}, got "
+                             f"{tuple(x.shape)} on {x.device}")
     ids, counts = bins.gauss_ids, bins.counts
     if ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != tw * th:
         raise ValueError(f"gauss_ids must be int32 ({tw * th}, max_per_tile), got "
@@ -177,8 +196,8 @@ def _check_bins(table, bins, width, height, tile_size, d_col):
     if counts.dtype != torch.int32 or counts.shape != (tw * th,):
         raise ValueError(f"counts must be int32 ({tw * th},), got {counts.dtype} "
                          f"{tuple(counts.shape)}")
-    if ids.device != table.device or counts.device != table.device:
-        raise ValueError(f"the bins must lie on {table.device}")
+    if ids.device != dev or counts.device != dev:
+        raise ValueError(f"the bins must lie on {dev}")
     check_kernel_dims(tile_size, d_col)
     return tw, th
 
@@ -191,20 +210,27 @@ def rasterize_binned(means2d: torch.Tensor, conics: torch.Tensor,
     (H, W, 1)), both f32; not differentiable (RasterizeBinned is).
 
     A CPU tensor takes rasterize_binned_plain; a CUDA tensor launches kernel
-    K4 (counted in `rasterize_binned.launches`) or raises.
+    K4 (counted in `rasterize_binned.launches`) or raises. K4's C entry
+    packs the splats' rows (splat_table's layout) into a scratch table and
+    sorts the tiles longest first into a scratch order before the blend.
     """
     if check_device(means2d, "rasterize_binned"):
         return rasterize_binned_plain(means2d, conics, colors, opacities, bins,
                                       width, height, tile_size)
     d_col = colors.shape[-1]
-    table = splat_table(means2d, conics, colors, opacities).float().contiguous()
-    tw, th = _check_bins(table, bins, width, height, tile_size, d_col)
+    params = [x.float().contiguous() for x in (means2d, conics, colors, opacities)]
+    tw, th = _check_bins(params, bins, width, height, tile_size, d_col)
+    m2d, con, col, op = params
     ids, counts = bins.gauss_ids.contiguous(), bins.counts.contiguous()
-    img, alpha, _, _ = forward_outputs((), height, width, d_col, table.device)
-    launch("rasterize_binned_fwd", "rasterize_binned_fwd", _ARGS, table.device,
-           table.data_ptr(), ids.data_ptr(), counts.data_ptr(), img.data_ptr(),
-           alpha.data_ptr(), width, height, tile_size, tw, tw * th, d_col,
-           ids.shape[1])
+    img, alpha, _, _ = forward_outputs((), height, width, d_col, m2d.device)
+    # K4's scratch: the packed rows (splat_table's) and the tile order
+    table = m2d.new_empty(m2d.shape[0], row_floats(d_col))
+    order = torch.empty(counts.shape, dtype=torch.int64, device=counts.device)
+    launch("rasterize_binned_fwd", "rasterize_binned_fwd", _ARGS, m2d.device,
+           m2d.data_ptr(), con.data_ptr(), op.data_ptr(), col.data_ptr(), m2d.shape[0],
+           table.data_ptr(), ids.data_ptr(), counts.data_ptr(), order.data_ptr(),
+           img.data_ptr(), alpha.data_ptr(), width, height, tile_size, tw, tw * th,
+           d_col, ids.shape[1])
     rasterize_binned.launches += 1
     return img, alpha
 

@@ -555,6 +555,25 @@ def longest_first(counts: torch.Tensor) -> torch.Tensor:
     return torch.argsort(counts, descending=True)
 
 
+# bins of the kernels' counting sort of the tiles (csrc/raster_order.cuh)
+ORDER_BINS = 1024
+
+
+def order_bins(counts: torch.Tensor) -> torch.Tensor:
+    """Each tile's bin in the kernels' longest-first sort: bin 0 the
+    longest, bins max(counts) / (ORDER_BINS - 1) wide (int64)."""
+    top = max(int(counts.max()) if counts.numel() else 0, 1)
+    return ORDER_BINS - 1 - counts.long().clamp_min(0) * (ORDER_BINS - 1) // top
+
+
+def longest_first_bins(counts: torch.Tensor) -> torch.Tensor:
+    """The order raster_order.cuh's longest_first_kernel gives K2, K2m and K4
+    (its plain version): the tiles by bin (order_bins), longest first. The
+    kernel leaves the order within a bin to its atomics; this takes index
+    order there. No tile blends differently in either order."""
+    return torch.sort(order_bins(counts), stable=True).indices
+
+
 def rasterize_flat_bwd_launch(packed, starts, counts, gauss_ids, v_img, v_alpha,
                               t_final, last, splat, entry, width: int,
                               height: int, tile_size: int, d_col: int,

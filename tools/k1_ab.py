@@ -1,6 +1,6 @@
 """A/B of K1's build-time design choices, on one NVIDIA GPU.
 
-    python3 tools/k1_ab.py
+    python3 tools/k1_ab.py [PARENT]
 
 Compiles hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu once as it is
 and once for each variant below (one constant changed), loads each
@@ -9,9 +9,20 @@ build with ctypes, holds each against the plain version (max|d| within
 alternating rounds at the main path's bf16 shapes, every build launched
 through its C entry alone, with SDPA beside them. Prints the card's name
 and power limit first. Nothing here runs without a card.
+
+With PARENT, a checkout root of another tree (a parent unpacked with `git
+archive` into a directory `.gitignore` lists, e.g. build/ab/parent), it
+also builds PARENT's attention_fwd.cu and times its f32 route against this
+tree's (K1c) at the camera head's (1, N, 16, 128), N = 4, 16 and 32, each
+held to the plain version's f32 band (2^-16 max|plain|): the device time a call
+under torch.profiler and the C entry's time a call in a back-to-back loop,
+in alternating rounds, SDPA beside them. It also holds this tree's bf16
+route (K1a, K1b) to PARENT's bit for bit at the main path's shapes and on
+the encoder's fused-qkv views, and fails where they differ.
 """
 
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
@@ -70,10 +81,117 @@ def build(out_dir: Path):
 
 def launch(lib, q, k, v, o, scale):
     rc = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           *q.shape, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                           scale, 1, torch.cuda.current_stream().cuda_stream)
+                           A._check(q, k, v).addr, scale,
+                           torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+
+
+def parent_k1(parent: str):
+    """PARENT's attention_fwd.cu built and loaded -> a launch function of
+    (q, k, v, o, scale) for either of its C signatures (dims by address, or
+    the 22 arguments of the trees before it)."""
+    src = Path(parent) / "hunyuanworld_mirror_tpu_torch" / "csrc" / "attention_fwd.cu"
+    lib_path = _build.BUILD_DIR / "libk1_ab_parent.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    if re.search(r"const long long\* dims", src.read_text()):
+        A.declare(lib)
+
+        def run(q, k, v, o, scale):
+            launch(lib, q, k, v, o, scale)
+    else:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, i] + [ll] * 9 + [
+            ctypes.c_float, i, p]
+        lib.attention_fwd.restype = ctypes.c_int
+
+        def run(q, k, v, o, scale):
+            rc = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   *q.shape, *q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3], scale, int(q.dtype == torch.bfloat16),
+                                   torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"the parent's K1 launch failed: CUDA error {rc}")
+    return run
+
+
+def device_ms(fn, reps=100):
+    """fn's device time a call under torch.profiler (its CUDA kernels), or
+    None if the profiler shows none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def bf16_same(theirs, ours, gen):
+    """This tree's bf16 route against PARENT's, bit for bit, at SHAPES and
+    on fused-qkv views (N-stride 3 C)."""
+    cases = [(label, [torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                      for _ in range(3)]) for label, shape in SHAPES]
+    x = torch.randn(4, 1374, 3, 16, 64, generator=gen, device="cuda").bfloat16()
+    cases.append(("fused views", list(x.unbind(2))))
+    for label, (q, k, v) in cases:
+        scale = q.shape[-1] ** -0.5
+        o_theirs, o_ours = torch.empty_like(q), torch.empty_like(q)
+        theirs(q, k, v, o_theirs, scale)
+        launch(ours, q, k, v, o_ours, scale)
+        torch.cuda.synchronize()
+        same = torch.equal(o_theirs, o_ours)
+        print(f"bf16 {label} {tuple(q.shape)}: this tree against the parent "
+              f"{'bit for bit' if same else 'DIFFERS'}", flush=True)
+        if not same:
+            raise AssertionError(f"bf16 {label}: {int((o_theirs != o_ours).sum())} "
+                                 "elements differ from the parent's")
+
+
+def f32_ab(parent: str):
+    """K1c (this tree's C entry) against PARENT's f32 route and SDPA; the
+    bf16 route against PARENT's bit for bit."""
+    theirs = parent_k1(parent)
+    ours = A.declare(_build.load("attention_fwd"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16_same(theirs, ours, gen)
+    for n in (4, 16, 32):
+        shape = (1, n, 16, 128)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        o = torch.empty_like(q)
+        scale = 128 ** -0.5
+        ref = A.attention_plain(q, k, v, scale)
+        band = 2.0 ** -16 * float(ref.abs().max())
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        runs = {"parent f32": lambda: theirs(q, k, v, o, scale),
+                "this tree (K1c)": lambda: launch(ours, q, k, v, o, scale),
+                "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, scale=scale)}
+        for name in ("parent f32", "this tree (K1c)"):
+            o.zero_()
+            runs[name]()
+            torch.cuda.synchronize()
+            err = float((o - ref).abs().max())
+            if not err <= band:
+                raise AssertionError(f"{name} {shape}: max|d| {err} > {band}")
+        times = {name: ([], []) for name in runs}
+        names = list(runs)
+        for r in range(ROUNDS):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                times[name][0].append(device_ms(runs[name]))
+                times[name][1].append(cuda_ms(runs[name], reps=200))
+        for name, (dev, call) in times.items():
+            dev = [x for x in dev if x is not None]
+            print(f"f32 {shape}: {name:16s} device (profiler) median "
+                  f"{statistics.median(dev) if dev else float('nan'):.5f} ms  C entry a "
+                  f"call median {statistics.median(call):.5f} ms  rounds "
+                  + " ".join(f"{x:.5f}" for x in dev), flush=True)
 
 
 def cuda_ms(fn, reps=REPS):
@@ -96,6 +214,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip(), flush=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if sys.argv[1:]:
+        f32_ab(sys.argv[1])
     libs = build(_build.BUILD_DIR)
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, shape in SHAPES:

@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the five CUDA sources (csrc/*.cu) compiled from this checkout,
+  2. build: the four CUDA sources (csrc/*.cu) compiled from this checkout,
      the nvcc processes started together;
   3. K1 (attention_fwd) against its plain version: the ptxas report (no
      C7508, no spills); the main path's shapes, timed (kernel, plain, SDPA,
@@ -73,10 +73,12 @@ Phases (any failure exits non-zero before the last line is printed):
      and share of pixels with |d| > 1e-3: the camera-batched key keeps 18
      depth bits, not 20); the kernel, its plain version, the whole route
      and the per-camera route timed;
- 10. K5 (rasterize_flat_grouped_fwd): the per-camera inference route (f16
-     payload) with WM_RASTER_GROUP at 16, 8 and 4: 4 K5 and 0 K2 launches a
-     call, K5 against its plain version and against K2 on each camera's
-     list, extra_dropped; then optimize_splats for 3 steps on phase 8's
+ 10. K5 (`rasterize_flat_grouped`: K2's entry in rasterize_flat_fwd.cu on
+     the window-clamped segments, one block a tile, longest first): the
+     per-camera inference route (f16 payload) with WM_RASTER_GROUP at 16, 8
+     and 4: 4 K5 and 0 K2 launches a call, K5 against its plain version and
+     bit for bit against K2 on each camera's clamped list, both timed,
+     extra_dropped; then optimize_splats for 3 steps on phase 8's
      inputs with WM_RASTER_GROUP=4 against the same 3 steps with G=1: 4 K5,
      0 K2 and 4 K3 launches a step, the losses within 1e-5 relative,
      n_dropped equal (the window clamp cut nothing, so K3 read the same
@@ -370,8 +372,7 @@ def phase_build():
     from hunyuanworld_mirror_tpu_torch.ops import _build
     t0 = time.time()
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
-                            "rasterize_flat_bwd", "rasterize_flat_grouped_fwd",
-                            "rasterize_binned_fwd"])
+                            "rasterize_flat_bwd", "rasterize_binned_fwd"])
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -1441,7 +1442,7 @@ def k5_render(preds, group):
     launches = (R.rasterize_flat_grouped.launches, R.rasterize_flat.launches)
     if launches != (4, 0) or not torch.isfinite(out).all():
         raise AssertionError(f"K5 G={group} route: (K5, K2) launches {launches}")
-    rows = []
+    rows, k2_total = [], 0.0
     for c in range(w2c.shape[0]):
         bins = rasterizer.bin_camera(means, quats, scales, opac, sh, w2c[c], Ks[c],
                                      HW, HW, 16, RENDER_MPT, RENDER_TPG, True)
@@ -1454,6 +1455,9 @@ def k5_render(preds, group):
         img, alpha = R.rasterize_flat_grouped(*args, group)
         img2, alpha2 = R.rasterize_flat(*args)
         vs_k2 = max(float((img - img2).abs().max()), float((alpha - alpha2).abs().max()))
+        if not (torch.equal(img, img2) and torch.equal(alpha, alpha2)):
+            raise AssertionError(f"K5 G={group} camera {c}: differs from K2 on the same "
+                                 f"clamped list by {vs_k2}")
         ms = cuda_ms(lambda: R.rasterize_flat_grouped(*args, group))
         k2_ms = cuda_ms(lambda: R.rasterize_flat(*args))
         plain_ms = cuda_ms(lambda: R.rasterize_flat_grouped_plain(*args), reps=2,
@@ -1463,8 +1467,11 @@ def k5_render(preds, group):
             f"{err:.3e}, vs K2 on the same list {vs_k2:.3e}  kernel {ms:.4f} ms  "
             f"K2 {k2_ms:.4f} ms  plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by})")
         rows.append((err, ms, plain_ms, bound, by))
-    return launches[0], totals(f"K5 G={group} per render of {w2c.shape[0]} cameras",
-                               rows)
+        k2_total += k2_ms
+    out = totals(f"K5 G={group} per render of {w2c.shape[0]} cameras", rows)
+    log(f"K5 G={group} per render: {out['ms']:.4f} ms against K2's {k2_total:.4f} ms on "
+        f"the same clamped lists ({out['ms'] / k2_total:.4f}x)")
+    return launches[0], out
 
 
 def train_k5(train_inputs):
@@ -1536,11 +1543,10 @@ def k4_check(label, m2d, con, colors, op, bins, HW):
                       lambda: B.rasterize_binned_plain(*args))
     ms = cuda_ms(lambda: B.rasterize_binned(*args))
     plain_ms = cuda_ms(lambda: B.rasterize_binned_plain(*args), reps=2, warmup=1)
-    # the same blend as a flat list: the live slots' rows in tile order (the
-    # 6 + D fields a blend needs, without the kernel's padding)
+    # the same blend as a flat list: the live slots' rows in tile order
     mpt = bins.gauss_ids.shape[1]
     live = torch.arange(mpt, device="cuda")[None, :] < bins.counts[:, None].long()
-    table = B.splat_table(m2d, con, colors, op)[:, :6 + colors.shape[1]]
+    table = B.splat_table(m2d, con, colors, op)
     packed = table[bins.gauss_ids[live].long()].T.contiguous()
     starts = (torch.cumsum(bins.counts.long(), 0) - bins.counts).to(torch.int32)
     bound, by, pairs, t_bytes, t_ops = blend_bound(
@@ -3793,8 +3799,8 @@ def main():
     ]
     for kernel, source, replaces, count, row in (
             ("rasterize_flat_multi_fwd", "rasterize_flat_fwd.cu", 771, k2m_launches, k2m),
-            ("rasterize_flat_grouped_fwd", "rasterize_flat_grouped_fwd.cu", 467,
-             k5_launches, k5),
+            ("rasterize_flat_grouped (K2's entry on the clamped lists)",
+             "rasterize_flat_fwd.cu", 467, k5_launches, k5),
             ("rasterize_binned_fwd", "rasterize_binned_fwd.cu", 138, k4_launches, k4)):
         kernels.append(
             {"name": kernel, "route": "cuda",

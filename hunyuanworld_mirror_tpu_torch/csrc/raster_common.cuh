@@ -1,8 +1,7 @@
 // Shared pieces of the tile-rasterizer kernels, for sm_90a: the keep and stop
 // rules, the sigma rounding, the f16 decode, each entry's keep box, and the
-// front-to-back blend of one tile that the forward kernels K2 / K2m
-// (rasterize_flat_fwd.cu), K5 (rasterize_flat_grouped_fwd.cu) and K4
-// (rasterize_binned_fwd.cu) run. K3 (rasterize_flat_bwd.cu) replays the same
+// front-to-back blend of one tile that the forward kernels K2 / K2m / K5
+// (rasterize_flat_fwd.cu) and K4 (rasterize_binned_fwd.cu) run. K3 (rasterize_flat_bwd.cu) replays the same
 // keep test with the same sigma, and skips with the same box.
 //
 // Every kernel that includes this header has to decide each (pixel, entry)
@@ -272,8 +271,8 @@ inline bool tile_fits(int tile_size, int max_threads) {
 // entry j into slot s (through Batch::put, which also writes its keep box),
 // then every warp walks the batch. The block leaves as soon as
 // __syncthreads_count says every pixel is done. The barrier at the head of
-// each batch also guards the staging planes against the previous batch (or
-// the previous tile's last batch) still being read.
+// each batch also guards the staging planes against the previous batch
+// still being read.
 template <int D, class Stage>
 __device__ __forceinline__ void blend_tile(const Batch& b, int count, Pixel<D>& pixel,
                                            Stage stage) {

@@ -1,15 +1,30 @@
-// Kernels K2 and K2m: flat tile-rasterizer forward (3D Gaussian splats), for
-// sm_90a. One kernel body, two entries.
+// Kernels K2, K2m and K5: flat tile-rasterizer forward (3D Gaussian splats),
+// for sm_90a. One kernel body, two entries.
 //
 // Replaces (TPU, Pallas): hunyuanworld_mirror_tpu/ops/rasterizer_pallas.py:
-// _kernel_flat. K2 (rasterize_flat_fwd) is its launch from _forward_flat
-// (public entry rasterize_flat_pallas): one camera. K2m
-// (rasterize_flat_multi_fwd) is its launch with n_tiles != 0 from
-// _forward_flat_multi (public entry rasterize_flat_pallas_multi): C cameras
-// binned into one sorted list by ops/tiles.bin_gaussians_packed_multi,
-// segment s being camera s / n_tiles, tile s % n_tiles. Input is a (tile | depth)-
-// sorted, component-major intersection list: list segment s owns entries
-// [starts[s], starts[s] + counts[s]) of packed (V, M).
+// _kernel_flat and _kernel_flat_grouped. K2 (rasterize_flat_fwd) is
+// _kernel_flat's launch from _forward_flat (public entry
+// rasterize_flat_pallas): one camera. K2m (rasterize_flat_multi_fwd) is its
+// launch with n_tiles != 0 from _forward_flat_multi (public entry
+// rasterize_flat_pallas_multi): C cameras binned into one sorted list by
+// ops/tiles.bin_gaussians_packed_multi, segment s being camera s / n_tiles,
+// tile s % n_tiles. K5 (_kernel_flat_grouped, launched from
+// _forward_flat_grouped when WM_RASTER_GROUP = G > 1) is K2's entry on the
+// same list with each tile's segment clamped to its group's window. Input
+// is a (tile | depth)-sorted, component-major intersection list: list
+// segment s owns entries [starts[s], starts[s] + counts[s]) of packed (V, M).
+//
+// Why K5 is K2's entry and has no kernel of its own: the TPU kernel walked
+// G consecutive tiles a grid step to amortise the step's fixed cost and to
+// copy one contiguous DMA window a group. A block on this card pays neither
+// cost, and a block that walks G tiles in index order holds its SM for the
+// group's longest tile: that design took 1.6x K2's time on the same clamped
+// lists (PERF.md). The windows themselves (rasterizer_pallas._group_windows)
+// are computed on the host in JAX too, and stay plain torch
+// (ops/rasterizer_flat.group_windows). What is left of K5's function is
+// K2's blend on the clamped (starts, counts): one block a tile, the tiles
+// longest first by the clamped counts, with K2's payloads and training
+// planes; G shapes the windows and never reaches the card.
 //
 // Per pixel, front to back over its tile's entries (raster_common.cuh):
 //   sigma = 0.5 (ca dx^2 + cc dy^2) + cb dx dy     (pixel centre at +0.5)

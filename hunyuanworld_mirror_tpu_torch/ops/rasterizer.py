@@ -35,8 +35,8 @@ from ..utils.rotation import quat_to_rotmat
 from . import cameras, projection, tiles
 from .rasterizer_binned import (RasterizeBinned, dense_weights, group_entries,
                                 rasterize_binned_world, tile_pixels)
-from .rasterizer_flat import (_from_tiles, group_windows, longest_first,
-                              pack_f16_pairs, rasterize_flat, rasterize_flat_bwd,
+from .rasterizer_flat import (_from_tiles, group_windows, pack_f16_pairs,
+                              rasterize_flat, rasterize_flat_bwd,
                               rasterize_flat_grouped, rasterize_flat_multi,
                               tile_groups)
 
@@ -194,20 +194,19 @@ def blend_flat(bins: tiles.FlatBins, width: int, height: int, tile_size: int,
     G > 1, K5 on the segments clamped to their group windows ->
     (rasterize_flat's outputs, the starts and counts blended, n_dropped
     including the entries the windows cut). `order_out` receives the order
-    in which K2's blocks took the tiles (longest_first(counts) on the K5
-    route). WM_RASTER_GROUP is read at every call, as
-    rasterizer_pallas._flat_fwd reads it."""
+    in which the kernel's blocks took the tiles, longest first by the counts
+    blended (the clamped ones on the K5 route). WM_RASTER_GROUP is read at
+    every call, as rasterizer_pallas._flat_fwd reads it."""
     group = int(os.environ.get("WM_RASTER_GROUP", "1"))
     if group <= 1:
         outs = rasterize_flat(bins.packed, bins.starts, bins.counts, width,
                               height, tile_size, d_col, f16, with_state, order_out)
         return outs, bins.starts, bins.counts, bins.n_dropped
-    if order_out is not None:
-        order_out.copy_(longest_first(bins.counts))
     starts, counts, extra = group_windows(bins.starts, bins.counts, group,
                                           max_per_tile, bins.packed.shape[1])
     outs = rasterize_flat_grouped(bins.packed, starts, counts, width, height,
-                                  tile_size, d_col, f16, group, with_state)
+                                  tile_size, d_col, f16, group, with_state,
+                                  order_out)
     return outs, starts, counts, bins.n_dropped + extra
 
 
@@ -230,9 +229,9 @@ class RasterizeFlat(torch.autograd.Function):
     JAX backward re-bins with the unclamped counts, so the two agree only
     where no group overflows its window.
 
-    K2 sorts the tiles by falling count and its blocks take them in that
-    order; forward saves the order, and K3's blocks take the tiles in it
-    too.
+    K2 (and K5, by the clamped counts) sorts the tiles by falling count and
+    its blocks take them in that order; forward saves the order, and K3's
+    blocks take the tiles in it too.
 
     backward holds no per-entry buffer: K3 walks each tile back to front
     (its pixels over 4 blocks, a warp to 8 x 4 pixels, the tiles longest

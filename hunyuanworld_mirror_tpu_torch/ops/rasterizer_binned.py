@@ -29,22 +29,17 @@ _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
 
 
 def row_floats(d_col: int) -> int:
-    """Floats a row of splat_table: the 6 + d_col fields padded to whole
-    float4s (K4 reads a row as 16-byte copies)."""
-    return (6 + d_col + 3) // 4 * 4
+    """Floats a row of splat_table: the 6 + d_col fields, unpadded (K4 reads
+    a row with 4-byte loads)."""
+    return 6 + d_col
 
 
 def splat_table(means2d, conics, colors, opacities) -> torch.Tensor:
-    """(N, row_floats(D)) f32 rows [mx, my, ca, cb, cc, op, colours] (the
-    JAX route's (N, 6 + D) staging table, before its per-tile gather), then
-    zeros to whole float4s: K4's layout, the port's own, which K4's C entry
-    packs on the card itself (this is its plain version)."""
-    n, d = colors.shape
-    parts = [means2d, conics, opacities[:, None], colors]
-    pad = row_floats(d) - 6 - d
-    if pad:
-        parts.append(means2d.new_zeros(1, 1).expand(n, pad))
-    return torch.cat(parts, dim=-1).float().contiguous()
+    """(N, row_floats(D)) f32 rows [mx, my, ca, cb, cc, op, colours]: the
+    JAX route's (N, 6 + D) staging table, before its per-tile gather, which
+    K4's C entry packs on the card itself (this is its plain version)."""
+    return torch.cat([means2d, conics, opacities[:, None], colors],
+                     dim=-1).float().contiguous()
 
 
 def tile_pixels(t0: int, t1: int, width: int, tile_size: int, device):

@@ -10,8 +10,9 @@ cameras (`_forward_flat_multi` / `rasterize_flat_pallas_multi`); K5
 is the globally sorted, component-major intersection list of
 ops/tiles.bin_gaussians_packed (or bin_gaussians_packed_multi): tile t
 blends entries [starts[t], starts[t] + counts[t]) of `packed` (V, M) front
-to back. The CUDA kernels are csrc/rasterize_flat_fwd.cu (K2, K2m),
-csrc/rasterize_flat_grouped_fwd.cu (K5) and csrc/rasterize_flat_bwd.cu (K3).
+to back. The CUDA kernels are csrc/rasterize_flat_fwd.cu (K2, K2m, and K5:
+K2's entry on the window-clamped segments) and csrc/rasterize_flat_bwd.cu
+(K3).
 """
 
 import ctypes
@@ -348,8 +349,8 @@ def group_windows(starts: torch.Tensor, counts: torch.Tensor, group: int,
             extra)
 
 
-# K5's plain version: how many tiles one block walks does not change what a
-# tile blends, so it is rasterize_flat_plain on the window-clamped list.
+# K5's plain version (and the wrapper's on a CPU tensor): the group shapes
+# only the windows, so it is rasterize_flat_plain on the window-clamped list.
 rasterize_flat_grouped_plain = rasterize_flat_plain
 
 
@@ -359,7 +360,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each C entry's arguments before the trailing stream
 _FWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL, _I]
 _MULTI_ARGS = [_P] * 6 + [_I] * 7 + [_LL]
-_GROUPED_ARGS = [_P] * 7 + [_I] * 7 + [_LL, _I]
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_LL]
 
 
@@ -445,24 +445,14 @@ def _check_order(order: torch.Tensor, counts: torch.Tensor) -> None:
                          f"{order.device}")
 
 
-def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
-                   counts: torch.Tensor, width: int, height: int,
-                   tile_size: int, d_col: int, f16: bool,
-                   with_state: bool = False, order_out=None):
-    """Blend one camera's sorted intersection list -> (img (H, W, d_col),
-    alpha (H, W, 1)), both f32; `with_state` adds the final transmittance
-    (H, W) and last kept entry (H, W) int32 that the backward reads.
-
-    A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches kernel
-    K2 (counted in `rasterize_flat.launches`) or raises. K2's blocks take
-    the tiles longest first, in an order its C entry sorts (by count, in
-    bins); `order_out`, an (n_tiles,) int64 tensor, receives that order
-    (on the CPU: longest_first(counts)), so that K3 can take the same one.
-    Tiles must be 16 x 16 on the card.
-    """
+def _flat_forward(fn, packed, starts, counts, width, height, tile_size, d_col,
+                  f16, with_state, order_out):
+    """rasterize_flat's body for `fn` (rasterize_flat or
+    rasterize_flat_grouped): the plain version on a CPU tensor, else one
+    launch of K2's C entry, counted in fn.launches."""
     if order_out is not None:
         _check_order(order_out, counts)
-    if check_device(packed, "rasterize_flat"):
+    if check_device(packed, fn.__name__):
         if order_out is not None:
             order_out.copy_(longest_first(counts))
         return rasterize_flat_plain(packed, starts, counts, width, height,
@@ -478,8 +468,27 @@ def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
            packed.data_ptr(), starts.data_ptr(), counts.data_ptr(), order.data_ptr(),
            img.data_ptr(), alpha.data_ptr(), _ptr(t_fin), _ptr(last), width,
            height, tile_size, tw, tw * th, d_col, packed.shape[1], int(f16))
-    rasterize_flat.launches += 1
+    fn.launches += 1
     return (img, alpha, t_fin, last) if with_state else (img, alpha)
+
+
+def rasterize_flat(packed: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor, width: int, height: int,
+                   tile_size: int, d_col: int, f16: bool,
+                   with_state: bool = False, order_out=None):
+    """Blend one camera's sorted intersection list -> (img (H, W, d_col),
+    alpha (H, W, 1)), both f32; `with_state` adds the final transmittance
+    (H, W) and last kept entry (H, W) int32 that the backward reads.
+
+    A CPU tensor takes rasterize_flat_plain; a CUDA tensor launches kernel
+    K2 (counted in `rasterize_flat.launches`) or raises. K2's blocks take
+    the tiles longest first, in an order its C entry sorts (by count, in
+    bins); `order_out`, an (n_tiles,) int64 tensor, receives that order
+    (on the CPU: longest_first(counts)), so that K3 can take the same one.
+    Tiles must be 16 x 16 on the card.
+    """
+    return _flat_forward(rasterize_flat, packed, starts, counts, width, height,
+                         tile_size, d_col, f16, with_state, order_out)
 
 
 rasterize_flat.launches = 0
@@ -518,39 +527,31 @@ rasterize_flat_multi.launches = 0
 def rasterize_flat_grouped(packed: torch.Tensor, starts: torch.Tensor,
                            counts: torch.Tensor, width: int, height: int,
                            tile_size: int, d_col: int, f16: bool, group: int,
-                           with_state: bool = False):
-    """rasterize_flat on window-clamped segments (group_windows), `group`
-    consecutive tiles to a block; same outputs as rasterize_flat.
+                           with_state: bool = False, order_out=None):
+    """rasterize_flat on segments clamped to the windows of `group`
+    consecutive tiles (group_windows' starts and counts); same outputs and
+    `order_out` as rasterize_flat. `group` shapes only the windows.
 
-    A CPU tensor takes rasterize_flat_grouped_plain; a CUDA tensor launches
-    kernel K5 (counted in `rasterize_flat_grouped.launches`) or raises.
+    A CPU tensor takes rasterize_flat_grouped_plain (order_out receives
+    longest_first(counts)); a CUDA tensor launches kernel K5 (counted in
+    `rasterize_flat_grouped.launches`, not in rasterize_flat's) or raises.
+    K5 is K2's kernel through K2's C entry: one block a clamped tile, the
+    tiles longest first by the clamped counts (csrc/rasterize_flat_fwd.cu
+    says why it has no body of its own).
     """
-    if check_device(packed, "rasterize_flat_grouped"):
-        return rasterize_flat_grouped_plain(packed, starts, counts, width, height,
-                                            tile_size, d_col, f16, with_state)
-    tw, th = _check_list(packed, starts, counts, width, height, tile_size,
-                         d_col, payload_rows(d_col, f16))
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
-    packed, starts, counts = (x.contiguous() for x in (packed, starts, counts))
-    img, alpha, t_fin, last = forward_outputs((), height, width, d_col,
-                                              packed.device, with_state)
-    launch("rasterize_flat_grouped_fwd", "rasterize_flat_grouped_fwd",
-           _GROUPED_ARGS, packed.device, packed.data_ptr(), starts.data_ptr(),
-           counts.data_ptr(), img.data_ptr(), alpha.data_ptr(), _ptr(t_fin),
-           _ptr(last), width, height, tile_size, tw, tw * th, group, d_col,
-           packed.shape[1], int(f16))
-    rasterize_flat_grouped.launches += 1
-    return (img, alpha, t_fin, last) if with_state else (img, alpha)
+    return _flat_forward(rasterize_flat_grouped, packed, starts, counts, width,
+                         height, tile_size, d_col, f16, with_state, order_out)
 
 
 rasterize_flat_grouped.launches = 0
 
 
 def longest_first(counts: torch.Tensor) -> torch.Tensor:
-    """The tiles by falling count (int64): the blocks of K2, K2m and K3 take
-    the longest lists first, so that the last ones to start are short (K2
-    and K2m sort the counts themselves, in bins; this is their plain
+    """The tiles by falling count (int64): the blocks of K2, K2m, K5 and K3
+    take the longest lists first, so that the last ones to start are short
+    (K2, K2m and K5 sort the counts themselves, in bins; this is their plain
     version and K3's order where none is given)."""
     return torch.argsort(counts, descending=True)
 
@@ -567,8 +568,8 @@ def order_bins(counts: torch.Tensor) -> torch.Tensor:
 
 
 def longest_first_bins(counts: torch.Tensor) -> torch.Tensor:
-    """The order raster_order.cuh's longest_first_kernel gives K2, K2m and K4
-    (its plain version): the tiles by bin (order_bins), longest first. The
+    """The order raster_order.cuh's longest_first_kernel gives K2, K2m, K5
+    and K4 (its plain version): the tiles by bin (order_bins), longest first. The
     kernel leaves the order within a bin to its atomics; this takes index
     order there. No tile blends differently in either order."""
     return torch.sort(order_bins(counts), stable=True).indices

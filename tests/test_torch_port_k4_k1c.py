@@ -10,12 +10,12 @@ redesigned for the H100, checked on the CPU where their kernels cannot run:
 * the wrapper's cached input check (`attention._check`) raises on every
   input the uncached check raises on, with the same message, also once an
   input of the same shapes and strides is cached;
-* K4's table (`splat_table`): rows padded to whole float4s whose fields
-  equal the JAX route's (N, 6 + D) rows exactly;
+* K4's table (`splat_table`): rows equal to the JAX route's (N, 6 + D)
+  rows exactly, with no padding;
 * the kernels' longest-first tile order (`longest_first_bins`, the plain
   copy of raster_order.cuh): a permutation, counts falling bin by bin, and
   a plain mirror of K4's walk (tiles in that order, batches staged from
-  the padded rows, the sequential blend) equal to the walk in tile order
+  the table's rows, the sequential blend) equal to the walk in tile order
   and in reverse bit for bit, and within 1e-5 of rasterize_binned_pallas
   in interpret mode and of rasterize_binned (its plain version on the
   CPU).
@@ -148,11 +148,9 @@ def test_splat_table_rows_are_padded_jax_rows(d):
                          enumerate(((n, 2), (n, 3), (n, d), (n,))))
     table = pbin.splat_table(m2d, con, col, op)
     assert table.dtype == torch.float32 and table.is_contiguous()
-    assert table.shape == (n, pbin.row_floats(d)) and table.shape[1] % 4 == 0
-    assert pbin.row_floats(d) - (6 + d) < 4
+    assert table.shape == (n, pbin.row_floats(d)) == (n, 6 + d)
     old = torch.cat([m2d, con, op[:, None], col], dim=-1)     # the JAX route's rows
-    assert torch.equal(table[:, :6 + d], old)
-    assert torch.equal(table[:, 6 + d:], torch.zeros(n, table.shape[1] - 6 - d))
+    assert torch.equal(table, old)
 
 
 def test_longest_first_bins_is_the_kernels_order():
@@ -172,7 +170,7 @@ def test_longest_first_bins_is_the_kernels_order():
 
 def k4_mirror(table, bins, d, w, h, order, nthr=TILE * TILE):
     """K4's walk in plain PyTorch: tiles in `order`, each tile's entries in
-    batches of nthr staged from the padded rows, every pixel blended front to
+    batches of nthr staged from the table's rows, every pixel blended front to
     back with the kernels' rounding (conic_sigma's order) and stop rule."""
     tw, th = -(-w // TILE), -(-h // TILE)
     out = torch.zeros(th * TILE, tw * TILE, d)
@@ -209,7 +207,7 @@ def k4_mirror(table, bins, d, w, h, order, nthr=TILE * TILE):
 
 @pytest.mark.parametrize("case", ["scene", "multi_chunk", "opaque"])
 def test_k4_walk_in_longest_first_order(case):
-    """K4's walk mirrored over the padded rows: the longest-first order and
+    """K4's walk mirrored over the table's rows: the longest-first order and
     the tile order give the same image bit for bit, within 1e-5 of the
     Pallas K4 in interpret mode and of the plain version."""
     s, (w, h), mpt = _dense_case(case)

@@ -365,8 +365,7 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     never served from a stale build; the shipped rasterizer sources all
     include raster_common.cuh."""
     from hunyuanworld_mirror_tpu_torch.ops import _build
-    for name in ("rasterize_flat_fwd", "rasterize_flat_grouped_fwd",
-                 "rasterize_flat_bwd", "rasterize_binned_fwd"):
+    for name in ("rasterize_flat_fwd", "rasterize_flat_bwd", "rasterize_binned_fwd"):
         assert _build.CSRC / "raster_common.cuh" in _build._sources(name), name
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return A; }\n')

@@ -30,7 +30,15 @@ one process:
     sort and without it (a null order: tiles in index order);
   * prints each set's share of (warp, entry) steps the 8 x 4 warps cull
     (chip_smoke.blend_pairs) and each build's ptxas registers, spills and
-    blocks an SM.
+    blocks an SM;
+  * K5 at G = 16, 8 and 4 on the main path's 4 lists clamped to their group
+    windows (rasterizer_flat.group_windows): PARENT's K5 where it has a
+    kernel of its own (csrc/rasterize_flat_grouped_fwd.cu, its C entry),
+    this tree's K5 (`rasterize_flat_grouped`, which launches K2's entry on
+    the clamped lists) through its wrapper and through the C entry it
+    launches, and this tree's K2 (`rasterize_flat`) on the same lists: the
+    image and alpha of each held against this tree's K5 bit for bit, and
+    each timed (totals over the 4 cameras) in ROUNDS alternating rounds.
 
 The card's name and power limit come first. Nothing here runs without a
 card.
@@ -57,6 +65,8 @@ ROUNDS = 5
 # name -> [(file, the source's text, its replacement), ...]: the design's
 # pieces swapped, one at a time, for what they were measured against.
 FWD, COMMON = "rasterize_flat_fwd.cu", "raster_common.cuh"
+K5_OLD = "rasterize_flat_grouped_fwd"   # K5's kernel of its own, before it took K2's
+K5_GROUPS = (16, 8, 4)
 BLEND_HEAD = "  __device__ __forceinline__ void blend(const Batch& b, int nb, int b0) {\n"
 
 
@@ -142,12 +152,16 @@ def takes_order(source: str) -> bool:
     return "order" in decl.group(1)
 
 
-def build(trees_and_variants):
-    """{name: (csrc dir, [(file, old, new), ...])} -> {name: (library, takes
-    an order, ptxas report)}; every nvcc at once."""
+def build(trees_and_variants, parent_k5=None):
+    """{name: (csrc dir, [(file, old, new), ...])} -> ({name: (library, takes
+    an order, ptxas report)}, PARENT's K5 C entry or None); every nvcc at
+    once. parent_k5: the csrc dir holding K5_OLD.cu, if it does."""
     from hunyuanworld_mirror_tpu_torch.ops import _build
     procs = {}
-    for i, (name, (csrc, subs)) in enumerate(trees_and_variants.items()):
+    jobs = [(name, csrc, subs, FWD) for name, (csrc, subs) in trees_and_variants.items()]
+    if parent_k5 is not None:
+        jobs.append(("K5 parent", parent_k5, [], f"{K5_OLD}.cu"))
+    for i, (name, csrc, subs, source) in enumerate(jobs):
         src_dir = OUT_DIR / f"src_{i}"
         src_dir.mkdir(parents=True, exist_ok=True)
         texts = {f.name: f.read_text() for f in Path(csrc).glob("raster*")}
@@ -159,20 +173,24 @@ def build(trees_and_variants):
             (src_dir / file).write_text(text)
         lib = OUT_DIR / f"libk2_{i}.so"
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-             str(src_dir / "rasterize_flat_fwd.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib,
-            takes_order(texts["rasterize_flat_fwd.cu"]))
-    libs = {}
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src_dir / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
+            source == FWD and takes_order(texts[FWD]))
+    libs, k5 = {}, None
     for name, (proc, lib, order) in procs.items():
         report = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
+        if name == "K5 parent":
+            k5 = ctypes.CDLL(str(lib)).rasterize_flat_grouped_fwd
+            k5.argtypes = [_P] * 7 + [_I] * 7 + [_LL, _I, _P]
+            k5.restype = ctypes.c_int
+            continue
         fn = ctypes.CDLL(str(lib)).rasterize_flat_fwd
         fn.argtypes = [_P] * (8 if order else 7) + [_I] * 6 + [_LL, _I, _P]
         fn.restype = ctypes.c_int
         libs[name] = (fn, order, report)
-    return libs
+    return libs, k5
 
 
 def make_lists():
@@ -206,7 +224,8 @@ def main_measure(parent: str, variants: bool):
               "this tree": (_build.CSRC, [])}
     if variants:
         builds.update({name: (_build.CSRC, subs) for name, subs in VARIANTS.items()})
-    libs = build(builds)
+    pcsrc = Path(parent) / "hunyuanworld_mirror_tpu_torch" / "csrc"
+    libs, k5_parent = build(builds, pcsrc if (pcsrc / f"{K5_OLD}.cu").exists() else None)
     print(f"built {len(libs)} libraries in {time.time() - t0:.1f} s", flush=True)
     sets, summary = make_lists()
     stream = torch.cuda.current_stream().cuda_stream
@@ -289,8 +308,77 @@ def main_measure(parent: str, variants: bool):
                   + " ".join(f"{x:.4f}" for x in ts), flush=True)
     bad = {label: s["differ_from_parent"] for label, s in out["sets"].items()
            if s["differ_from_parent"]}
+    k5 = measure_k5([b for b, _, _ in sets["main path"]], libs["this tree"][0], k5_parent,
+                    stream)
+    bad.update({f"K5 G={g}": r["differ"] for g, r in k5.items() if r["differ"]})
     if bad:
-        raise AssertionError(f"outputs differ from the parent build's: {bad}")
+        raise AssertionError(f"outputs differ: {bad}")
+
+
+def measure_k5(lists, tree_entry, parent_k5, stream):
+    """K5 on the main path's f16 lists clamped at each of K5_GROUPS: parent's
+    (its own kernel, if given), this tree's through its wrapper and through
+    K2's C entry it launches, and this tree's K2, held against this tree's
+    K5 bit for bit and timed in alternating rounds -> {G: {"differ": {name:
+    [differing elements of img, alpha]}, "ms": {name: [totals a round]}}}."""
+    import torch
+
+    import chip_smoke
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    res = {}
+    for group in K5_GROUPS:
+        clamped = [R.group_windows(b.starts, b.counts, group, chip_smoke.RENDER_MPT,
+                                   b.packed.shape[1])[:2] for b in lists]
+        outs = [R.forward_outputs((), H, W, D, "cuda")[:2] for _ in lists]
+        orders = [torch.empty(b.counts.shape, dtype=torch.int64, device="cuda")
+                  for b in lists]
+
+        def calls(i):
+            bins, (st, ct), (img, alpha) = lists[i], clamped[i], outs[i]
+            args = (bins.packed, st, ct, W, H, 16, D, True)
+            head = [bins.packed.data_ptr(), st.data_ptr(), ct.data_ptr()]
+            tail = [img.data_ptr(), alpha.data_ptr(), None, None, W, H, 16, 33, 33 * 33]
+            fns = {"K5 this tree": lambda: R.rasterize_flat_grouped(*args, group),
+                   "K5 this tree, C entry": lambda: tree_entry(
+                       *head, orders[i].data_ptr(), *tail, D, bins.packed.shape[1], 1,
+                       stream),
+                   "K2 this tree": lambda: R.rasterize_flat(*args)}
+            if parent_k5 is not None:
+                fns["K5 parent"] = lambda: parent_k5(
+                    *head, *tail, group, D, bins.packed.shape[1], 1, stream)
+            return fns
+
+        differ = {}
+        for i in range(len(lists)):
+            ref, fns = None, calls(i)
+            for name, fn in fns.items():
+                got = fn()
+                if got is None or isinstance(got, int):
+                    if got:
+                        raise RuntimeError(f"{name}: CUDA error {got}")
+                    got = outs[i]
+                torch.cuda.synchronize()
+                got = [x.clone() for x in got]
+                if ref is None:
+                    ref = got
+                elif not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    differ.setdefault(name, []).append(
+                        [int((a != b).sum()) for a, b in zip(got, ref)])
+        names = list(calls(0))
+        times = {name: [] for name in names}
+        for r in range(ROUNDS):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                times[name].append(sum(chip_smoke.cuda_ms(calls(i)[name], reps=5, warmup=1)
+                                       for i in range(len(lists))))
+        res[group] = dict(differ=differ, ms=times,
+                          entries=sum(int(ct.sum()) for _, ct in clamped))
+        print(f"K5 G={group:2d}, {res[group]['entries']} entries after the clamp: "
+              f"{'bit for bit' if not differ else differ}", flush=True)
+        for name, ts in times.items():
+            print(f"  {name:24s} median {statistics.median(ts):.4f} ms a render  rounds "
+                  + " ".join(f"{x:.4f}" for x in ts), flush=True)
+    print(json.dumps({"k5": res}), flush=True)
+    return res
 
 
 def main():

@@ -22,18 +22,16 @@ it and saves its splats and cameras. Then one process:
     ellipse-tile test, 4 tiles a splat, 4096 a tile) and the training
     step's on that route (step 0's splats, 9 tiles a splat, 4096 a tile);
   * holds every K4 build's image and alpha against the parent build's bit
-    for bit on both sets, and K2 and K2m (rasterize_flat_fwd.cu, whose
-    tile order moved into raster_order.cuh) of this tree against the
-    parent's on the main path's per-camera and camera-batched lists; it
-    fails where any differs;
+    for bit on both sets, and K2 and K2m (rasterize_flat_fwd.cu) of this
+    tree against the parent's on the main path's per-camera and
+    camera-batched lists; it fails where any differs;
   * times each K4 build's C entry on each set (totals over its 4 tables,
     CUDA events) in ROUNDS rounds whose order alternates (P C ... then ...
-    C P). The parent's blocks take the tiles in index order, this tree's
-    longest first ("tiles in index order" takes that back). The
-    parent's C entry reads the (N, 6 + D) table its wrapper builds with
-    torch.cat; this tree's packs its own table from the splats' arrays (the
-    "rows from splat_table" variant skips that and reads splat_table's
-    rows, built beforehand). Both wrapper-side tables are timed beside them;
+    C P). A C entry that takes the splats' arrays packs its own table into
+    a scratch (the "rows from splat_table" variant skips that and reads
+    splat_table's rows, built beforehand); one that takes a table reads
+    splat_table's. The wrapper-side table (splat_table) is timed beside
+    them;
   * prints each build's ptxas registers, spills and stack.
 
 The card's name and power limit come first. Nothing here runs without a
@@ -59,47 +57,12 @@ W = H = 518
 TILE = 16
 ROUNDS = 5
 K4 = "rasterize_binned_fwd.cu"
-# the "no table" variant's row fetch: the splat's fields by cp.async from
-# the caller's arrays (8 bytes of mean, 4 a conic entry, the opacity and
-# each colour) into the slot, in the table's order
-GATHER_ROW = r'''template <int D>
-__device__ __forceinline__ void gather_row(float* slot, long long i, const float* m2d,
-                                           const float* con, const float* op,
-                                           const float* col) {
-  const auto cp = [&](int c, const float* src, int bytes) {
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(slot + c));
-    if (bytes == 8)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(dst), "l"(src) : "memory");
-    else
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
-  };
-  cp(0, m2d + 2 * i, 8);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) cp(2 + c, con + 3 * i + c, 4);
-  cp(5, op + i, 4);
-#pragma unroll
-  for (int c = 0; c < D; ++c) cp(6 + c, col + D * i + c, 4);
-}
-
-'''
 # name -> [(file, the source's text, its replacement), ...]: the design's
 # pieces taken back, or another tried, one at a time
 VARIANTS = {
     "rows from splat_table": [
         (K4, "    if (n_splats > 0)\n      pack_rows_kernel",
          "    if (false)\n      pack_rows_kernel")],
-    "rows fetched before the walk": [
-        (K4, "    pixel.blend(buffer(k), ",
-         "    cp_async_wait_all();\n    pixel.blend(buffer(k), "),
-        (K4, "fetch_row<D>(slot, table + static_cast<long long>(id_next) * ROW);",
-         "fetch_row<D>(slot, table + static_cast<long long>(tile_ids[j1]) * ROW);")],
-    "40-byte rows, 4-byte copies": [
-        (K4, "  static constexpr int FLOATS = (6 + D + 3) / 4 * 4;",
-         "  static constexpr int FLOATS = 6 + D;"),
-        (K4, "  for (int c = 0; c < Row<D>::FLOATS; c += 4) {",
-         "  for (int c = 0; c < Row<D>::FLOATS; ++c) {"),
-        (K4, r'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"',
-         r'asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"')],
     "tiles in index order": [
         (K4, "  const int t = int(order[blockIdx.x]);", "  const int t = blockIdx.x;"),
         (K4, "  raster::longest_first_kernel<<<",
@@ -107,8 +70,6 @@ VARIANTS = {
     "no table: fields gathered from the arrays": [
         (K4, "    if (n_splats > 0)\n      pack_rows_kernel",
          "    if (false)\n      pack_rows_kernel"),
-        (K4, "// The landed row -> slot s of a batch's planes, with its keep box.",
-         GATHER_ROW + "// The landed row -> slot s of a batch's planes, with its keep box."),
         (K4, "raster_binned_kernel(const float* __restrict__ table,",
          "raster_binned_kernel(const float* __restrict__ table, const float* g_m2d, "
          "const float* g_con, const float* g_op, const float* g_col,"),
@@ -116,10 +77,12 @@ VARIANTS = {
          "        static_cast<const float*>(table), static_cast<const float*>(means2d), "
          "static_cast<const float*>(conics), static_cast<const float*>(opacities), "
          "static_cast<const float*>(colors), static_cast<const int*>(ids),"),
-        (K4, "fetch_row<D>(slot, table + static_cast<long long>(tile_ids[tid]) * ROW);",
-         "gather_row<D>(slot, tile_ids[tid], g_m2d, g_con, g_op, g_col);"),
-        (K4, "fetch_row<D>(slot, table + static_cast<long long>(id_next) * ROW);",
-         "gather_row<D>(slot, id_next, g_m2d, g_con, g_op, g_col);")],
+        (K4, "    const float* row = table + static_cast<long long>(tile_ids[j]) * (6 + D);\n"
+             "    b.put(s, {row[0], row[1], row[2], row[3], row[4], row[5]});",
+         "    const long long i = tile_ids[j];\n"
+         "    b.put(s, {g_m2d[2 * i], g_m2d[2 * i + 1], g_con[3 * i], g_con[3 * i + 1], "
+         "g_con[3 * i + 2], g_op[i]});"),
+        (K4, "b.col[c * b.nthr + s] = row[6 + c];", "b.col[c * b.nthr + s] = g_col[D * i + c];")],
 }
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -296,13 +259,10 @@ def main_measure(parent: str, variants: bool):
           if not name.startswith("K2 ")}
     sets = tables()
 
-    def unpadded(m2d, con, col, op):
-        return torch.cat([m2d, con, op[:, None], col], dim=-1).float().contiguous()
-
-    # each set's tables in both layouts, built once: the parent reads the
-    # (N, 6 + D) one, "rows from splat_table" the padded one; this tree's
-    # C entry packs its own into a scratch
-    layouts = {label: [(B.splat_table(m2d, con, col, op), unpadded(m2d, con, col, op), bins)
+    # each set's tables, built once: a build whose C entry takes no arrays
+    # and "rows from splat_table" read them; the others pack their own into
+    # a scratch (rows of up to 16 floats)
+    layouts = {label: [(B.splat_table(m2d, con, col, op), bins)
                        for m2d, con, col, op, bins in cams]
                for label, cams in sets.items()}
     arrays = {label: [[x.float().contiguous() for x in (m2d, con, op, col)]
@@ -312,12 +272,13 @@ def main_measure(parent: str, variants: bool):
 
     def call(name, label, i, img, alpha, order):
         fn, takes, packs, _ = k4[name]
-        table_pad, table_raw, bins = layouts[label][i]
+        table, bins = layouts[label][i]
         if not packs:
-            args = [table_raw.data_ptr()]
+            args = [table.data_ptr()]
         else:
             m2d, con, op, col = arrays[label][i]
-            table = table_pad if name == "rows from splat_table" else scratch_tables[label][i]
+            if name != "rows from splat_table":
+                table = scratch_tables[label][i]
             args = [m2d.data_ptr(), con.data_ptr(), op.data_ptr(), col.data_ptr(),
                     m2d.shape[0], table.data_ptr()]
         args += [bins.gauss_ids.data_ptr(), bins.counts.data_ptr()]
@@ -331,7 +292,7 @@ def main_measure(parent: str, variants: bool):
     out = dict(sets={}, flat_differ_from_parent=flat_differ)
     scratch = {label: [(*R.forward_outputs((), H, W, 4, "cuda")[:2],
                         torch.empty(b.counts.shape, dtype=torch.int64, device="cuda"))
-                       for _, _, b in cams] for label, cams in layouts.items()}
+                       for _, b in cams] for label, cams in layouts.items()}
     for label, cams in layouts.items():
         differ = {}
         for i, (img, alpha, order) in enumerate(scratch[label]):
@@ -344,13 +305,12 @@ def main_measure(parent: str, variants: bool):
                     ref = got
                 elif not all(torch.equal(a, b) for a, b in zip(got, ref)):
                     differ[name] = [int((a != b).sum()) for a, b in zip(got, ref)]
-        out["sets"][label] = dict(entries=sum(int(b.counts.sum()) for _, _, b in cams),
+        out["sets"][label] = dict(entries=sum(int(b.counts.sum()) for _, b in cams),
                                   differ_from_parent=differ)
         print(f"{label}: {out['sets'][label]}", flush=True)
 
     # alternating rounds: each build's C entry, then the wrappers' tables
-    tables_fn = {"table: splat_table (padded, plain)": lambda c: B.splat_table(*c[:4]),
-                 "table: torch.cat (6 + D), the parent's": lambda c: unpadded(*c[:4])}
+    tables_fn = {"table: splat_table (plain)": lambda c: B.splat_table(*c[:4])}
     times = {(key, label): [] for key in [*k4, *tables_fn] for label in layouts}
     keys = [*k4, *tables_fn]
     for r in range(ROUNDS):

@@ -244,6 +244,21 @@ Phases (any failure exits non-zero before the last line is printed):
      f64 its poses within 1e-4 of one-device BA's (in f32, where the
      Schur step's rounding moves the LM path, the difference printed). One-card times measure the
      staging and the ranks sharing one card, not multi-GPU scaling;
+ 18. the measuring tools: (a) the bench twin's headline row (`python -m
+     hunyuanworld_mirror_tpu_torch.bench --row '{"stage": "headline"}'`, its
+     own process: large, S=4, 518 px, gs_slot_fracs="auto", the model's own
+     cameras): rc 0, every key of bench.HEADLINE_KEYS, value > 0, 0 < mfu
+     <= 1.05, e2e_sol_fraction <= 1.05, render_n_dropped >= 0, its line
+     logged; (b) K2 (`rasterize`, the flat route) and K4 (impl="jax")
+     against the dense oracle `ops/rasterizer_ref.rasterize_reference`,
+     which does no binning, on tests/test_rasterizer.py's scene (150 splats,
+     2 cameras, 64 x 48, RGB) and on 4096 seeded splats at distinct depths
+     in a 128 x 128 camera: nothing dropped, image and alpha within 1e-4,
+     max|d| logged per kernel; (c) the heads-profile twin
+     (`heads_profile.main`: pts_head whole at f32 and bf16, then its three
+     f32 stages); (d) `utils/profiling.trace` around one main-path forward:
+     the trace file written, device time for K1 and K2 in its
+     key_averages(), the idle share;
 then the script's total wall time, a `kernels` JSON line, the card line,
 and as the last line {"ok": true, "device": {...}}. Each phase prints its
 wall time.
@@ -251,7 +266,7 @@ wall time.
 Times are CUDA-event times after a warm-up. `bound_ms` is the larger of the
 bytes the function must move over 3.35 TB/s and its operations over the
 card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32; the
-H100 SXM data sheet). K1 has two entries in the `kernels` line, one per
+H100 SXM data sheet, `utils/profiling.CHIP_SPECS["h100"]`). K1 has two entries in the `kernels` line, one per
 JAX route it replaces: N <= 4095 (the one-pass kernel: encoder, frame
 layers, camera head) and N >= 4096 (the flash kernel: global layers). The
 rasterizers' work is counted on the plain replay of this run's list
@@ -305,7 +320,11 @@ the kernel numbers totalled over that rank's launches at its shapes; the
 median sharded forward on the host clock) and K4's `distributed_render`
 (the launches a rank in that forward; the kernel numbers on rank 0's
 first camera's exchanged lists at V = 2; the distributed call's median
-host-clock time at V = 2 and 4).
+host-clock time at V = 2 and 4). Phase 18's add K2's and K4's
+`oracle_max_abs_err` (max|d| of image and alpha against the dense oracle
+over both scenes) and K1's (N <= 4095) and K2's `traced_forward_device_ms`
+(their kernels' device time in the traced forward, K1 over every bf16
+launch).
 """
 
 import contextlib
@@ -320,9 +339,9 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+from hunyuanworld_mirror_tpu_torch.utils.profiling import CHIP_SPECS
+
+H100 = CHIP_SPECS["h100"]
 # f32 operations per (pixel, entry) pair. Every pair a blend walks pays the
 # keep test: dx, dy, sigma (five with FMAs), e^-sigma, op e^-sigma, the test.
 TEST_FLOPS = 10
@@ -359,10 +378,9 @@ def cuda_ms(fn, reps=10, warmup=2):
 
 
 def phase_device():
+    from hunyuanworld_mirror_tpu_torch.utils.profiling import card_line
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = card_line()
     log(f"device: {name} (count {torch.cuda.device_count()})")
     log(f"nvidia-smi: {smi}")
     return name, smi
@@ -426,8 +444,8 @@ def k1_bound_ms(shape, dtype):
     B, N, H, D = shape
     flops = 4.0 * B * H * N * N * D
     byts = 4.0 * B * N * H * D * (2 if dtype == torch.bfloat16 else 4)
-    rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return max(flops / rate, byts / HBM_BYTES_PER_S) * 1e3
+    rate = H100.peak_flops_bf16 if dtype == torch.bfloat16 else H100.peak_flops_f32
+    return max(flops / rate, byts / H100.hbm_bytes_per_s) * 1e3
 
 
 def k1_check(label, q, k, v, per_batch=False):
@@ -601,7 +619,7 @@ def phase_k1c(gen):
         lib_dev_ms, lib_names = device_ms_per_call(sdpa)
         plain_ms = cuda_ms(lambda: A.attention_plain(q, k, v, scale), reps=20)
         bound = k1_bound_ms(shape, torch.float32)
-        ops_ms = 4.0 * 16 * n * n * 128 / F32_FLOPS * 1e3
+        ops_ms = 4.0 * 16 * n * n * 128 / H100.peak_flops_f32 * 1e3
         fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
         log(f"K1c n{n} {shape}: per call (back-to-back loop) kernel {ms:.5f} ms, sdpa "
             f"{lib_ms:.5f} ms ({ms / lib_ms:.3f}x); device (profiler) kernel "
@@ -699,7 +717,7 @@ def ops_ms(pairs, way, flops_per_kept):
     flops = (kept * flops_per_kept + (pairs[f"{way}_tested"] - kept) * TEST_FLOPS
              + pairs[f"{way}_warp_walked"] * BOX_TEST_FLOPS
              + pairs[f"{way}_entries"] * KEEP_BOX_FLOPS)
-    return flops / F32_FLOPS * 1e3
+    return flops / H100.peak_flops_f32 * 1e3
 
 
 def blend_bound(packed, starts, counts, W, H, d_col, f16, n_cams=1,
@@ -719,7 +737,7 @@ def blend_bound(packed, starts, counts, W, H, d_col, f16, n_cams=1,
             pairs[k] = pairs.get(k, 0) + v
     byts = (pairs["fwd_entries"] * (packed.shape[0] * 4 + id_bytes) + 2 * counts.numel() * 4
             + n_cams * W * H * (d_col + 1) * 4 + extra_bytes)
-    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_bytes = byts / H100.hbm_bytes_per_s * 1e3
     t_ops = ops_ms(pairs, "fwd", K2_FLOPS_PER_KEPT)
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
             pairs, t_bytes, t_ops)
@@ -1153,9 +1171,9 @@ def k3_check(label, bins, W, H, d_col, n_gauss, gen):
     # starts, counts
     byts = (pairs["bwd_entries"] * (bins.packed.shape[0] + 1) * 4 + n_gauss * rows * 4
             + W * H * ((d_col + 1) * 4 + 8) + 2 * bins.counts.numel() * 4)
-    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_bytes = byts / H100.hbm_bytes_per_s * 1e3
     # the same with the per-entry rows written, which the training path skips
-    t_bytes_entries = (byts + n_entries * rows * 4) / HBM_BYTES_PER_S * 1e3
+    t_bytes_entries = (byts + n_entries * rows * 4) / H100.hbm_bytes_per_s * 1e3
     t_ops = ops_ms(pairs, "bwd", K3_FLOPS_PER_KEPT)
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes > t_ops else "operations"
@@ -3732,6 +3750,179 @@ def phase_multichip(preds, imgs):
     return res
 
 
+# --- 18. the measuring tools ----------------------------------------------
+
+ORACLE_BAND = 1e-4   # tests/test_rasterizer.py's own band against the oracle
+# the headline row's shares of the card's peaks may not pass this
+SHARE_LIMIT = 1.05
+
+
+def phase_bench_headline():
+    """(a) The bench twin's headline row in its own process, as the bench
+    runs it: rc 0, every headline key, value > 0, 0 < mfu <= 1.05,
+    e2e_sol_fraction <= 1.05, render_n_dropped >= 0 -> the row's dict."""
+    from hunyuanworld_mirror_tpu_torch import bench
+    cmd = [sys.executable, "-m", "hunyuanworld_mirror_tpu_torch.bench", "--row",
+           json.dumps({"stage": "headline"})]
+    t0 = time.time()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = r.stdout.strip().splitlines()
+    log(f"bench headline row: rc {r.returncode}, {time.time() - t0:.1f} s wall; "
+        f"its line: {lines[-1] if lines else '(none)'}")
+    if r.returncode != 0:
+        raise AssertionError(f"bench headline row: rc {r.returncode}: "
+                             f"{r.stderr.strip()[-2000:]}")
+    row = json.loads(lines[-1])
+    missing = [k for k in bench.HEADLINE_KEYS if k not in row]
+    if missing:
+        raise AssertionError(f"bench headline row: keys missing {missing}")
+    mfu, share = row["mfu"], row["sol"]["e2e_sol_fraction"]
+    if not (row["value"] > 0 and 0 < mfu <= SHARE_LIMIT and share <= SHARE_LIMIT
+            and row["render_n_dropped"] >= 0):
+        raise AssertionError(f"bench headline row: value {row['value']}, mfu {mfu}, "
+                             f"e2e_sol_fraction {share}, render_n_dropped "
+                             f"{row['render_n_dropped']}")
+    return row
+
+
+def oracle_scenes():
+    """(b)'s two scenes as (label, means, quats xyzw, scales, opacities,
+    colours, viewmats, Ks, W, H): tests/test_rasterizer.py's (150 splats
+    from seed 42, 2 cameras, 64 x 48, RGB) and 4096 splats from seed 3 at
+    distinct depths (a permutation of 4096 evenly spaced z in [2, 6], 1e-3
+    apart, far above the binning's 20-bit depth quantum) in one 128 x 128
+    camera, opaque (0.8-1) and large enough (scales 0.03-0.15 at f = 100 px)
+    that most pixels reach the early stop."""
+    rng = np.random.default_rng(42)
+    n, c = 150, 2
+    means = rng.normal(size=(n, 3)).astype(np.float32)
+    means[:, 2] += 4.0
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    scales = rng.uniform(0.02, 0.2, size=(n, 3)).astype(np.float32)
+    opac = rng.uniform(0.3, 1.0, size=(n,)).astype(np.float32)
+    colors = rng.uniform(size=(n, 3)).astype(np.float32)
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (c, 1, 1))
+    for i in range(c):
+        ca, sa = np.cos(0.15 * i), np.sin(0.15 * i)
+        viewmats[i, :3, :3] = np.array([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]],
+                                       dtype=np.float32)
+        viewmats[i, 0, 3] = 0.2 * i
+    Ks = np.tile(np.array([[60.0, 0, 32.0], [0, 60.0, 24.0], [0, 0, 1]],
+                          dtype=np.float32), (c, 1, 1))
+    scenes = [("test_rasterizer scene (150 splats, 2 cameras, 64 x 48)", means, quats,
+               scales, opac, colors, viewmats, Ks, 64, 48)]
+    rng = np.random.default_rng(3)
+    n = 4096
+    z = (2.0 + 4.0 * rng.permutation(n) / n).astype(np.float32)
+    xy = rng.uniform(-0.6, 0.6, size=(n, 2)).astype(np.float32) * z[:, None]
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    scenes.append((f"seeded scene ({n} splats at distinct depths, 128 x 128)",
+                   np.concatenate([xy, z[:, None]], 1), quats,
+                   rng.uniform(0.03, 0.15, size=(n, 3)).astype(np.float32),
+                   rng.uniform(0.8, 1.0, size=(n,)).astype(np.float32),
+                   rng.uniform(size=(n, 3)).astype(np.float32),
+                   np.eye(4, dtype=np.float32)[None],
+                   np.array([[[100.0, 0, 64.0], [0, 100.0, 64.0], [0, 0, 1]]],
+                            dtype=np.float32), 128, 128))
+    return scenes
+
+
+def phase_oracle():
+    """(b) K2 (`rasterize`, the flat route) and K4 (impl="jax") on the card
+    against the port's dense oracle `rasterize_reference`, which does no
+    binning, on each scene of oracle_scenes: nothing dropped, image and
+    alpha within ORACLE_BAND -> {kernel: max|d|}."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer
+    from hunyuanworld_mirror_tpu_torch.ops.rasterizer_ref import rasterize_reference
+    errs = {"K2": 0.0, "K4": 0.0}
+    for label, *arrays, W, H in oracle_scenes():
+        means, quats, scales, opac, colors, viewmats, Ks = (
+            torch.as_tensor(a, device="cuda") for a in arrays)
+        cov = projection.quat_scale_to_covar_planes(quats, scales)
+        pj = projection.fully_fused_projection(means, cov, viewmats, Ks, W, H)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ref = [rasterize_reference(pj.means2d[c], pj.conics[c], colors, opac,
+                                   pj.depths[c], pj.radii[c], W, H)
+               for c in range(viewmats.shape[0])]
+        ref_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        for kernel, impl in (("K2", "pallas"), ("K4", "jax")):
+            reset_counts()
+            img, alpha, meta = rasterizer.rasterize(
+                means, quats, scales, opac, colors, viewmats, Ks, W, H,
+                render_mode="RGB", max_per_tile=means.shape[0],
+                max_tiles_per_gauss=16, impl=impl, device="cuda")
+            k1, _, k2, k4 = read_counts()
+            launched = k2 if kernel == "K2" else k4
+            dropped = int(meta["n_dropped"].sum())
+            d_img = max(float((img[c] - r[0]).abs().max()) for c, r in enumerate(ref))
+            d_alpha = max(float((alpha[c] - r[1]).abs().max())
+                          for c, r in enumerate(ref))
+            log(f"oracle, {label}: {kernel} ({launched} launches, n_dropped {dropped}) "
+                f"max|d| image {d_img:.3e} alpha {d_alpha:.3e} (band {ORACLE_BAND:.0e}); "
+                f"intersections {meta['n_isects'].tolist()}; the oracle's peak "
+                f"memory over what the process held {ref_gb:.2f} GB")
+            if launched != viewmats.shape[0] or dropped:
+                raise AssertionError(f"oracle, {label}: {kernel} launched {launched} "
+                                     f"times, dropped {dropped}")
+            if not max(d_img, d_alpha) <= ORACLE_BAND:
+                raise AssertionError(f"oracle, {label}: {kernel} off the oracle by "
+                                     f"{max(d_img, d_alpha):.3e}")
+            errs[kernel] = max(errs[kernel], d_img, d_alpha)
+        del ref
+    return errs
+
+
+def phase_trace():
+    """(d) utils/profiling.trace around one main-path forward (after a
+    warm-up): the trace written, device time for K1 (attn_bf16_kernel) and
+    K2 (raster_flat_kernel) in its key_averages() -> their device ms, the
+    forward's device ms and wall ms."""
+    from hunyuanworld_mirror_tpu_torch.infer import PRESETS, load_model, reconstruct
+    from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
+    from hunyuanworld_mirror_tpu_torch.utils import profiling
+    model = load_model(WorldMirrorConfig(**PRESETS["large"]), device="cuda")
+    imgs = np.random.default_rng(0).uniform(size=(1, 4, 518, 518, 3)).astype(np.float32)
+    cams = fixed_cameras(4)
+    reconstruct(model, imgs, cams)
+    torch.cuda.synchronize()
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "smoke_trace")
+    with profiling.trace(log_dir) as prof:
+        t0 = time.time()
+        reconstruct(model, imgs, cams)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    dev = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_time_total > 0}
+    kern = {k: sum(ms for key, ms in dev.items() if pat in key)
+            for k, pat in (("K1", "attn_bf16_kernel"), ("K2", "raster_flat_kernel"))}
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    files = os.listdir(log_dir)
+    log(f"trace of one forward: {files} in {log_dir}; device time by kernel: K1 "
+        f"{kern['K1']:.3f} ms, K2 {kern['K2']:.3f} ms, every kernel {busy:.3f} ms of the "
+        f"forward's {wall_ms:.1f} ms wall under the profiler (idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f})")
+    if not files or not (kern["K1"] > 0 and kern["K2"] > 0):
+        raise AssertionError(f"trace: no file or no device time for K1 / K2: {kern}")
+    kern.update(device_ms=busy, wall_ms=wall_ms)
+    return kern
+
+
+def phase_measuring_tools():
+    """Phase 18: (a) the bench's headline row, (b) K2 and K4 against the
+    oracle, (c) the heads-profile twin, (d) a trace of one forward."""
+    from hunyuanworld_mirror_tpu_torch import heads_profile
+    row = phase_bench_headline()
+    oracle = phase_oracle()
+    heads = heads_profile.main([])
+    return {"bench": row, "oracle": oracle, "heads": heads, "trace": phase_trace()}
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -3766,6 +3957,7 @@ def main():
     cs = timed("CenterSnap trainer", phase_centersnap)
     ev = timed("app and eval", phase_app_eval, preds, imgs)
     mc = timed("multi-device", phase_multichip, preds, imgs)
+    tools = timed("measuring tools", phase_measuring_tools)
     kernels = [
         {"name": "attention_fwd (N <= 4095, bf16: encoder, frame)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",
@@ -3885,6 +4077,12 @@ def main():
         "launches": mc["a"]["launches"][3], "max_abs_err": k4m[0], "ms": k4m[1],
         "plain_ms": k4m[2], "bound_ms": k4m[3], "bound_by": k4m[4], "library_ms": None,
         "call_ms_v2": mc["c"][2]["ms"], "call_ms_v4": mc["c"][4]["ms"]}
+    # phase 18: K2 and K4 against the dense oracle (no binning), and K1's and
+    # K2's device ms in the trace of one forward
+    kernels[2]["oracle_max_abs_err"] = tools["oracle"]["K2"]
+    kernels[-1]["oracle_max_abs_err"] = tools["oracle"]["K4"]
+    kernels[0]["traced_forward_device_ms"] = tools["trace"]["K1"]
+    kernels[2]["traced_forward_device_ms"] = tools["trace"]["K2"]
     # K1c, K1's f32 route (the camera head), beside K1a and K1b: per forward
     # at the main path's N = 4, its N = 32 numbers beside them
     k1c = k1["K1c"]

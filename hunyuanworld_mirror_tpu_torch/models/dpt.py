@@ -140,11 +140,11 @@ class DPTHead(nn.Module):
             self.input_merger = nn.Sequential(
                 Conv2d(3, cfg.features // 2, 7, padding=3), nn.ReLU())
 
-    def forward_raw(self, token_list: List[torch.Tensor], images: torch.Tensor,
-                    patch_start_idx: int):
-        """Decode to the f32 pre-activation head map (B*S, H, W, output_dim)
-        (plus the fused feature map (B*S, H, W, f/2), in the compute dtype,
-        for gsdpt), NHWC."""
+    def tokens_stage(self, token_list: List[torch.Tensor], images: torch.Tensor,
+                     patch_start_idx: int) -> List[torch.Tensor]:
+        """The first of the decoder's three stages: each level's patch
+        tokens normed, projected (1x1), pos-embedded and resized -> four
+        NCHW maps at 4x, 2x, 1x and 1/2x the patch grid."""
         cfg = self.cfg
         cdtype = getattr(torch, cfg.compute_dtype)
         B, S, H, W, _ = images.shape
@@ -157,25 +157,47 @@ class DPTHead(nn.Module):
             if cfg.pos_embed:
                 f = _pos_embed(f, W, H)
             feats.append(self.resize_layers[lvl](f))
+        return feats
 
+    def fusion_stage(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        """The second: the scratch 3x3 convs, the four fusion blocks and
+        output_conv1 -> (B*S, f/2, 8x grid) NCHW."""
         sc = self.scratch
         l1, l2, l3, l4 = (getattr(sc, f"layer{i + 1}_rn")(feats[i]) for i in range(4))
         out = sc.refinenet4(l4, size=l3.shape[-2:])
         out = sc.refinenet3(out, l3, size=l2.shape[-2:])
         out = sc.refinenet2(out, l2, size=l1.shape[-2:])
         out = sc.refinenet1(out, l1)
-        out = sc.output_conv1(out)
+        return sc.output_conv1(out)
+
+    def fullres_stage(self, out: torch.Tensor, images: torch.Tensor):
+        """The third: the resize to the output size, the pos-embed and the
+        full-resolution output convs -> the f32 pre-activation head map
+        (B*S, H, W, output_dim) NHWC (plus the fused feature map for gsdpt,
+        see forward_raw)."""
+        cfg = self.cfg
+        B, S, H, W, _ = images.shape
+        ph, pw = H // cfg.patch_size, W // cfg.patch_size
         target = (int(ph * cfg.patch_size / cfg.down_ratio),
                   int(pw * cfg.patch_size / cfg.down_ratio))
         fused = resize_bilinear(out, target, nchw=True)
         if cfg.pos_embed:
             fused = _pos_embed(fused, W, H)
-        head = sc.output_conv2(fused).float().permute(0, 2, 3, 1)
+        head = self.scratch.output_conv2(fused).float().permute(0, 2, 3, 1)
         if cfg.is_gsdpt:
-            img = images.reshape(B * S, H, W, 3).to(cdtype).permute(0, 3, 1, 2)
+            img = images.reshape(B * S, H, W, 3).to(getattr(torch, cfg.compute_dtype))
+            img = img.permute(0, 3, 1, 2)
             fused = fused + self.input_merger(img)
             return head, fused.permute(0, 2, 3, 1)
         return head
+
+    def forward_raw(self, token_list: List[torch.Tensor], images: torch.Tensor,
+                    patch_start_idx: int):
+        """Decode to the f32 pre-activation head map (B*S, H, W, output_dim)
+        (plus the fused feature map (B*S, H, W, f/2), in the compute dtype,
+        for gsdpt), NHWC: the three stages in turn."""
+        feats = self.tokens_stage(token_list, images, patch_start_idx)
+        return self.fullres_stage(self.fusion_stage(feats), images)
 
     def forward(self, token_list, images, patch_start_idx: int):
         """-> (preds (B,S,H,W,C-1), conf (B,S,H,W)), plus the fused map

@@ -25,3 +25,9 @@ def resize_bilinear(x: torch.Tensor, size, nchw: bool = False,
                       size=(out_h, out_w), mode="bilinear",
                       align_corners=align_corners)
     return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, x.shape[-1])
+
+
+def scale2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
+    """scale_factor=2 resize of NHWC x (torch semantics: out = in * 2)."""
+    return resize_bilinear(x, (x.shape[-3] * 2, x.shape[-2] * 2),
+                           align_corners=align_corners)

@@ -81,6 +81,20 @@ def _conic_slot_mask(conic_test, tx, ty, u, v, tile_size):
     return smin <= lvl + _CONIC_TEST_EPS
 
 
+def tile_ranges(means2d: torch.Tensor, radii: torch.Tensor, tile_size: int,
+                tile_width: int, tile_height: int):
+    """Per-splat clamped tile boxes: (tmin, tmax) each (N, 2) int32, and
+    valid (N,) bool (both radii > 0)."""
+    tm = means2d / tile_size
+    tr = radii.to(means2d.dtype) / tile_size
+    lim = torch.tensor([tile_width, tile_height], dtype=torch.int32,
+                       device=means2d.device)
+    zero = torch.zeros_like(lim)
+    tmin = torch.clamp(_to_i32(torch.floor(tm - tr)), zero, lim)
+    tmax = torch.clamp(_to_i32(torch.ceil(tm + tr)), zero, lim)
+    return tmin, tmax, (radii > 0).all(dim=-1)
+
+
 def depth_bits_for(n_tiles: int) -> int:
     """Depth-quantization bits so (tile_id << db | depth_q) fits int31."""
     db = min(DEPTH_BITS, int(math.floor(math.log2((2 ** 31 - 1) / (n_tiles + 1)))))

@@ -259,6 +259,17 @@ Phases (any failure exits non-zero before the last line is printed):
      f32 stages); (d) `utils/profiling.trace` around one main-path forward:
      the trace file written, device time for K1 and K2 in its
      key_averages(), the idle share;
+ 19. the render and conv tools, each once at --iters 2 on one fixed-camera
+     scene (`utils/scenes.render_scene`: large, S=4, 518 px) with the
+     rasterizers' counts set to 0 just before: `render_profile` (gs_render
+     by stage; D1 -> D2 -> D3 bit for bit D, the camera-batched route
+     within phase 9's band of it), `render_sweep` (every card knob),
+     `bin_ab` (its pieces composed bit for bit bin_gaussians_packed),
+     `sort_ab2` (every permutation bit for bit the shipped one),
+     `isect_stats` (ellipse <= tight <= aabb, the render's n_isects <= the
+     binning's own count, equal where nothing is dropped) and `conv_ab`
+     (every variant within its dtype's band of the f32 output, the cuDNN
+     flags restored); K2, K2m, K5 and K4 each launched;
 then the script's total wall time, a `kernels` JSON line, the card line,
 and as the last line {"ok": true, "device": {...}}. Each phase prints its
 wall time.
@@ -340,6 +351,9 @@ import numpy as np
 import torch
 
 from hunyuanworld_mirror_tpu_torch.utils.profiling import CHIP_SPECS
+# the main path's cameras and render caps; tools/k*_ab.py read them from here
+from hunyuanworld_mirror_tpu_torch.utils.scenes import (RENDER_MPT, RENDER_TPG,  # noqa: F401
+                                                         fixed_cameras)
 
 H100 = CHIP_SPECS["h100"]
 # f32 operations per (pixel, entry) pair. Every pair a blend walks pays the
@@ -828,21 +842,6 @@ def phase_k2_synthetic():
 
 
 # --- main path --------------------------------------------------------------
-
-def fixed_cameras(S):
-    """Identity-ish rotations, small translations, ~60 degree fov."""
-    cams = np.zeros((1, S, 9), np.float32)
-    for s in range(S):
-        a = 0.05 * s
-        cams[0, s, :3] = [0.05 * s, -0.02 * s, 0.03 * s]
-        cams[0, s, 3:7] = [0.0, math.sin(a / 2), 0.0, math.cos(a / 2)]  # xyzw
-        cams[0, s, 7:9] = math.radians(60)
-    return cams
-
-
-# the main path's render caps
-RENDER_MPT, RENDER_TPG = 4096, 4
-
 
 def main_path_scene(preds):
     """Phase 5's compacted splats (quats xyzw) and its 4 predicted cameras
@@ -3923,6 +3922,66 @@ def phase_measuring_tools():
     return {"bench": row, "oracle": oracle, "heads": heads, "trace": phase_trace()}
 
 
+# --- 19. the render, binning and conv tools ------------------------------------
+
+def phase_render_tools():
+    """Phase 19: the six measuring tools of the render, the binning and the
+    heads' convolutions, each once at --iters 2 (the scene's tools on one
+    fixed-camera scene); each tool raises on a failed check of its own,
+    and this phase checks their results again -> their results."""
+    from hunyuanworld_mirror_tpu_torch import (bin_ab, conv_ab, isect_stats,
+                                               render_profile, render_sweep, sort_ab2)
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_binned
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    from hunyuanworld_mirror_tpu_torch.utils.scenes import render_scene
+    scene = render_scene(device="cuda")
+    counters = (R.rasterize_flat, R.rasterize_flat_multi, R.rasterize_flat_grouped,
+                rasterizer_binned.rasterize_binned)
+    for fn in counters:
+        fn.launches = 0
+    iters = ["--iters", "2"]
+    out = {"render_profile": render_profile.main(iters, scene=scene),
+           "render_sweep": render_sweep.main(iters, scene=scene),
+           "bin_ab": bin_ab.main(iters), "sort_ab2": sort_ab2.main(iters),
+           "isect_stats": isect_stats.main([], scene=scene),
+           "conv_ab": conv_ab.main(iters, scene=scene)}
+    launches = dict(zip(("K2", "K2m", "K5", "K4"), (fn.launches for fn in counters)))
+    rp, st = out["render_profile"], out["isect_stats"]
+    failed = []
+    if not (rp["stages_equal"] and rp["dm_delta"]["median"] < 1e-3):
+        failed.append(f"render_profile: stages equal {rp['stages_equal']}, "
+                      f"camera-batched |d| {rp['dm_delta']}")
+    if not out["bin_ab"]["composed_equal"]:
+        failed.append("bin_ab: the pieces differ from bin_gaussians_packed")
+    if not all(v["equal"] for r in out["sort_ab2"]["ab"].values() for v in r.values()):
+        failed.append("sort_ab2: a permutation differs from the shipped one")
+    for c, (cnt, n, drop) in enumerate(zip(st["per_camera"], st["render_n_isects"],
+                                           st["render_n_dropped"])):
+        if not (cnt["ellipse"] <= cnt["tight"] <= cnt["aabb"] and n <= cnt["binned"]
+                and (drop or n == cnt["binned"])):
+            failed.append(f"isect_stats camera {c}: {cnt}, render {n}, dropped {drop}")
+    for r in out["conv_ab"]["convs"]:
+        for name, v in r["variants"].items():
+            if not v["rel_delta"] <= conv_ab.band(name):
+                failed.append(f"conv_ab {r['label']} {name}: {v['rel_delta']:.3e}")
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if flags != (False, False, False):
+        failed.append(f"conv_ab left cudnn.benchmark, cudnn / matmul TF32 at {flags}")
+    if not all(launches.values()):
+        failed.append(f"a rasterizer was not launched: {launches}")
+    ms = rp["ms"]
+    log(f"render and conv tools: launches {launches}; gs_render stages A {ms['A']:.3f}, "
+        f"B {ms['B']:.3f}, C {ms['C']:.3f}, D {ms['D']:.3f} (D1 {ms['D1']:.3f}, D2 "
+        f"{ms['D2']:.3f}, D3 {ms['D3']:.3f}) ms, summed {ms['stages_sum']:.3f} against "
+        f"the composed render's {ms['render']:.3f}; the heads' convs at f32 "
+        f"{out['conv_ab']['sums_ms']['f32']:.3f} ms of the heads' "
+        f"{out['conv_ab']['heads_f32_ms']:.3f}")
+    if failed:
+        raise AssertionError("render and conv tools: " + "; ".join(failed))
+    return out
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -3958,6 +4017,7 @@ def main():
     ev = timed("app and eval", phase_app_eval, preds, imgs)
     mc = timed("multi-device", phase_multichip, preds, imgs)
     tools = timed("measuring tools", phase_measuring_tools)
+    timed("render and conv tools", phase_render_tools)
     kernels = [
         {"name": "attention_fwd (N <= 4095, bf16: encoder, frame)",
          "route": "cuda", "source": "hunyuanworld_mirror_tpu_torch/csrc/attention_fwd.cu",

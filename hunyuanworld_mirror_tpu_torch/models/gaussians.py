@@ -291,6 +291,36 @@ def _all_views(cfg: GSRendererConfig, gs_params, images, predictions, views,
     return gs_params, whole(images), preds, views
 
 
+def camera_matrices(camera_params: torch.Tensor, B: int, S: int, H: int, W: int):
+    """B x S camera vectors (9 each) -> (world->cam (B, S, 4, 4), K (B, S,
+    3, 3)), detached: the render passes the cameras no gradient."""
+    ext, intr = cam_utils.vector_to_camera_matrices(
+        camera_params.reshape(B * S, 9), (H, W))
+    return (cam_utils.to_homogeneous(ext).reshape(B, S, 4, 4).detach(),
+            intr.reshape(B, S, 3, 3).detach())
+
+
+def exact_tile_test(cfg: GSRendererConfig) -> bool:
+    """The config's exact ellipse-tile test, unless WM_EXACT_TILE=0."""
+    return cfg.exact_tile_test and os.environ.get("WM_EXACT_TILE", "1") == "1"
+
+
+def rasterize_splats(cfg: GSRendererConfig, splats: Dict, w2c: torch.Tensor,
+                     Ks: torch.Tensor, W: int, H: int, device):
+    """One batch element's splats (SPLAT_KEYS, each (N, ...), quats wxyz)
+    into its cameras (w2c (S, 4, 4), Ks (S, 3, 3)) in RGB+ED, by the
+    config's route and caps -> rasterizer.rasterize's (colors, alphas,
+    meta)."""
+    return rasterizer.rasterize(
+        splats["means"], splats["quats"], splats["scales"], splats["opacities"],
+        splats["sh"], w2c, Ks, W, H, tile_size=cfg.tile_size,
+        max_per_tile=cfg.max_per_tile,
+        max_tiles_per_gauss=cfg.max_tiles_per_gauss, quat_order="wxyz",
+        payload_f16=cfg.payload_f16, impl=cfg.rasterizer_impl,
+        slot_fracs=cfg.slot_fracs, exact_tile_test=exact_tile_test(cfg),
+        device=device)
+
+
 def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
            images: torch.Tensor, predictions: Dict, do_render: bool = True,
            views: Optional[Dict] = None,
@@ -329,10 +359,7 @@ def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
     if not do_render:
         return predictions
 
-    ext, intr = cam_utils.vector_to_camera_matrices(
-        predictions["camera_params"].reshape(B * S, 9), (H, W))
-    w2c = cam_utils.to_homogeneous(ext).reshape(B, S, 4, 4).detach()
-    Ks = intr.reshape(B, S, 3, 3).detach()
+    w2c, Ks = camera_matrices(predictions["camera_params"], B, S, H, W)
     n_splats = splats["means"].shape[1]
     # JAX's use_dist: S and the splat count split over the axis (the global
     # S here always does: every rank holds S views)
@@ -351,16 +378,9 @@ def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
             outs.append(colors)
             alphas.append(alpha)
             continue
-        colors, alpha, meta = rasterizer.rasterize(
-            splats["means"][b], splats["quats"][b], splats["scales"][b],
-            splats["opacities"][b], splats["sh"][b], w2c[b], Ks[b], W, H,
-            tile_size=cfg.tile_size, max_per_tile=cfg.max_per_tile,
-            max_tiles_per_gauss=cfg.max_tiles_per_gauss, quat_order="wxyz",
-            payload_f16=cfg.payload_f16, impl=cfg.rasterizer_impl,
-            slot_fracs=cfg.slot_fracs,
-            exact_tile_test=(cfg.exact_tile_test
-                             and os.environ.get("WM_EXACT_TILE", "1") == "1"),
-            device=images.device)
+        colors, alpha, meta = rasterize_splats(
+            cfg, {k: splats[k][b] for k in SPLAT_KEYS}, w2c[b], Ks[b], W, H,
+            images.device)
         outs.append(colors)
         alphas.append(alpha)
         drops.append(meta["n_dropped"])

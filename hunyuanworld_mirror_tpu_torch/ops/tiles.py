@@ -128,7 +128,10 @@ def _depth_q(depths, valid, depth_bits):
     inf = torch.tensor(float("inf"), device=depths.device)
     dmin = torch.min(torch.where(valid, depths, inf))
     dmax = torch.max(torch.where(valid, depths, -inf))
-    scale = ((1 << depth_bits) - 1) / torch.clamp_min(dmax - dmin, 1e-12)
+    # a tensor quotient, rounded once as JAX's is: torch computes a Python
+    # number over a tensor as number * (1 / tensor), one ulp off it at times
+    levels = torch.full_like(dmax, (1 << depth_bits) - 1)
+    scale = levels / torch.clamp_min(dmax - dmin, 1e-12)
     return torch.clamp(torch.nan_to_num((depths - dmin) * scale),
                        0, (1 << depth_bits) - 1).to(torch.int32)
 

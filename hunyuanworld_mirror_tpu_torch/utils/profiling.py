@@ -15,6 +15,7 @@ that limit runs slower under load: state its limit beside every share.
 """
 
 import contextlib
+import json
 import os
 import subprocess
 import time
@@ -145,6 +146,47 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 1,
         _sync(fn(*args, **kwargs))
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts))
+
+
+class ToolRun:
+    """A measuring tool's device, timer and output lines.
+
+    On a CUDA device (the default: `resolve_device` raises without a card
+    unless the caller names the CPU) every line carries the card's name
+    and power limit as nvidia-smi prints them, and `ms` is time_fn's median
+    of `iters` calls after one warm-up, in ms. On the CPU (a rehearsal)
+    `ms` runs the call once and returns None, which the lines print as
+    null: a CPU run gives no device time."""
+
+    def __init__(self, device=None, iters: int = 5):
+        from .. import resolve_device
+        self.device = resolve_device(device)
+        self.on_card = self.device.type == "cuda"
+        self.iters = iters
+        if self.on_card:
+            self.spec = detect_chip()[0]
+            self.card = card_line()
+        else:
+            self.spec, self.card = None, "cpu"
+
+    def ms(self, fn: Callable, *args) -> Optional[float]:
+        if not self.on_card:
+            _sync(fn(*args))
+            return None
+        return 1e3 * time_fn(fn, *args, iters=self.iters)
+
+    def log(self, text: str) -> None:
+        print(f"{text}  [{self.card}]", flush=True)
+
+    def finish(self, tool: str, result: Dict) -> Dict:
+        """Print the tool's one JSON line (its numbers, the card) -> result."""
+        print(json.dumps({"tool": tool, "card": self.card, **result}), flush=True)
+        return result
+
+
+def fmt_ms(ms: Optional[float], digits: int = 3) -> str:
+    """A time for a tool's line: `null` where none was measured."""
+    return "null" if ms is None else f"{ms:.{digits}f}"
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,14 @@
+"""The program's `heads` phase a request: the CUDA-event span that
+utils/profiling.mark records around it inside infer.reconstruct, the mean
+over the traced run's window."""
+
+LAYER = "heads: models/dpt.py, camera_head.py"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "frames_per_s"
+WORKLOADS = ["recon.large.s4"]
+
+
+def read(run):
+    vals = [s["heads"] for s in run.spans if "heads" in s]
+    return sum(vals) / len(vals) if vals else None

@@ -256,9 +256,10 @@ Phases (any failure exits non-zero before the last line is printed):
      in a 128 x 128 camera: nothing dropped, image and alpha within 1e-4,
      max|d| logged per kernel; (c) the heads-profile twin
      (`heads_profile.main`: pts_head whole at f32 and bf16, then its three
-     f32 stages); (d) `utils/profiling.trace` around one main-path forward:
-     the trace file written, device time for K1 and K2 in its
-     key_averages(), the idle share;
+     f32 stages); (d) torch.profiler around one main-path forward recorded
+     with the program's spans: the trace file written, every span a user
+     annotation in it, device time for K1 and K2 in its key_averages(),
+     the idle share;
  19. the render and conv tools, each once at --iters 2 on one fixed-camera
      scene (`utils/scenes.render_scene`: large, S=4, 518 px) with the
      rasterizers' counts set to 0 just before: `render_profile` (gs_render
@@ -2833,7 +2834,7 @@ def train_loop(label, cfg, batch, n_steps, want_k1):
     """n_steps of make_train_step on one fixed batch (the loader's layout,
     through _prepare_batch) -> losses, median step split and peak."""
     from hunyuanworld_mirror_tpu_torch.training import trainer
-    from hunyuanworld_mirror_tpu_torch.utils.profiling import mark
+    from hunyuanworld_mirror_tpu_torch.utils import profiling
     model = trainer.model_init(cfg, "cuda")
     opt = trainer.make_optimizer(cfg, model)
     step = trainer.make_train_step(cfg, model, opt)
@@ -2845,8 +2846,8 @@ def train_loop(label, cfg, batch, n_steps, want_k1):
     for _ in range(n_steps):
         before = k1_counts()
         marks = []
-        mark(marks, "start")
-        loss, _ = step(b, marks)
+        with profiling.request(marks, start=True):
+            loss, _ = step(b, marks)
         losses.append(float(loss))
         now = k1_counts()
         counts.append((now[0] - before[0], now[1] - before[1]))
@@ -3876,10 +3877,12 @@ def phase_oracle():
 
 
 def phase_trace():
-    """(d) utils/profiling.trace around one main-path forward (after a
-    warm-up): the trace written, device time for K1 (attn_bf16_kernel) and
-    K2 (raster_flat_kernel) in its key_averages() -> their device ms, the
-    forward's device ms and wall ms."""
+    """(d) torch.profiler around one main-path forward (after a warm-up)
+    recorded with the program's spans (utils/profiling.recording): the
+    Chrome trace written, every span a user annotation in it, device time
+    for K1 (attn_bf16_kernel) and K2 (raster_flat_kernel) in its
+    key_averages() -> their device ms, the forward's device ms and wall
+    ms."""
     from hunyuanworld_mirror_tpu_torch.infer import PRESETS, load_model, reconstruct
     from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
     from hunyuanworld_mirror_tpu_torch.utils import profiling
@@ -3890,11 +3893,21 @@ def phase_trace():
     torch.cuda.synchronize()
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                            "smoke_trace")
-    with profiling.trace(log_dir) as prof:
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof, profiling.recording() as rec:
         t0 = time.time()
         reconstruct(model, imgs, cams)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+    path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        annotated = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"}
+    missing = {sp.name for r in rec.requests for sp in r.spans} - annotated
+    if missing:
+        raise AssertionError(f"trace: spans with no user annotation: {sorted(missing)}")
     dev = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
            if e.device_time_total > 0}
     kern = {k: sum(ms for key, ms in dev.items() if pat in key)

@@ -48,7 +48,7 @@ from .io import scene as scene_lib
 from .models.worldmirror import WorldMirror, WorldMirrorConfig
 from .refine import ba
 from .utils import geometry
-from .utils.profiling import mark
+from .utils import profiling
 
 # views keys of the priors, in cond-flag order (pose, depth, rays)
 PRIOR_KEYS = ("camera_pose", "depthmap", "camera_intrinsics")
@@ -88,17 +88,18 @@ def reconstruct(model: WorldMirror, images: np.ndarray,
     camera-to-world, depthmap (1, S, H, W), camera_intrinsics (1, S, 3, 3)
     in the images' pixels. cond_flags: (pose, depth, rays); by default
     1 for each prior given.
-    marks: a list to receive a CUDA event before the forward ("start") and
-    after each phase (see models/worldmirror.py).
+    marks: a list to receive a CUDA event as the forward starts ("start")
+    and after each phase (see models/worldmirror.py).
     """
     dev = next(model.parameters()).device
-    views = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
-             for k, v in {"img": images, **(priors or {})}.items()}
-    if cond_flags is None:
-        cond_flags = tuple(int(k in views) for k in PRIOR_KEYS)
-    mark(marks, "start")
-    return model(views, cond_flags=cond_flags, render=True,
-                 camera_params=camera_params, marks=marks)
+    with profiling.request(marks, start=True):
+        views = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in {"img": images, **(priors or {})}.items()}
+        profiling.count("host_syncs", len(views))
+        if cond_flags is None:
+            cond_flags = tuple(int(k in views) for k in PRIOR_KEYS)
+        return model(views, cond_flags=cond_flags, render=True,
+                     camera_params=camera_params, marks=marks)
 
 
 def run(images: np.ndarray, cfg: WorldMirrorConfig, params=None, device=None,

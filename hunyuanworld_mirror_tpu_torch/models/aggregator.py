@@ -22,7 +22,7 @@ from torch import nn
 from . import dinov2
 from .block import Block
 from .nn import Mlp, silu_mlp, trunc_normal_
-from ..utils.profiling import mark
+from ..utils import profiling
 from .rope import grid_positions, make_rope_tables, tile_tables
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
@@ -130,14 +130,14 @@ class VisualGeometryTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor, priors: Optional[Tuple] = None,
                 cond_flags: Sequence[int] = (0, 0, 0),
-                dtype=torch.bfloat16, marks: Optional[List] = None,
-                mesh=None) -> Tuple[List[torch.Tensor], int]:
+                dtype=torch.bfloat16, mesh=None) -> Tuple[List[torch.Tensor], int]:
         """(B, S, H, W, 3) images in [0, 1] -> (4 intermediates, each
         (B, S, N, 2C), or (B, S, N, C) with `frame_only`; patch_start_idx).
 
         priors: optional (depth maps (B,S,H,W), rays (B,S,4), poses
         (B,S,7)), any of them None; cond_flags: (pose, depth, rays) switches.
-        `marks`: see utils/profiling.py.
+        The spans "encoder" (normalisation and patch embedding) and "trunk"
+        (the rest) time its two phases.
 
         mesh: B and S are this rank's shard (parallel/mesh.py); the global
         layers then run ring attention over the mesh's view axis, and only
@@ -149,52 +149,54 @@ class VisualGeometryTransformer(nn.Module):
         h0, w0 = H // cfg.patch_size, W // cfg.patch_size
         dev = images.device
 
-        mean = torch.tensor(_RESNET_MEAN, device=dev).to(dtype)
-        std = torch.tensor(_RESNET_STD, device=dev).to(dtype)
-        imgs = (images.reshape(B * S, H, W, 3).to(dtype) - mean) / std
-        if "conv" in cfg.patch_embed:
-            patch_tokens = self.patch_embed(imgs)
-        else:
-            patch_tokens = self.patch_embed.forward_features(imgs)
-        mark(marks, "encoder")
+        with profiling.span("encoder"):
+            mean = torch.tensor(_RESNET_MEAN, device=dev).to(dtype)
+            std = torch.tensor(_RESNET_STD, device=dev).to(dtype)
+            profiling.count("host_syncs", 2)
+            imgs = (images.reshape(B * S, H, W, 3).to(dtype) - mean) / std
+            if "conv" in cfg.patch_embed:
+                patch_tokens = self.patch_embed(imgs)
+            else:
+                patch_tokens = self.patch_embed.forward_features(imgs)
 
-        first = mesh is None or mesh.index("view") == 0
-        parts = [self._special(self.cam_token, B, S, dtype, first),
-                 self._special(self.reg_token, B, S, dtype, first)]
-        if cfg.enable_cond:
-            depths, rays, poses = priors if priors is not None else (None,) * 3
-            zero = torch.zeros(B * S, 1, C, dtype=dtype, device=dev)
-            pose_tok = ray_tok = zero
-            if cond_flags[0] and poses is not None:
-                pose_tok = self.pose_embed(poses.reshape(B * S, 7).to(dtype))[:, None]
-            if cond_flags[1] and depths is not None:
-                patch_tokens = patch_tokens + self.depth_embed(
-                    depths.reshape(B * S, H, W, 1).to(dtype))
-            if cond_flags[2] and rays is not None:
-                ray_tok = self.ray_embed(rays.reshape(B * S, 4).to(dtype))[:, None]
-            parts += [pose_tok, ray_tok]
-        tokens = torch.cat(parts + [patch_tokens], dim=1)
-        N = tokens.shape[1]
+        with profiling.span("trunk"):
+            first = mesh is None or mesh.index("view") == 0
+            parts = [self._special(self.cam_token, B, S, dtype, first),
+                     self._special(self.reg_token, B, S, dtype, first)]
+            if cfg.enable_cond:
+                depths, rays, poses = priors if priors is not None else (None,) * 3
+                zero = torch.zeros(B * S, 1, C, dtype=dtype, device=dev)
+                pose_tok = ray_tok = zero
+                if cond_flags[0] and poses is not None:
+                    pose_tok = self.pose_embed(poses.reshape(B * S, 7).to(dtype))[:, None]
+                if cond_flags[1] and depths is not None:
+                    patch_tokens = patch_tokens + self.depth_embed(
+                        depths.reshape(B * S, H, W, 1).to(dtype))
+                if cond_flags[2] and rays is not None:
+                    ray_tok = self.ray_embed(rays.reshape(B * S, 4).to(dtype))[:, None]
+                parts += [pose_tok, ray_tok]
+            tokens = torch.cat(parts + [patch_tokens], dim=1)
+            N = tokens.shape[1]
 
-        rope_frame = rope_global = None
-        if cfg.rope_freq > 0:
-            pos = grid_positions(h0, w0, cfg.patch_start_idx)
-            rope_frame = make_rope_tables(pos, C // cfg.num_heads,
-                                          cfg.rope_freq, device=dev)
-            rope_global = None if cfg.frame_only else tile_tables(rope_frame, S)
+            rope_frame = rope_global = None
+            if cfg.rope_freq > 0:
+                pos = grid_positions(h0, w0, cfg.patch_start_idx)
+                rope_frame = make_rope_tables(pos, C // cfg.num_heads,
+                                              cfg.rope_freq, device=dev)
+                rope_global = None if cfg.frame_only else tile_tables(rope_frame, S)
 
-        x = tokens
-        captured = {}
-        capture = set(cfg.intermediate_idxs)
-        for i in range(cfg.depth):
-            xf = self.frame_blocks[i](x.reshape(B * S, N, C), rope_frame)
-            if cfg.frame_only:
-                x = xf
+            x = tokens
+            captured = {}
+            capture = set(cfg.intermediate_idxs)
+            for i in range(cfg.depth):
+                xf = self.frame_blocks[i](x.reshape(B * S, N, C), rope_frame)
+                if cfg.frame_only:
+                    x = xf
+                    if i in capture:
+                        captured[i] = xf.reshape(B, S, N, C)
+                    continue
+                x = self.global_blocks[i](xf.reshape(B, S * N, C), rope_global, mesh)
                 if i in capture:
-                    captured[i] = xf.reshape(B, S, N, C)
-                continue
-            x = self.global_blocks[i](xf.reshape(B, S * N, C), rope_global, mesh)
-            if i in capture:
-                captured[i] = torch.cat([xf.reshape(B, S, N, C),
-                                         x.reshape(B, S, N, C)], dim=-1)
-        return [captured[i] for i in cfg.intermediate_idxs], cfg.patch_start_idx
+                    captured[i] = torch.cat([xf.reshape(B, S, N, C),
+                                             x.reshape(B, S, N, C)], dim=-1)
+            return [captured[i] for i in cfg.intermediate_idxs], cfg.patch_start_idx

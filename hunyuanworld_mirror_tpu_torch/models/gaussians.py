@@ -26,7 +26,7 @@ from ..ops import rasterizer
 from ..ops.distributed import rasterize_distributed
 from ..parallel import comm
 from ..utils import camera as cam_utils
-from ..utils import geometry, gs_act
+from ..utils import geometry, gs_act, profiling
 from ..utils import sh as sh_utils
 from .nn import Conv2d, uniform_
 
@@ -208,6 +208,7 @@ def voxel_prune(cfg: GSRendererConfig, splats: Dict) -> Dict:
         key = (vox[:, 0] << 40) | (vox[:, 1] << 20) | vox[:, 2]
         _, inv = torch.unique(key, sorted=True, return_inverse=True)
         U = int(inv.max()) + 1
+        profiling.count("host_syncs", 3)    # unique, U and the dead quat below
         w = s["weights"]
         sh_flat = s["sh"].reshape(N, -1)
         planes = torch.cat([w[:, None], (w * w)[:, None], w[:, None] * s["means"],
@@ -340,21 +341,22 @@ def render(renderer: GaussianSplatRenderer, gs_feats: Optional[torch.Tensor],
     contiguous N/V slice of the splats, else its cameras over all splats."""
     cfg = renderer.cfg
     B, S, H, W, _ = images.shape
-    if gs_params is None:
-        gs_params = renderer.head(gs_feats.reshape(B * S, H, W, -1))
     v_size = 1 if mesh is None else mesh.size("view")
-    if v_size > 1:
-        gs_params, all_images, all_preds, views = _all_views(
-            cfg, gs_params, images, predictions, views, mesh)
-    else:
-        all_images, all_preds = images, predictions
-    splats = prepare_splats(cfg, gs_params, all_images, all_preds, views)
-    if cfg.enable_conf_filter and "gs_depth_conf" in all_preds:
-        splats = confidence_filter(cfg, splats, all_preds["gs_depth_conf"])
-    if cfg.enable_prune:
-        splats = {**splats, **voxel_prune(cfg, {k: splats[k] for k in SPLAT_KEYS})}
-    if cfg.enable_compact and (cfg.enable_prune or cfg.enable_conf_filter):
-        splats = compact_splats(cfg, {k: splats[k] for k in SPLAT_KEYS})
+    with profiling.span("gs_render.splats"):
+        if gs_params is None:
+            gs_params = renderer.head(gs_feats.reshape(B * S, H, W, -1))
+        if v_size > 1:
+            gs_params, all_images, all_preds, views = _all_views(
+                cfg, gs_params, images, predictions, views, mesh)
+        else:
+            all_images, all_preds = images, predictions
+        splats = prepare_splats(cfg, gs_params, all_images, all_preds, views)
+        if cfg.enable_conf_filter and "gs_depth_conf" in all_preds:
+            splats = confidence_filter(cfg, splats, all_preds["gs_depth_conf"])
+        if cfg.enable_prune:
+            splats = {**splats, **voxel_prune(cfg, {k: splats[k] for k in SPLAT_KEYS})}
+        if cfg.enable_compact and (cfg.enable_prune or cfg.enable_conf_filter):
+            splats = compact_splats(cfg, {k: splats[k] for k in SPLAT_KEYS})
     predictions["splats"] = splats
     if not do_render:
         return predictions

@@ -10,6 +10,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 class RopeTables(NamedTuple):
     """Per-token rotation tables, each (N, head_dim // 2)."""
@@ -36,6 +38,7 @@ def make_rope_tables(positions: np.ndarray, head_dim: int,
     def tables(p):
         ang = p[:, None].astype(np.float64) * inv_freq[None, :]
         ang = np.concatenate([ang, ang], axis=-1)
+        profiling.count("host_syncs", 2)    # two uploads from pageable memory
         return (torch.as_tensor(np.cos(ang), dtype=torch.float32, device=device),
                 torch.as_tensor(np.sin(ang), dtype=torch.float32, device=device))
 

@@ -23,7 +23,7 @@ from ..parallel import comm
 from ..parallel.sharding import axis_part
 from ..utils import camera as cam_utils
 from ..utils import priors as prior_utils
-from ..utils.profiling import mark
+from ..utils import profiling
 from . import gaussians
 from .aggregator import VGTConfig, VisualGeometryTransformer
 from .camera_head import CameraHead, CameraHeadConfig
@@ -219,7 +219,8 @@ class WorldMirror(nn.Module):
 
         marks: pass a list to have a CUDA event appended after each phase
         (priors where they are used, encoder, trunk, heads, gs_render), for
-        phase timing on the card.
+        phase timing on the card: the end events of the forward's top-level
+        spans (utils/profiling.request).
 
         mesh: a (data, view, model) mesh of process groups (parallel/
         mesh.py); `views` (and camera_params) are then this rank's batch
@@ -232,9 +233,9 @@ class WorldMirror(nn.Module):
         grad: build the autograd graph (a training step); by default the
         forward runs under no_grad.
         """
-        with torch.set_grad_enabled(grad):
+        with torch.set_grad_enabled(grad), profiling.request(marks):
             return self._forward(views, cond_flags, render, trunk_dtype,
-                                 camera_params, marks, mesh)
+                                 camera_params, mesh)
 
     def _priors(self, views, hw, mesh):
         """extract_priors over every view: the pose normalisation spans S,
@@ -250,55 +251,60 @@ class WorldMirror(nn.Module):
                      for p in extract_priors(whole, hw))
 
     def _forward(self, views, cond_flags, render, trunk_dtype, camera_params,
-                 marks, mesh):
+                 mesh):
         cfg = self.cfg
         imgs = views["img"]
         S, H, W = imgs.shape[1:4]
         use_cond = cfg.enable_cond and sum(cond_flags) > 0
         priors = None
         if use_cond:
-            priors = self._priors(views, (H, W), mesh)
-            mark(marks, "priors")
+            with profiling.span("priors"):
+                priors = self._priors(views, (H, W), mesh)
         token_list, start = self.visual_geometry_transformer(
             imgs, priors, cond_flags if use_cond else (0, 0, 0),
-            dtype=trunk_dtype, marks=marks, mesh=mesh)
-        mark(marks, "trunk")
+            dtype=trunk_dtype, mesh=mesh)
 
         preds: Dict[str, torch.Tensor] = {}
-        if cfg.enable_cam:
-            cam = self.cam_head(token_list, mesh=mesh)[-1]       # (B, S, 9)
-            if camera_params is not None:
-                preds["camera_params_pred"] = cam
-                cam = torch.as_tensor(camera_params, dtype=torch.float32,
-                                      device=imgs.device)
-            preds["camera_params"] = cam
-            ext, intr = cam_utils.vector_to_camera_matrices(cam, (H, W))
-            preds["camera_poses"] = cam_utils.se3_inverse(
-                cam_utils.to_homogeneous(ext))                   # c2w
-            preds["camera_intrs"] = intr
+        with profiling.span("heads"):
+            if cfg.enable_cam:
+                cam = self.cam_head(token_list, mesh=mesh)[-1]       # (B, S, 9)
+                if camera_params is not None:
+                    preds["camera_params_pred"] = cam
+                    cam = torch.as_tensor(camera_params, dtype=torch.float32,
+                                          device=imgs.device)
+                    profiling.count("host_syncs")
+                preds["camera_params"] = cam
+                ext, intr = cam_utils.vector_to_camera_matrices(cam, (H, W))
+                preds["camera_poses"] = cam_utils.se3_inverse(
+                    cam_utils.to_homogeneous(ext))                   # c2w
+                preds["camera_intrs"] = intr
 
-        if cfg.enable_depth:
-            preds["depth"], preds["depth_conf"] = self._head(
-                self.depth_head, token_list, imgs, start)
-        if cfg.enable_pts:
-            preds["pts3d"], preds["pts3d_conf"] = self._head(
-                self.pts_head, token_list, imgs, start)
-        if cfg.enable_norm:
-            preds["normals"], preds["normals_conf"] = self._head(
-                self.norm_head, token_list, imgs, start)
+            if cfg.enable_depth:
+                with profiling.span("heads.depth"):
+                    preds["depth"], preds["depth_conf"] = self._head(
+                        self.depth_head, token_list, imgs, start)
+            if cfg.enable_pts:
+                with profiling.span("heads.pts"):
+                    preds["pts3d"], preds["pts3d_conf"] = self._head(
+                        self.pts_head, token_list, imgs, start)
+            if cfg.enable_norm:
+                with profiling.span("heads.normals"):
+                    preds["normals"], preds["normals_conf"] = self._head(
+                        self.norm_head, token_list, imgs, start)
 
-        gs_feat = gs_params = None
-        ck = frame_chunks(cfg, S)
-        if cfg.enable_gs and ck is None:
-            gs_feat, preds["gs_depth"], preds["gs_depth_conf"] = self.gs_head(
-                token_list, imgs, start)
-        elif cfg.enable_gs:
-            gs_params, preds["gs_depth"], preds["gs_depth_conf"] = (
-                self._gs_params_chunked(token_list, imgs, start, ck))
-        mark(marks, "heads")
+            gs_feat = gs_params = None
+            ck = frame_chunks(cfg, S)
+            if cfg.enable_gs:
+                with profiling.span("heads.gs"):
+                    if ck is None:
+                        gs_feat, preds["gs_depth"], preds["gs_depth_conf"] = self.gs_head(
+                            token_list, imgs, start)
+                    else:
+                        gs_params, preds["gs_depth"], preds["gs_depth_conf"] = (
+                            self._gs_params_chunked(token_list, imgs, start, ck))
         if cfg.enable_gs:
-            preds = gaussians.render(self.gs_renderer, gs_feat, imgs, preds,
-                                     do_render=render, views=views,
-                                     gs_params=gs_params, mesh=mesh)
-            mark(marks, "gs_render")
+            with profiling.span("gs_render"):
+                preds = gaussians.render(self.gs_renderer, gs_feat, imgs, preds,
+                                         do_render=render, views=views,
+                                         gs_params=gs_params, mesh=mesh)
         return preds

@@ -30,6 +30,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .. import resolve_device
+from ..utils import profiling
 from ..utils import sh as sh_utils
 from ..utils.rotation import quat_to_rotmat
 from . import cameras, projection, tiles
@@ -254,15 +255,17 @@ class RasterizeFlat(torch.autograd.Function):
                 max_per_tile, exact_test=True):
         tw = (width + tile_size - 1) // tile_size
         th = (height + tile_size - 1) // tile_size
-        bins = bin_splats(means2d, conics, colors, opacities, radii, depths,
-                          tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
-                          False, with_ids=True, exact_test=exact_test)
+        with profiling.span("render.bin"):
+            bins = bin_splats(means2d, conics, colors, opacities, radii, depths,
+                              tile_size, tw, th, max_tiles_per_gauss, max_per_tile,
+                              False, with_ids=True, exact_test=exact_test)
         d = colors.shape[-1]
-        order = torch.empty(bins.counts.shape, dtype=torch.int64,
-                            device=bins.counts.device)
-        (img, alpha, t_fin, last), starts, counts, n_dropped = blend_flat(
-            bins, width, height, tile_size, d, False, max_per_tile,
-            with_state=True, order_out=order)
+        with profiling.span("render.blend"):
+            order = torch.empty(bins.counts.shape, dtype=torch.int64,
+                                device=bins.counts.device)
+            (img, alpha, t_fin, last), starts, counts, n_dropped = blend_flat(
+                bins, width, height, tile_size, d, False, max_per_tile,
+                with_state=True, order_out=order)
         ctx.save_for_backward(bins.packed, starts, counts, bins.gauss_ids,
                               t_fin, last, order)
         ctx.dims = (width, height, tile_size, d, means2d.shape[0])
@@ -496,6 +499,7 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         _tensor(x, dev) for x in (radial_coeffs, tangential_coeffs, viewmats_rs))
     if quat_order == "wxyz":
         quats = quats[..., [1, 2, 3, 0]]
+        profiling.count("host_syncs")   # the index list's upload
     elif quat_order != "xyzw":
         raise ValueError(f"unknown quat_order {quat_order!r}")
     train = torch.is_grad_enabled() and any(
@@ -539,9 +543,10 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     for c in range(viewmats.shape[0]):
         ut = ut_camera(c, camera_model, radial_coeffs, tangential_coeffs, ftheta_coeffs,
                        rolling_shutter, viewmats_rs, ut_params)
-        s = prepare_camera(means, covars, opacities, colors, viewmats[c], Ks[c],
-                           width, height, render_mode, ut=ut if use_ut else None,
-                           **knobs)
+        with profiling.span("render.project"):
+            s = prepare_camera(means, covars, opacities, colors, viewmats[c], Ks[c],
+                               width, height, render_mode, ut=ut if use_ut else None,
+                               **knobs)
         if with_eval3d:
             img, alpha, n_drop, n_isect = _rasterize_world_camera(
                 means, iscl_rots, s, opacities, viewmats[c], Ks[c], ut, width, height,
@@ -556,13 +561,15 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
                 s.depths, width, height, tile_size, max_tiles_per_gauss,
                 max_per_tile, exact_tile_test)
         else:
-            bins = bin_splats(s.means2d, s.conics, s.colors, s.opacities, s.radii,
-                              s.depths, tile_size, tw, th, max_tiles_per_gauss,
-                              max_per_tile, payload_f16, slot_fracs=slot_fracs,
-                              exact_test=exact_tile_test)
-            (img, alpha), _, counts, n_drop = blend_flat(
-                bins, width, height, tile_size, s.colors.shape[-1], payload_f16,
-                max_per_tile)
+            with profiling.span("render.bin"):
+                bins = bin_splats(s.means2d, s.conics, s.colors, s.opacities, s.radii,
+                                  s.depths, tile_size, tw, th, max_tiles_per_gauss,
+                                  max_per_tile, payload_f16, slot_fracs=slot_fracs,
+                                  exact_test=exact_tile_test)
+            with profiling.span("render.blend"):
+                (img, alpha), _, counts, n_drop = blend_flat(
+                    bins, width, height, tile_size, s.colors.shape[-1], payload_f16,
+                    max_per_tile)
             n_isect = counts.sum()
         outs.append((img, alpha, n_drop, n_isect, s.radii, s.means2d, s.depths))
     (render_colors, render_alphas, drops, isects, radii, means2d,

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..utils import profiling
+
 DEPTH_BITS = 20
 _CONIC_TEST_EPS = 1e-3
 
@@ -126,6 +128,7 @@ def _tile_boxes(means2d, radii, tile_size, tile_width, tile_height):
 def _depth_q(depths, valid, depth_bits):
     """Depths quantized to depth_bits against the valid splats' [min, max]."""
     inf = torch.tensor(float("inf"), device=depths.device)
+    profiling.count("host_syncs")       # the scalar's upload
     dmin = torch.min(torch.where(valid, depths, inf))
     dmax = torch.max(torch.where(valid, depths, -inf))
     # a tensor quotient, rounded once as JAX's is: torch computes a Python

@@ -35,7 +35,7 @@ from ..ops import gs2d, rasterizer
 from ..utils import camera as cam_utils
 from ..utils import rotation as rot_utils
 from ..utils.metrics import nvs_metrics
-from ..utils.profiling import mark
+from ..utils import profiling
 from . import bilagrid, losses, mcmc
 
 PARAM_KEYS = ("means", "log_scales", "quats", "opacity_logits", "sh")
@@ -242,21 +242,15 @@ def make_train_step(cfg: SplatOptConfig, width: int, height: int,
     In order: the pose deltas adjust the viewmats (cfg.pose_opt), the
     render's RGB goes through the bilateral grids (cfg.use_bilateral_grid),
     then over `bkgd` (1, 1, 1, 3) as rgb + bkgd (1 - alpha)
-    (cfg.random_bkgd, which needs it), then the losses. `marks` receives
-    CUDA events after the render forward, the backward and the optimizer;
-    with the bilateral grid the render forward is split by two more,
-    "rasterize" (the render) and "bilagrid" (the slice)."""
+    (cfg.random_bkgd, which needs it), then the losses. A step is one
+    request of utils/profiling: its top-level spans are "render_forward",
+    "backward" and "optimizer", and with the bilateral grid the render
+    forward is split by two more before it, "rasterize" (the render) and
+    "bilagrid" (the slice); the span "loss" inside the render forward holds
+    the losses. `marks` receives their end events, in that order."""
     use_abs = cfg.resolved_signal(resolve_device(device)) == "absgrad"
 
-    def step(raw, opt, viewmats, Ks, gt_images, gt_depths=None, marks=None,
-             aux=(), bkgd=None):
-        if cfg.depth_loss and gt_depths is None:
-            raise ValueError("cfg.depth_loss needs gt_depths")
-        if cfg.random_bkgd and bkgd is None:
-            raise ValueError("cfg.random_bkgd needs bkgd (1, 1, 1, 3)")
-        dev = raw["means"].device
-        tap = (torch.zeros(raw["means"].shape[0], 2, device=dev,
-                           requires_grad=True) if use_abs else None)
+    def render(raw, viewmats, Ks, tap):
         r, vm = raw, viewmats
         if cfg.pose_opt:
             vm = apply_cam_deltas(viewmats, raw["cam_deltas"])
@@ -269,42 +263,36 @@ def make_train_step(cfg: SplatOptConfig, width: int, height: int,
             anchor = raw["means"].detach()[torch.argmax(raw["alive"])]
             r = dict(raw, means=torch.where(raw["alive"][:, None] > 0.5,
                                             raw["means"], anchor))
-        colors, alphas, meta = render_splats(r, vm, Ks, width, height, cfg,
-                                             abs_tap=tap)
-        rgb = colors[..., :3]
-        if cfg.use_bilateral_grid:
-            mark(marks, "rasterize")
-            rgb = bilagrid.slice_image_grids(raw["bil_grids"], rgb)
-            mark(marks, "bilagrid")
-        if cfg.random_bkgd:
-            rgb = rgb + bkgd * (1.0 - alphas)
-        loss = losses.photometric_loss(rgb, gt_images, cfg.ssim_lambda)
-        if cfg.depth_loss:
-            d = colors[..., 3]
-            valid = (gt_depths > 1e-6) & (d > 1e-6)
-            disp = torch.where(d > 1e-6, 1.0 / torch.clamp_min(d, 1e-6), 0.0)
-            disp_gt = torch.where(gt_depths > 1e-6,
-                                  1.0 / torch.clamp_min(gt_depths, 1e-6), 0.0)
-            dl = (torch.sum(torch.abs(disp - disp_gt) * valid)
-                  / torch.clamp_min(torch.sum(valid), 1.0)) * scene_scale
-            loss = loss + dl * cfg.depth_lambda
-        alive_f = raw["alive"]
-        n_alive = torch.clamp_min(torch.sum(alive_f), 1.0)
-        if cfg.opacity_reg > 0.0:
-            loss = loss + cfg.opacity_reg * torch.sum(
-                torch.sigmoid(raw["opacity_logits"]) * alive_f) / n_alive
-        if cfg.scale_reg > 0.0:
-            loss = loss + cfg.scale_reg * torch.sum(
-                torch.exp(raw["log_scales"]) * alive_f[:, None]) / (3 * n_alive)
-        if cfg.use_bilateral_grid:
-            loss = loss + cfg.bilgrid_tv_mult * bilagrid.total_variation_loss(
-                raw["bil_grids"])
-        mark(marks, "render_forward")
-        opt.zero_grad(set_to_none=True)
-        for o, _ in aux:
-            o.zero_grad(set_to_none=True)
-        loss.backward()
-        mark(marks, "backward")
+        return render_splats(r, vm, Ks, width, height, cfg, abs_tap=tap)
+
+    def step_loss(raw, rgb, colors, alphas, gt_images, gt_depths, bkgd):
+        with profiling.span("loss"):
+            if cfg.random_bkgd:
+                rgb = rgb + bkgd * (1.0 - alphas)
+            loss = losses.photometric_loss(rgb, gt_images, cfg.ssim_lambda)
+            if cfg.depth_loss:
+                d = colors[..., 3]
+                valid = (gt_depths > 1e-6) & (d > 1e-6)
+                disp = torch.where(d > 1e-6, 1.0 / torch.clamp_min(d, 1e-6), 0.0)
+                disp_gt = torch.where(gt_depths > 1e-6,
+                                      1.0 / torch.clamp_min(gt_depths, 1e-6), 0.0)
+                dl = (torch.sum(torch.abs(disp - disp_gt) * valid)
+                      / torch.clamp_min(torch.sum(valid), 1.0)) * scene_scale
+                loss = loss + dl * cfg.depth_lambda
+            alive_f = raw["alive"]
+            n_alive = torch.clamp_min(torch.sum(alive_f), 1.0)
+            if cfg.opacity_reg > 0.0:
+                loss = loss + cfg.opacity_reg * torch.sum(
+                    torch.sigmoid(raw["opacity_logits"]) * alive_f) / n_alive
+            if cfg.scale_reg > 0.0:
+                loss = loss + cfg.scale_reg * torch.sum(
+                    torch.exp(raw["log_scales"]) * alive_f[:, None]) / (3 * n_alive)
+            if cfg.use_bilateral_grid:
+                loss = loss + cfg.bilgrid_tv_mult * bilagrid.total_variation_loss(
+                    raw["bil_grids"])
+            return loss
+
+    def optimizer_step(raw, opt, aux, tap):
         # Dead slots sit at the origin where the perspective divide is
         # singular: their grads can be NaN. They are not parameters; zero
         # their rows so the optimizer state stays clean (selective Adam
@@ -318,7 +306,8 @@ def make_train_step(cfg: SplatOptConfig, width: int, height: int,
                 p.grad = torch.where(keep, p.grad, torch.zeros_like(p.grad))
             if use_abs:
                 # gsplat's units: pixel-space absgrad times half the image size
-                half = torch.tensor([width * 0.5, height * 0.5], device=dev)
+                half = torch.tensor([width * 0.5, height * 0.5], device=tap.device)
+                profiling.count("host_syncs")
                 g2d = torch.linalg.norm(tap.grad * half, dim=-1)
                 g2d = torch.where(alive_rows, g2d, torch.zeros_like(g2d))
             else:
@@ -328,7 +317,37 @@ def make_train_step(cfg: SplatOptConfig, width: int, height: int,
             o.step()
             if sched is not None:
                 sched.step()
-        mark(marks, "optimizer")
+        return g2d
+
+    def step(raw, opt, viewmats, Ks, gt_images, gt_depths=None, marks=None,
+             aux=(), bkgd=None):
+        if cfg.depth_loss and gt_depths is None:
+            raise ValueError("cfg.depth_loss needs gt_depths")
+        if cfg.random_bkgd and bkgd is None:
+            raise ValueError("cfg.random_bkgd needs bkgd (1, 1, 1, 3)")
+        with profiling.request(marks):
+            tap = (torch.zeros(raw["means"].shape[0], 2, device=raw["means"].device,
+                               requires_grad=True) if use_abs else None)
+            if cfg.use_bilateral_grid:
+                with profiling.span("rasterize"):
+                    colors, alphas, meta = render(raw, viewmats, Ks, tap)
+                with profiling.span("bilagrid"):
+                    rgb = bilagrid.slice_image_grids(raw["bil_grids"], colors[..., :3])
+                with profiling.span("render_forward"):
+                    loss = step_loss(raw, rgb, colors, alphas, gt_images, gt_depths,
+                                     bkgd)
+            else:
+                with profiling.span("render_forward"):
+                    colors, alphas, meta = render(raw, viewmats, Ks, tap)
+                    loss = step_loss(raw, colors[..., :3], colors, alphas, gt_images,
+                                     gt_depths, bkgd)
+            with profiling.span("backward"):
+                opt.zero_grad(set_to_none=True)
+                for o, _ in aux:
+                    o.zero_grad(set_to_none=True)
+                loss.backward()
+            with profiling.span("optimizer"):
+                g2d = optimizer_step(raw, opt, aux, tap)
         return loss.detach(), g2d, meta
 
     return step
@@ -493,32 +512,33 @@ def optimize_splats(
     seen = torch.zeros(capacity, device=dev)
     for it in range(cfg.iters):
         marks = [] if (on_step is not None and dev.type == "cuda") else None
-        mark(marks, "start")
-        bkgd = (torch.rand((1, 1, 1, 3), generator=gen, device=dev)
-                if cfg.random_bkgd else None)
-        loss, g2d, meta = step_fn(raw, opt, viewmats, Ks_t, gt, gt_depths, marks,
-                                  aux, bkgd)
-        grad_sum += g2d
-        seen += (g2d > 0).float()
-        refined = (cfg.refine_start <= it < cfg.refine_stop
-                   and (it + 1) % cfg.refine_every == 0)
-        if refined:
+        with profiling.request(marks, start=True):
+            bkgd = (torch.rand((1, 1, 1, 3), generator=gen, device=dev)
+                    if cfg.random_bkgd else None)
+            loss, g2d, meta = step_fn(raw, opt, viewmats, Ks_t, gt, gt_depths, marks,
+                                      aux, bkgd)
+            grad_sum += g2d
+            seen += (g2d > 0).float()
+            refined = (cfg.refine_start <= it < cfg.refine_stop
+                       and (it + 1) % cfg.refine_every == 0)
+            if refined:
+                with profiling.span("refine"):
+                    if cfg.strategy == "mcmc":
+                        raw = mcmc.mcmc_refine(
+                            raw, mcmc.sample_sources(raw, cfg.min_opacity, gen),
+                            cfg.min_opacity)
+                    else:
+                        noise = torch.randn(capacity, 3, generator=gen, device=dev)
+                        raw = refine(raw, grad_sum / torch.clamp_min(seen, 1.0), cfg,
+                                     noise)
+                    # the splat rows' moments restart; the cameras' and grids'
+                    # optimizers, with the pose lr's schedule, carry on
+                    opt = make_optimizer(cfg, raw, scene_scale)
+                    grad_sum.zero_()
+                    seen.zero_()
             if cfg.strategy == "mcmc":
-                raw = mcmc.mcmc_refine(
-                    raw, mcmc.sample_sources(raw, cfg.min_opacity, gen),
-                    cfg.min_opacity)
-            else:
-                noise = torch.randn(capacity, 3, generator=gen, device=dev)
-                raw = refine(raw, grad_sum / torch.clamp_min(seen, 1.0), cfg, noise)
-            # the splat rows' moments restart; the cameras' and grids'
-            # optimizers, with the pose lr's schedule, carry on
-            opt = make_optimizer(cfg, raw, scene_scale)
-            grad_sum.zero_()
-            seen.zero_()
-            mark(marks, "refine")
-        if cfg.strategy == "mcmc":
-            mcmc.inject_position_noise(raw, noise_scaler, generator=gen)
-            mark(marks, "noise")
+                with profiling.span("noise"):
+                    mcmc.inject_position_noise(raw, noise_scaler, generator=gen)
         if (it + 1) % 100 == 0:
             log_fn(f"splat-opt iter {it + 1}: loss {float(loss):.4f} "
                    f"alive {int(torch.sum(raw['alive'] > 0.5))}")

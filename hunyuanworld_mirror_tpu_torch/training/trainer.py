@@ -28,7 +28,7 @@ from ..models.centersnap import CenterSnap, CenterSnapConfig
 from ..models.nn import init_weights
 from ..models.panoptic import Panoptic
 from ..utils.priors import normalize_depth_fixed
-from ..utils.profiling import mark
+from ..utils import profiling
 from . import checkpoint as ckpt_lib
 from . import losses
 
@@ -140,18 +140,20 @@ def make_optimizer(cfg: TrainConfig, model: torch.nn.Module) -> AdamWCosine:
 def make_train_step(cfg: TrainConfig, model: torch.nn.Module,
                     opt: AdamWCosine) -> Callable:
     """step(batch, marks=None) -> (loss, logs), updating the model in
-    place; on CUDA `marks` (utils/profiling.mark) gets forward (the loss
-    included), backward and optimizer."""
+    place; a request of utils/profiling whose top-level spans are forward
+    (the loss included), backward and optimizer, their end events appended
+    to `marks`."""
 
     def train_step(batch, marks=None):
-        opt.zero_grad()
-        preds = model_forward(cfg, model, batch)
-        loss, logs = losses.centersnap_loss(preds, batch)
-        mark(marks, "forward")
-        loss.backward()
-        mark(marks, "backward")
-        opt.step()
-        mark(marks, "optimizer")
+        with profiling.request(marks):
+            with profiling.span("forward"):
+                opt.zero_grad()
+                preds = model_forward(cfg, model, batch)
+                loss, logs = losses.centersnap_loss(preds, batch)
+            with profiling.span("backward"):
+                loss.backward()
+            with profiling.span("optimizer"):
+                opt.step()
         return loss.detach(), {k: v.detach() for k, v in logs.items()}
 
     return train_step
@@ -230,8 +232,8 @@ def train(cfg: TrainConfig, log_fn=print, tb_logdir: Optional[str] = None,
         for batch in loader.epoch(epoch):
             batch = _prepare_batch(cfg, batch, dev)
             marks = [] if (on_step is not None and dev.type == "cuda") else None
-            mark(marks, "start")
-            loss, logs = train_step(batch, marks)
+            with profiling.request(marks, start=True):
+                loss, logs = train_step(batch, marks)
             step += 1
             if on_step is not None:
                 on_step(step, loss, logs, marks)

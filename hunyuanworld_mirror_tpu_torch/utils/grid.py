@@ -7,6 +7,8 @@ aspect-ratio diagonal normalization).
 import numpy as np
 import torch
 
+from . import profiling
+
 
 def create_uv_grid(width: int, height: int, aspect_ratio: float = None,
                    dtype=torch.float32, device=None) -> torch.Tensor:
@@ -21,6 +23,7 @@ def create_uv_grid(width: int, height: int, aspect_ratio: float = None,
     y = np.linspace(-span_y * (height - 1) / height,
                     span_y * (height - 1) / height, height)
     uu, vv = np.meshgrid(x, y)
+    profiling.count("host_syncs")       # the upload from pageable memory
     return torch.as_tensor(np.stack([uu, vv], axis=-1), dtype=dtype,
                            device=device)
 
@@ -32,6 +35,7 @@ def position_grid_to_embed(pos_grid: torch.Tensor, embed_dim: int,
     if embed_dim % 2:
         raise ValueError(f"embed_dim must be even, got {embed_dim}")
     omega = np.arange(embed_dim // 4, dtype=np.float64) / (embed_dim / 4.0)
+    profiling.count("host_syncs")
     omega = torch.as_tensor(1.0 / omega_0 ** omega, dtype=torch.float32,
                             device=pos_grid.device)
     pos = pos_grid.reshape(-1, 2)

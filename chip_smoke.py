@@ -26,7 +26,8 @@ Phases (any failure exits non-zero before the last line is printed):
      trunk, width 1024, 24 + 24 blocks, all five heads, the Gaussian render)
      at B=1, S=4, 518 px, random weights from a seed, fixed cameras: one
      `run` with the kernels' launch counts (88 attention launches, 24 of
-     them at N >= 4096, and 4 rasterizer launches) and the peak memory;
+     them at N >= 4096, 4 rasterizer launches and 4 K6
+     forward launches) and the peak memory;
      then one model from `load_model`, one warm-up and 7 timed forwards
      through `reconstruct`, with the per-phase
      time; then, on the same model, one forward of 4 landscape images at
@@ -58,13 +59,29 @@ Phases (any failure exits non-zero before the last line is printed):
      `infer.export`, the trainer twin's `run()` for 2 iterations on that
      directory, then `optimize_splats` on the same splats, images and
      cameras for 30 iterations with refines at steps 19 and 29: every loss
-     finite, the last below the first, 4 K2 and 4 K3 launches per step, the
+     finite, the last below the first, 4 K2, 4 K3 and 4 + 4 K6 launches per
+     step, the
      slot count unchanged across the refines; the median step time split by
      CUDA events into render forward, backward, optimizer and refine, the
      peak memory, the live splats after each refine and n_dropped per camera;
      then K3 (and K2's planes) against the plain version on the training
      step's own 4 lists, binned from two slot states: the input of step 10
      and the slots after the refine at step 29;
+ 8b. K6 (project_fwd / project_bwd, the pinhole projection): the ptxas
+     reports (fails on a stack frame or a spill); the forward against its
+     plain version on phase 5's 537,088 splats and on phase 8's 1,074,176
+     slots (dead slots at the origin), 4 cameras each: radii and depths bit
+     for bit, the rest within 2 ulps; the backward against autograd of the
+     plain projection in f32 and in f64 on the slots (per parameter group
+     on the live rows: K6 at most twice as far from f64 as f32 autograd,
+     by the group's largest error and by its median row's, and within 1e-3
+     a row wherever f32 autograd is within 1e-4 on 99% of the rows); both
+     checks again on 1,074,176 synthetic slots in each render mode, both
+     quaternion orders, SH degrees 0, 3, 4 and direct colours, with
+     compensations, radius_clip and tight_radius off; a camera's forward
+     and backward timed against the plain projection and its autograd,
+     with the bytes bound; a refine step's kernel launches (as the
+     benchmark counts them) and K6's 4 + 4;
   9. K2m (rasterize_flat_multi_fwd): `rasterize(camera_batch=True)` on
      phase 5's 537,088 splats and 4 cameras at 518 px with the render's caps
      (4096 per tile, 4 tiles per splat): one sort of all cameras' slots, 1
@@ -405,7 +422,8 @@ def phase_build():
     from hunyuanworld_mirror_tpu_torch.ops import _build
     t0 = time.time()
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
-                            "rasterize_flat_bwd", "rasterize_binned_fwd"])
+                            "rasterize_flat_bwd", "rasterize_binned_fwd", "project_fwd",
+                            "project_bwd"])
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -862,7 +880,7 @@ def phase_main_path():
     from hunyuanworld_mirror_tpu_torch.infer import (PRESETS, load_model,
                                                      reconstruct, run)
     from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
-    from hunyuanworld_mirror_tpu_torch.ops import rasterizer, rasterizer_flat
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, rasterizer_flat
     from hunyuanworld_mirror_tpu_torch.ops.attention import attention
 
     cfg = WorldMirrorConfig(**PRESETS["large"])
@@ -872,6 +890,7 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     attention.launches = attention.flash_route_launches = attention.f32_launches = 0
     rasterizer_flat.rasterize_flat.launches = 0
+    projection.project_fwd.launches = projection.project_bwd.launches = 0
     t0 = time.time()
     preds = run(imgs, cfg, camera_params=cams)
     torch.cuda.synchronize()
@@ -879,15 +898,18 @@ def phase_main_path():
     launches = {"attention_fwd": attention.launches,
                 "attention_fwd_flash_route": attention.flash_route_launches,
                 "attention_fwd_f32": attention.f32_launches,
-                "rasterize_flat_fwd": rasterizer_flat.rasterize_flat.launches}
+                "rasterize_flat_fwd": rasterizer_flat.rasterize_flat.launches,
+                "project_fwd": projection.project_fwd.launches,
+                "project_bwd": projection.project_bwd.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path run: {wall:.2f} s wall incl. model build and first use; "
         f"peak memory {peak_gb:.2f} GB; launches {launches}")
     if launches != {"attention_fwd": 88, "attention_fwd_flash_route": 24,
-                    "attention_fwd_f32": K1C_PER_FWD, "rasterize_flat_fwd": 4}:
+                    "attention_fwd_f32": K1C_PER_FWD, "rasterize_flat_fwd": 4,
+                    "project_fwd": 4, "project_bwd": 0}:
         raise AssertionError(f"expected 88 attention launches (24 at N >= 4096, "
-                             f"{K1C_PER_FWD} f32) and 4 rasterizer launches per forward, "
-                             f"got {launches}")
+                             f"{K1C_PER_FWD} f32), 4 rasterizer and 4 K6 forward launches "
+                             f"per forward, got {launches}")
 
     # timing: one model, so no forward pays for a model build
     model = load_model(cfg, device="cuda")
@@ -1252,6 +1274,7 @@ def phase_train(preds, imgs):
     from hunyuanworld_mirror_tpu_torch import splat_trainer
     from hunyuanworld_mirror_tpu_torch.infer import export
     from hunyuanworld_mirror_tpu_torch.io import ply as io_ply
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     from hunyuanworld_mirror_tpu_torch.training import splat_opt
 
@@ -1284,7 +1307,7 @@ def phase_train(preds, imgs):
         f"{cfg.max_per_tile}, 9 tiles per splat, f32 payload, SH degree 0")
 
     steps = []
-    prev = {"k2": 0, "k3": 0}
+    prev = {"k2": 0, "k3": 0, "k6_fwd": 0, "k6_bwd": 0}
     # the slot states whose lists K3 is held on: the input of step 10, a step
     # of the median below, and the state after the refine at step 29
     snap_at = {9: "step 10", cfg.iters - 1: "after refine 29"}
@@ -1292,13 +1315,15 @@ def phase_train(preds, imgs):
 
     def on_step(info):
         k2, k3 = R.rasterize_flat.launches, R.rasterize_flat_bwd.launches
+        k6f, k6b = P.project_fwd.launches, P.project_bwd.launches
         steps.append(dict(info, loss=float(info["loss"]), k2=k2 - prev["k2"],
-                          k3=k3 - prev["k3"],
+                          k3=k3 - prev["k3"], k6_fwd=k6f - prev["k6_fwd"],
+                          k6_bwd=k6b - prev["k6_bwd"],
                           alive=int((info["raw"]["alive"] > 0.5).sum()),
                           slots=tuple(info["raw"]["means"].shape),
                           n_dropped=info["meta"]["n_dropped"].tolist(), raw=None,
                           meta=None))
-        prev.update(k2=k2, k3=k3)
+        prev.update(k2=k2, k3=k3, k6_fwd=k6f, k6_bwd=k6b)
         if info["it"] in snap_at:
             with torch.no_grad():
                 snaps[snap_at[info["it"]]] = [
@@ -1307,6 +1332,7 @@ def phase_train(preds, imgs):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     R.rasterize_flat.launches = R.rasterize_flat_bwd.launches = 0
+    P.project_fwd.launches = P.project_bwd.launches = 0
     t0 = time.time()
     splat_opt.optimize_splats(splats, gt, c2w, Ks, cfg, depths=depths,
                               device="cuda", log_fn=log, on_step=on_step)
@@ -1334,13 +1360,13 @@ def phase_train(preds, imgs):
     for it, alive, ms in refines:
         log(f"training refine at step {it}: {ms:.2f} ms, {alive} live splats after")
     log(f"training n_dropped per camera: first step {steps[0]['n_dropped']}, "
-        f"last step {steps[-1]['n_dropped']}; launches per step (K2, K3) "
-        f"{sorted({(s['k2'], s['k3']) for s in steps})}")
+        f"last step {steps[-1]['n_dropped']}; launches per step (K2, K3, K6 forward, "
+        f"K6 backward) {sorted({(s['k2'], s['k3'], s['k6_fwd'], s['k6_bwd']) for s in steps})}")
 
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"training: losses {losses}")
-    if any((s["k2"], s["k3"]) != (4, 4) for s in steps):
-        raise AssertionError("training: expected 4 K2 and 4 K3 launches per step")
+    if any((s["k2"], s["k3"], s["k6_fwd"], s["k6_bwd"]) != (4, 4, 4, 4) for s in steps):
+        raise AssertionError("training: expected 4 K2, 4 K3 and 4 + 4 K6 launches per step")
     if any(s["slots"] != (capacity, 3) for s in steps):
         raise AssertionError("training: the slot count changed")
     if [it for it, _, _ in refines] != [19, 29]:
@@ -1362,7 +1388,354 @@ def phase_train(preds, imgs):
             f"plain {k3[label]['plain_ms']:.2f} ms  bound {k3[label]['bound_ms']:.4f} ms")
     ref = {"median_ms": med_total, "loss0": losses[0],
            "dropped0": steps[0]["n_dropped"]}
-    return steps[0]["k3"], k3["after refine 29"], (splats, gt, c2w, Ks, depths), ref
+    k6_launches = {"forward": steps[0]["k6_fwd"], "backward": steps[0]["k6_bwd"]}
+    return (steps[0]["k3"], k6_launches, k3["after refine 29"], (splats, gt, c2w, Ks, depths),
+            ref)
+
+
+# --- K6: the pinhole projection --------------------------------------------------
+
+# K6's backward against autograd of the plain projection, by parameter
+# group over the live rows the camera keeps. (1) max |delta| / max |f64
+# reference|: K6 in f32 may sit from autograd in f64 at most K6_F64_FACTOR
+# times as far as autograd in f32 does (both round the same forward; the
+# scales' gradient sits ~7e-6 from f64 on the CPU either way), or
+# K6_GRAD_FLOOR. One badly conditioned row sets both that maximum and f32
+# autograd's error there, so the rows are also held one by one, a row's
+# error being |delta| / |f64 reference| over the row: (2) K6's median row
+# error within K6_F64_FACTOR of f32 autograd's (or K6_GRAD_FLOOR); (3)
+# where f32 autograd is within K6_AGREE on at least K6_AGREE_SHARE of the
+# rows, K6 within K6_ROW_TOL on each of those rows. Which of (3) applies
+# depends on the reference alone: on the export's near-isotropic splats
+# the quaternions' gradient cancels in every row (f32 autograd's median
+# row error 1.6e-2 on the card), so there (2) holds them and the synthetic
+# scenes of k6_modes, where (3) applies to every group, hold each row. On
+# the CPU's synthetic scenes K6's plain version reads at most 1.1e-4 on
+# such rows, a dropped quaternion or SH-direction term 0.35 to 2e2.
+K6_F64_FACTOR = 2.0
+K6_GRAD_FLOOR = 1e-6
+K6_AGREE = 1e-4
+K6_ROW_TOL = 1e-3
+K6_AGREE_SHARE = 0.99
+# K6's forward against its plain version: the largest distance in ulps of
+# means2d, conics, the channels and the opacities (radii and depths: 0)
+K6_ULPS = 2
+
+
+def k6_ptxas():
+    """K6's ptxas reports, forward and backward: registers, and no stack
+    frame or spill."""
+    from hunyuanworld_mirror_tpu_torch.ops import _build
+    for source in ("project_fwd", "project_bwd"):
+        report = (_build.BUILD_DIR / f"{source}.ptxas.txt").read_text()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+        frames = [int(n) for n in re.findall(r"(\d+) bytes stack frame", report)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+        log(f"K6 {source} ptxas: registers {regs}, stack frames {frames}, spills {spills}")
+        if any(frames) or any(spills) or not regs:
+            raise AssertionError(f"K6 {source}: ptxas reports a stack frame or a spill")
+
+
+def ulp_distance(a, b):
+    """The largest distance in ulps between two f32 tensors of one shape
+    (NaN in the same places, else a mismatch), and the count of elements
+    that differ at all."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return float("inf"), int((nan_a != nan_b).sum())
+
+    def ordered(x):
+        i = torch.where(torch.isnan(x), torch.zeros_like(x), x).view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return int(d.max()) if d.numel() else 0, int((d != 0).sum())
+
+
+def k6_forward_check(label, ins, w2c, Ks, cam):
+    """K6's forward against its plain version on the card, camera by
+    camera: radii and depths bit for bit, the rest within K6_ULPS ->
+    (worst ulps, differing elements by output)."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
+    names = ("means2d", "conics", "channels", "opacities", "radii", "depths")
+    worst, counts = 0, dict.fromkeys(names, 0)
+    for c in range(w2c.shape[0]):
+        got = P.project_fwd(*ins, w2c[c], Ks[c], cam)
+        ref = P.project_fwd_plain(*ins, w2c[c], Ks[c], cam)
+        for name, a, b in zip(names, got, ref):
+            if name == "radii":
+                counts[name] += int((a != b).sum())
+                continue
+            ulps, n = ulp_distance(a, b)
+            counts[name] += n
+            if name == "depths":
+                if n:
+                    raise AssertionError(f"K6 {label} camera {c}: {n} depths differ")
+            else:
+                worst = max(worst, ulps)
+    log(f"K6 forward {label} ({ins[0].shape[0]} splats, {w2c.shape[0]} cameras, "
+        f"{cam.render_mode}, {cam.quat_order}, comp {cam.calc_compensations}): "
+        f"differing elements {counts}, worst {worst} ulps")
+    if counts["radii"] or worst > K6_ULPS:
+        raise AssertionError(f"K6 forward {label}: radii differ at {counts['radii']}, "
+                             f"worst {worst} ulps")
+    return worst, counts
+
+
+def k6_backward_check(label, ins, w2c, Ks, cam, gen):
+    """K6's backward against autograd of the plain projection on the card
+    in f32 and in f64, camera by camera, with seeded cotangents on the rows
+    the camera keeps (radii > 0; K3 gives the others none) -> by parameter
+    group: max |delta| / max |f64 reference| over the live rows of K6, of
+    f32 autograd and of K6 against f32 autograd; the rows' errors (K6's
+    largest on the rows where f32 autograd agrees with f64, the share of
+    such rows, K6's and f32 autograd's median). Raises where a group fails
+    either gate (K6_F64_FACTOR ... K6_AGREE_SHARE)."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
+    names = ("means", "quats", "scales", "opacities", "colors")
+    live = ins[3] > 0
+    k6 = dict.fromkeys(names, 0.0)
+    f32 = dict.fromkeys(names, 0.0)
+    k6_f32 = dict.fromkeys(names, 0.0)
+    rows = {name: ([], []) for name in names}
+
+    def autograd(dtype, c, cots):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in ins]
+        outs = P.project_fwd_plain(*leaves, w2c[c].to(dtype), Ks[c].to(dtype), cam)
+        loss = sum((o * g.to(dtype)).sum() for o, g in zip(outs[:4], cots))
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    for c in range(w2c.shape[0]):
+        outs = P.project_fwd_plain(*ins, w2c[c], Ks[c], cam)
+        kept = (outs[4] > 0).all(-1)
+        cots = [torch.randn(outs[i].shape, generator=gen, device="cuda")
+                * kept.view((-1,) + (1,) * (outs[i].dim() - 1)) for i in (0, 1, 2, 3)]
+        ref32, ref64 = autograd(torch.float32, c, cots), autograd(torch.float64, c, cots)
+        got = list(P.project_bwd(*ins, w2c[c], Ks[c], cam, cots[0], cots[1], cots[2],
+                                 cots[3] if cam.calc_compensations else None, None))
+        if not cam.calc_compensations:
+            got[3] = cots[3]          # the opacities pass the projection unchanged
+        for name, a, r32, r64 in zip(names, got, ref32, ref64):
+            if r64 is None:
+                continue
+            a, r32, r64 = a[live], r32[live], r64[live]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K6 backward {label}: {name} not finite on live rows")
+            m = float(r64.abs().max())
+            k6[name] = max(k6[name], float((a.double() - r64).abs().max()) / m)
+            f32[name] = max(f32[name], float((r32.double() - r64).abs().max()) / m)
+            k6_f32[name] = max(k6_f32[name],
+                               float((a - r32).abs().max() / r32.abs().max()))
+            flat = lambda t: t.double().reshape(t.shape[0], -1)
+            norm = flat(r64).norm(dim=-1)
+            has = norm > 0
+            for out, t in zip(rows[name], (a, r32)):
+                out.append(((flat(t) - flat(r64)).norm(dim=-1) / norm)[has])
+    by_row = {}
+    for name, (e_k6, e_f32) in rows.items():
+        if not e_k6:
+            continue
+        e_k6, e_f32 = torch.cat(e_k6), torch.cat(e_f32)
+        agree = e_f32 <= K6_AGREE
+        share = float(agree.double().mean())
+        by_row[name] = {"rows": int(e_k6.numel()), "agree_share": share,
+                        "row_gate": share >= K6_AGREE_SHARE,
+                        "k6_max_on_agree": float(e_k6[agree].max()) if agree.any() else 0.0,
+                        "k6_median": float(e_k6.median()), "f32_median": float(e_f32.median())}
+    log(f"K6 backward {label}, max|d| / max|r| on live rows: K6 vs f64 {k6}; f32 "
+        f"autograd vs f64 {f32}; K6 vs f32 autograd {k6_f32}")
+    log(f"K6 backward {label}, by row (|d| / |r| a row, against f64): {by_row}")
+    bad = [n for n in names if k6[n] > max(K6_F64_FACTOR * f32[n], K6_GRAD_FLOOR)]
+    bad += [n for n, r in by_row.items()
+            if r["k6_median"] > max(K6_F64_FACTOR * r["f32_median"], K6_GRAD_FLOOR)
+            or (r["row_gate"] and r["k6_max_on_agree"] > K6_ROW_TOL)]
+    if bad:
+        raise AssertionError(f"K6 backward {label}: {sorted(set(bad))} fail the gates "
+                             f"(farther from f64 than {K6_F64_FACTOR}x f32 autograd at "
+                             f"the largest or the median row, or a row past {K6_ROW_TOL} "
+                             f"where f32 autograd is within {K6_AGREE})")
+    return {"k6_vs_f64": k6, "f32_vs_f64": f32, "k6_vs_f32": k6_f32, "by_row": by_row}
+
+
+def k6_times(label, ins, w2c, Ks, cam, gen):
+    """A camera's K6 forward and backward (wrappers, cuda_ms) against the
+    plain forward and its autograd backward, and the bytes bound (inputs
+    read once, outputs written once; the backward reads the inputs and the
+    cotangents again) -> dict of ms a camera."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
+    n, c = ins[0].shape[0], 0
+    outs = P.project_fwd(*ins, w2c[c], Ks[c], cam)
+    cots = [torch.randn(outs[i].shape, generator=gen, device="cuda") for i in (0, 1, 2)]
+    in_bytes = sum(t.numel() * 4 for t in ins)
+    out_bytes = sum(o.numel() * 4 for o in outs) - (0 if cam.calc_compensations else n * 4)
+    cot_bytes = sum(g.numel() * 4 for g in cots)
+    grad_bytes = in_bytes - (0 if cam.calc_compensations else n * 4)
+    fwd = lambda: P.project_fwd(*ins, w2c[c], Ks[c], cam)
+    bwd = lambda: P.project_bwd(*ins, w2c[c], Ks[c], cam, *cots, None, None)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+
+    def plain_step():
+        o = P.project_fwd_plain(*leaves, w2c[c], Ks[c], cam)
+        torch.autograd.grad(sum((x * g).sum() for x, g in zip(o[:3], cots)), leaves,
+                            allow_unused=True)
+
+    t = {"fwd_ms": cuda_ms(fwd, reps=20, warmup=3), "bwd_ms": cuda_ms(bwd, reps=20, warmup=3),
+         "plain_fwd_ms": cuda_ms(lambda: P.project_fwd_plain(*ins, w2c[c], Ks[c], cam),
+                                 reps=5, warmup=1),
+         "plain_step_ms": cuda_ms(plain_step, reps=5, warmup=1),
+         "fwd_bound_ms": (in_bytes + out_bytes) / H100.hbm_bytes_per_s * 1e3,
+         "bwd_bound_ms": (in_bytes + cot_bytes + grad_bytes) / H100.hbm_bytes_per_s * 1e3,
+         "fwd_bytes_a_splat": (in_bytes + out_bytes) / n,
+         "bwd_bytes_a_splat": (in_bytes + cot_bytes + grad_bytes) / n}
+    log(f"K6 a camera, {label} ({n} splats): forward {t['fwd_ms']:.4f} ms (bound "
+        f"{t['fwd_bound_ms']:.4f}, {t['fwd_bytes_a_splat']:.0f} B a splat; plain "
+        f"{t['plain_fwd_ms']:.3f}), backward {t['bwd_ms']:.4f} ms (bound "
+        f"{t['bwd_bound_ms']:.4f}, {t['bwd_bytes_a_splat']:.0f} B a splat); plain "
+        f"forward + autograd backward {t['plain_step_ms']:.3f} ms")
+    return t
+
+
+def k6_scene(n, gen, dead=0):
+    """n random splats in front of 4 cameras at 518 px (camera 0 at the
+    origin, the last with a skewed K), the last `dead` of them dead slots
+    at the origin (0 / 0 in camera 0), quats WXYZ, SH degree 0 ->
+    ([means, quats, scales, opacities, sh], w2c (4, 4, 4), Ks (4, 3, 3))."""
+    means = torch.rand(n, 3, generator=gen, device="cuda") * 3.0 - 1.5
+    means[:, 2] += 3.0
+    quats = torch.randn(n, 4, generator=gen, device="cuda")
+    scales = torch.rand(n, 3, generator=gen, device="cuda") * 0.02 + 0.001
+    opac = torch.rand(n, generator=gen, device="cuda")
+    sh = torch.randn(n, 1, 3, generator=gen, device="cuda")
+    if dead:
+        means[-dead:] = 0.0
+        quats[-dead:] = torch.tensor([1.0, 0.0, 0.0, 0.0], device="cuda")
+        opac[-dead:] = 0.0
+    f = 0.5 * 518 / math.tan(math.radians(30))
+    Ks = torch.tensor([[f, 0.0, 259.0], [0.0, f, 259.0], [0.0, 0.0, 1.0]],
+                      device="cuda").repeat(4, 1, 1)
+    Ks[3, 0, 1] = 0.5
+    w2c = torch.eye(4, device="cuda").repeat(4, 1, 1)
+    for s in range(1, 4):
+        a = 0.1 * s
+        w2c[s, 0, 0] = w2c[s, 2, 2] = math.cos(a)
+        w2c[s, 0, 2], w2c[s, 2, 0] = math.sin(a), -math.sin(a)
+        w2c[s, :3, 3] = torch.tensor([0.1 * s, -0.05 * s, 0.02 * s])
+    return [means, quats, scales, opac, sh], w2c, Ks
+
+
+def k6_step_launches(train_inputs, n_steps=5):
+    """A refine step as optimize_splats builds it, on phase 8's splats and
+    views (after 3 warm-up steps): its kernel launches as the benchmark
+    counts them (wmbench.trace), K6's launches and its median ms."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    from wmbench import trace as wtrace
+    splats, gt, c2w, Ks, _ = train_inputs
+    cfg = splat_opt.SplatOptConfig()
+    n = len(splats["means"])
+    raw = splat_opt._raw_from_splats(
+        {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device="cuda")
+         for k, v in splats.items()}, int(n * cfg.capacity_factor))
+    c2w = np.asarray(c2w)
+    scale = float(np.linalg.norm(c2w[:, :3, 3] - c2w[:, :3, 3].mean(0), axis=-1).max() + 1e-6)
+    opt = splat_opt.make_optimizer(cfg, raw, scale)
+    HW = np.asarray(gt).shape[1]
+    step = splat_opt.make_train_step(cfg, HW, HW, scale, "cuda")
+    vm = cam_utils.se3_inverse(torch.as_tensor(c2w, dtype=torch.float32, device="cuda"))
+    Ks_t = torch.as_tensor(np.asarray(Ks), dtype=torch.float32, device="cuda")
+    gt_t = torch.as_tensor(np.asarray(gt), dtype=torch.float32, device="cuda")
+    run = lambda _i=0: step(raw, opt, vm, Ks_t, gt_t)
+    for _ in range(3):
+        run()
+    f0, b0 = P.project_fwd.launches, P.project_bwd.launches
+    ms = [cuda_ms(run, reps=1, warmup=0) for _ in range(n_steps)]
+    k6 = ((P.project_fwd.launches - f0) / n_steps, (P.project_bwd.launches - b0) / n_steps)
+    tr = wtrace.profile(run, 0, n_steps, True)
+    out = {"launches": tr.launches / n_steps, "k6_fwd": k6[0], "k6_bwd": k6[1],
+           "step_ms": float(np.median(ms)), "busy_share": tr.busy_s / tr.window_s}
+    log(f"K6 refine step ({n} splats in {raw['means'].shape[0]} slots, 4 cameras): "
+        f"{out['launches']:.1f} kernel launches a step under the profiler, K6 "
+        f"{k6[0]:.0f} forward + {k6[1]:.0f} backward; step {out['step_ms']:.2f} ms "
+        f"(median of {n_steps}, unprofiled); device busy {100 * out['busy_share']:.1f}% "
+        f"of the profiled stretch")
+    if k6 != (4, 4):
+        raise AssertionError(f"K6: expected 4 + 4 launches a step, got {k6}")
+    return out
+
+
+def phase_k6(preds, train_inputs):
+    """K6 (project_fwd / project_bwd): its ptxas reports; its forward
+    against its plain version on phase 5's splats (as the inference render
+    projects them, XYZW) and on phase 8's slots (as the refine step holds
+    them: the splats padded with dead slots at the origin, WXYZ, activated)
+    in their 4 cameras; its backward against autograd on the slots; its
+    times a camera; a refine step's launches."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    k6_ptxas()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    main = [x.float().contiguous() for x in (means, quats, scales, opac, sh)]
+    out = {"main_forward": k6_forward_check(
+        "phase 5's splats", main, w2c.float(), Ks.float(),
+        P.Pinhole(HW, HW, "RGB+ED", quat_order="xyzw"))}
+    splats, gt, c2w, Ks8, _ = train_inputs
+    cfg = splat_opt.SplatOptConfig()
+    n = len(splats["means"])
+    raw = splat_opt._raw_from_splats(
+        {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device="cuda")
+         for k, v in splats.items()}, int(n * cfg.capacity_factor))
+    with torch.no_grad():
+        slots = [x.contiguous() for x in splat_opt._activate(raw)]
+    w2c8 = cam_utils.se3_inverse(torch.as_tensor(np.asarray(c2w), dtype=torch.float32,
+                                                 device="cuda"))
+    Ks8 = torch.as_tensor(np.asarray(Ks8), dtype=torch.float32, device="cuda")
+    cam = P.Pinhole(HW, HW, "RGB+ED", quat_order="wxyz")
+    out["slots_forward"] = k6_forward_check("phase 8's slots", slots, w2c8, Ks8, cam)
+    out["slots_backward"] = k6_backward_check("phase 8's slots", slots, w2c8, Ks8, cam, gen)
+    out["times"] = k6_times("phase 8's slots", slots, w2c8, Ks8, cam, gen)
+    del raw, slots
+    torch.cuda.empty_cache()
+    out["modes"] = k6_modes(gen)
+    out["step"] = k6_step_launches(train_inputs)
+    return out
+
+
+def k6_modes(gen, n=1_074_176):
+    """K6's forward and backward checks on n synthetic slots, half of them
+    dead at the origin, in the settings the two scenes above leave out:
+    each render mode, both quaternion orders, SH degrees 0, 3 and 4 and
+    direct colours, compensations, radius_clip > 0, tight_radius off ->
+    {setting: (forward (worst ulps, differing elements), backward)}."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P
+    ins, w2c, Ks = k6_scene(n, gen, dead=n // 2)
+    base = P.Pinhole(518, 518, "RGB+ED", quat_order="wxyz")
+    settings = (
+        ("RGB+ED, wxyz, SH 0", base, None),
+        ("RGB+D, xyzw, compensations, radius_clip 1.5",
+         base._replace(render_mode="RGB+D", quat_order="xyzw", calc_compensations=True,
+                       radius_clip=1.5), None),
+        ("RGB+ED, SH 3", base, 3),
+        ("RGB, xyzw, SH 4", base._replace(render_mode="RGB", quat_order="xyzw"), 4),
+        ("RGB, direct colours", base._replace(render_mode="RGB"), "direct"),
+        ("D, tight_radius off", base._replace(render_mode="D", tight_radius=False), None),
+        ("ED, compensations", base._replace(render_mode="ED", calc_compensations=True), None))
+    out = {}
+    for label, cam, colors in settings:
+        x = list(ins)
+        if colors == "direct":
+            x[4] = torch.rand(n, 3, generator=gen, device="cuda")
+        elif colors is not None:
+            x[4] = torch.randn(n, (colors + 1) ** 2, 3, generator=gen, device="cuda") * 0.3
+        out[label] = (k6_forward_check(label, x, w2c, Ks, cam),
+                      k6_backward_check(label, x, w2c, Ks, cam, gen))
+        loose = [g for g, r in out[label][1]["by_row"].items() if not r["row_gate"]]
+        if loose:
+            raise AssertionError(f"K6 {label}: f32 autograd cannot resolve {loose} row by "
+                                 f"row on the synthetic slots, so no gate holds each row")
+    return out
 
 
 # --- the rasterizer variants: K2m, K5, K4 -------------------------------------
@@ -4016,8 +4389,9 @@ def main():
     launches, k2, preds, imgs = timed("main path", phase_main_path)
     timed("card vs CPU", phase_cpu_reference)
     timed("K3", phase_k3, preds)
-    k3_launches, k3, train_inputs, train_ref = timed("training", phase_train, preds,
-                                                     imgs)
+    k3_launches, k6_train_launches, k3, train_inputs, train_ref = timed(
+        "training", phase_train, preds, imgs)
+    k6 = timed("K6", phase_k6, preds, train_inputs)
     k2m_launches, k2m = timed("K2m", phase_k2m, preds)
     k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
     k4_launches, k4 = timed("K4", phase_k4, preds)
@@ -4062,6 +4436,21 @@ def main():
          "bound_by": "operations" if "operations" in k3["by"] else "bytes",
          "library_ms": None},
     ]
+    kt = k6["times"]
+    kernels.append(
+        {"name": "project_fwd + project_bwd (K6)", "route": "cuda",
+         "source": "hunyuanworld_mirror_tpu_torch/csrc/project_fwd.cu, project_bwd.cu",
+         "replaces": "none (plain XLA: hunyuanworld_mirror_tpu/ops/projection.py)",
+         "launches": {"recon_forward": launches["project_fwd"],
+                      "refine_step": k6_train_launches},
+         "forward_max_ulps": max([k6["main_forward"][0], k6["slots_forward"][0]]
+                                 + [f[0] for f, _ in k6["modes"].values()]),
+         "backward_rel_err": k6["slots_backward"],
+         "modes": k6["modes"],
+         "ms": {"forward": kt["fwd_ms"], "backward": kt["bwd_ms"]},
+         "plain_ms": {"forward": kt["plain_fwd_ms"], "forward_and_autograd": kt["plain_step_ms"]},
+         "bound_ms": {"forward": kt["fwd_bound_ms"], "backward": kt["bwd_bound_ms"]},
+         "bound_by": "bytes", "library_ms": None, "refine_step": k6["step"]})
     for kernel, source, replaces, count, row in (
             ("rasterize_flat_multi_fwd", "rasterize_flat_fwd.cu", 771, k2m_launches, k2m),
             ("rasterize_flat_grouped (K2's entry on the clamped lists)",

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 from ..parallel import comm
 from . import projection, tiles
-from .rasterizer import RENDER_MODES, _colors, mode_channels, normalize_mode, rasterize
+from .rasterizer import RENDER_MODES, mode_channels, normalize_mode, rasterize
 from .rasterizer_binned import RasterizeBinned
 
 
@@ -40,7 +40,7 @@ def project_for_cameras(means: torch.Tensor, covars, opacities: torch.Tensor,
                                              width, height, eps2d=eps2d,
                                              near_plane=near_plane,
                                              far_plane=far_plane)
-    col = torch.stack([_colors(colors, means, viewmats[c])
+    col = torch.stack([projection.sh_colors(colors, means, viewmats[c])
                        for c in range(viewmats.shape[0])])
     op = opacities[None].expand(viewmats.shape[0], *opacities.shape)
     return proj.means2d, proj.conics, proj.depths, proj.radii, col, op

@@ -2,9 +2,10 @@
 
 Port of hunyuanworld_mirror_tpu/ops/rasterizer.py `rasterize` with its
 whole signature, and `rasterize_to_indices`. Per camera: projection
-(ops/projection.py, the pinhole EWA; ops/cameras.py, the unscented
-transform, for fisheye, f-theta, orthographic, OpenCV distortion and
-rolling shutters) -> opacities times the anti-aliasing compensation
+(ops/projection.py, the pinhole EWA, through kernel K6 where the camera
+takes no gradient; ops/cameras.py, the unscented transform, for fisheye,
+f-theta, orthographic, OpenCV distortion and rolling shutters) ->
+opacities times the anti-aliasing compensation
 (`calc_compensations`) -> opacity-tight radii -> SH colours and the render
 mode's channels (RGB, D, ED, RGB+D, RGB+ED) -> flat binning with the exact
 ellipse-tile test (ops/tiles.py, f32 or f16-pair payload, exact or
@@ -18,10 +19,12 @@ PyTorch as in the JAX package). With `camera_batch=True` (inference only,
 pinhole) all cameras share one projection call, one sort and one launch of
 kernel K2m.
 
-Differentiable in means, quats, scales, opacities and colours: autograd runs
-through the projection and the SH evaluation, and `RasterizeFlat` (the port
-of the custom VJP of rasterizer_pallas.rasterize_flat_pallas) takes the
-blend's gradient with kernel K3.
+Differentiable in means, quats, scales, opacities and colours: K6's
+analytic VJP (projection.ProjectPinhole) or, for the UT cameras and cameras
+that take a gradient, autograd runs through the projection and the SH
+evaluation, and `RasterizeFlat` (the port of the custom VJP of
+rasterizer_pallas.rasterize_flat_pallas) takes the blend's gradient with
+kernel K3.
 """
 
 import os
@@ -31,41 +34,15 @@ import torch
 
 from .. import resolve_device
 from ..utils import profiling
-from ..utils import sh as sh_utils
 from ..utils.rotation import quat_to_rotmat
 from . import cameras, projection, tiles
+from .projection import RENDER_MODES, mode_channels
 from .rasterizer_binned import (RasterizeBinned, dense_weights, group_entries,
                                 rasterize_binned_world, tile_pixels)
 from .rasterizer_flat import (_from_tiles, group_windows, pack_f16_pairs,
                               rasterize_flat, rasterize_flat_bwd,
                               rasterize_flat_grouped, rasterize_flat_multi,
                               tile_groups)
-
-RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
-
-
-def _colors(colors, means, viewmat):
-    """(N, D) colours as given, or SH (N, K, 3) evaluated toward the camera."""
-    if colors.dim() == 2:
-        return colors
-    cam_t = -torch.einsum("ij,i->j", viewmat[:3, :3], viewmat[:3, 3])
-    dirs = means - cam_t[None, :]
-    dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
-    deg = int(round(colors.shape[-2] ** 0.5)) - 1
-    col = sh_utils.eval_sh(deg, colors.transpose(-1, -2), dirs)
-    return torch.clamp_min(col + 0.5, 0.0)
-
-
-def mode_channels(render_mode: str, rgb, depths: torch.Tensor) -> torch.Tensor:
-    """The blended channels of a render mode: colours (RGB), the depth
-    (D, ED) or both, depth last (RGB+D, RGB+ED). `rgb` is a callable giving
-    the colours (not evaluated in the depth-only modes)."""
-    if render_mode in ("D", "ED"):
-        return depths[..., None]
-    if render_mode in ("RGB+D", "RGB+ED"):
-        return torch.cat([rgb(), depths[..., None]], dim=-1)
-    return rgb()
-
 
 def depth_by_alpha(colors: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     """The expected depth: the accumulated depth (last channel) over alpha."""
@@ -154,12 +131,8 @@ def prepare_camera(means, covars, opacities, colors, viewmat, K, width: int,
     else:
         proj = cameras.fully_fused_projection_ut(means, covars, viewmat[None],
                                                  K[None], width, height, **ut, **knobs)
-    m2d, con, dep, rad = proj.means2d[0], proj.conics[0], proj.depths[0], proj.radii[0]
-    op = opacities if proj.compensations is None else opacities * proj.compensations[0]
-    if tight_radius:
-        rad = tiles.opacity_tight_radii(rad, op)
-    col = mode_channels(render_mode, lambda: _colors(colors, means, viewmat), dep)
-    return CameraSplats(m2d, con, col, op, rad, dep)
+    return CameraSplats(*projection.camera_splats(proj, means, opacities, colors, viewmat,
+                                                  render_mode, tight_radius))
 
 
 def project_camera(means, covars, opacities, colors, viewmat, K, width: int,
@@ -310,7 +283,7 @@ def bin_cameras(means, quats_xyzw, scales, opacities, colors, viewmats, Ks,
           else opacities[None] * proj.compensations)
     rad = tiles.opacity_tight_radii(proj.radii, op) if tight_radius else proj.radii
     col = mode_channels(render_mode, lambda: torch.stack(
-        [_colors(colors, means, viewmats[c]) for c in range(C)]), proj.depths)
+        [projection.sh_colors(colors, means, viewmats[c]) for c in range(C)]), proj.depths)
     m2d, con = proj.means2d, proj.conics
     values = ([m2d[..., 0], m2d[..., 1], con[..., 0], con[..., 1], con[..., 2], op]
               + [col[..., i] for i in range(col.shape[-1])])
@@ -497,10 +470,7 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         for t in (means, quats, scales, opacities, colors, viewmats, Ks))
     radial_coeffs, tangential_coeffs, viewmats_rs = (
         _tensor(x, dev) for x in (radial_coeffs, tangential_coeffs, viewmats_rs))
-    if quat_order == "wxyz":
-        quats = quats[..., [1, 2, 3, 0]]
-        profiling.count("host_syncs")   # the index list's upload
-    elif quat_order != "xyzw":
+    if quat_order not in ("xyzw", "wxyz"):
         raise ValueError(f"unknown quat_order {quat_order!r}")
     train = torch.is_grad_enabled() and any(
         x is not None and x.requires_grad
@@ -528,15 +498,26 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
                  tight_radius=tight_radius)
     max_per_tile = _capped(max_per_tile, means.shape[0], max_tiles_per_gauss)
     if camera_batch:
-        return _rasterize_camera_batch(means, quats, scales, opacities, colors,
-                                       viewmats, Ks, width, height, tile_size,
-                                       max_per_tile, max_tiles_per_gauss,
+        return _rasterize_camera_batch(means, projection.xyzw(quats, quat_order), scales,
+                                       opacities, colors, viewmats, Ks, width, height,
+                                       tile_size, max_per_tile, max_tiles_per_gauss,
                                        render_mode, **knobs)
     tw = (width + tile_size - 1) // tile_size
     th = (height + tile_size - 1) // tile_size
-    # the UT factors each splat's (3, 3) covariance; the EWA takes planes
-    covars = (projection.quat_scale_to_covar(quats, scales) if use_ut
-              else projection.quat_scale_to_covar_planes(quats, scales))
+    # a pinhole camera that takes no gradient goes through kernel K6 (its
+    # plain versions on the CPU); the UT and cameras with a gradient
+    # (pose optimisation) take the plain projection under autograd
+    fused = not use_ut and not (torch.is_grad_enabled()
+                                and (viewmats.requires_grad or Ks.requires_grad))
+    if not fused or with_eval3d:
+        quats, quat_order = projection.xyzw(quats, quat_order), "xyzw"
+    pinhole = projection.Pinhole(width, height, render_mode, quat_order=quat_order,
+                                 **knobs)
+    covars = None
+    if not fused:
+        # the UT factors each splat's (3, 3) covariance; the EWA takes planes
+        covars = (projection.quat_scale_to_covar(quats, scales) if use_ut
+                  else projection.quat_scale_to_covar_planes(quats, scales))
     iscl_rots = eval3d_rotations(quats, scales) if with_eval3d else None
 
     outs = []
@@ -544,9 +525,13 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         ut = ut_camera(c, camera_model, radial_coeffs, tangential_coeffs, ftheta_coeffs,
                        rolling_shutter, viewmats_rs, ut_params)
         with profiling.span("render.project"):
-            s = prepare_camera(means, covars, opacities, colors, viewmats[c], Ks[c],
-                               width, height, render_mode, ut=ut if use_ut else None,
-                               **knobs)
+            if fused:
+                s = CameraSplats(*projection.project_pinhole(
+                    means, quats, scales, opacities, colors, viewmats[c], Ks[c], pinhole))
+            else:
+                s = prepare_camera(means, covars, opacities, colors, viewmats[c], Ks[c],
+                                   width, height, render_mode, ut=ut if use_ut else None,
+                                   **knobs)
         if with_eval3d:
             img, alpha, n_drop, n_isect = _rasterize_world_camera(
                 means, iscl_rots, s, opacities, viewmats[c], Ks[c], ut, width, height,

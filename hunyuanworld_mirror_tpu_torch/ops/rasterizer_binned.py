@@ -19,9 +19,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import tiles
+from ._launch import check_device, launch
 from .rasterizer_flat import (ALPHA_THRESHOLD, T_EPS, _from_tiles, _to_tiles,
-                              check_device, check_kernel_dims, forward_outputs,
-                              launch, tile_groups)
+                              check_kernel_dims, forward_outputs, tile_groups)
 
 # the C entry's arguments before the trailing stream
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6

@@ -21,16 +21,13 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import _build
+from ._launch import check_device, launch
 
 ALPHA_THRESHOLD = 1.0 / 255.0
 T_EPS = 1e-4
 # the plain version blends groups of tiles whose (tiles, entries, pixels)
 # planes hold at most this many elements
 PLAIN_BUDGET = 1 << 24
-
-_SIGNATURES_SET = set()
-
 
 # --- f16-pair payload ------------------------------------------------------
 
@@ -361,28 +358,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = [_P] * 8 + [_I] * 6 + [_LL, _I]
 _MULTI_ARGS = [_P] * 6 + [_I] * 7 + [_LL]
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_LL]
-
-
-def launch(source: str, fn: str, argtypes, dev: torch.device, *args) -> None:
-    """Call the C entry `fn` of csrc/<source>.cu on dev's current stream
-    (building the library at first use); raise if the launch was refused."""
-    f = getattr(_build.load(source), fn)
-    if fn not in _SIGNATURES_SET:
-        f.argtypes = list(argtypes) + [_P]
-        f.restype = ctypes.c_int
-        _SIGNATURES_SET.add(fn)
-    with torch.cuda.device(dev):
-        rc = f(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-
-
-def check_device(x: torch.Tensor, fn: str) -> bool:
-    """True for a CPU tensor (the plain version runs), False for CUDA (the
-    kernel runs); anything else raises."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn} runs on cuda or cpu, not {x.device}")
-    return x.device.type == "cpu"
 
 
 def _check_list(packed, starts, counts, width, height, tile_size, d_col, V,

@@ -254,16 +254,17 @@ def test_spans_are_nested_user_annotations_under_the_profiler(tmp_path):
 
 
 # The spans a tiny reconstruct (S=2, fixed cameras) records: render.* once a
-# camera, and where the host syncs land (56 on the card's S=4 request, two
-# cameras more).
+# camera, and where the host syncs land (55 on the card's S=4 request, two
+# cameras more); each camera's projection takes kernel K6's route.
 TINY_TREE = (
     [("encoder", None, 2), ("trunk", None, 4), ("heads", None, 1),
      ("heads.depth", "heads", 10), ("heads.pts", "heads", 10),
      ("heads.normals", "heads", 10), ("heads.gs", "heads", 10),
-     ("gs_render", None, 1), ("gs_render.splats", "gs_render", 3)]
+     ("gs_render", None, 0), ("gs_render.splats", "gs_render", 3)]
     + [("render.project", "gs_render", 0), ("render.bin", "gs_render", 1),
        ("render.blend", "gs_render", 0)] * 2)
-TINY_SYNCS = 54      # the tree's 53 and the images' upload
+TINY_SYNCS = 53      # the tree's 52 and the images' upload
+TINY_COUNTS = {"host_syncs": TINY_SYNCS, "project_fused": 2}
 
 
 @pytest.fixture(scope="module")
@@ -285,7 +286,7 @@ def test_tiny_reconstruct_records_the_span_tree(tiny_scene):
         reconstruct(model, imgs, cams)
     (req,) = rec.resolve()
     assert _spans(req) == TINY_TREE
-    assert req.counts == {"host_syncs": TINY_SYNCS}
+    assert req.counts == TINY_COUNTS
     assert all(s.ms >= 0 and s.request == req.id for s in req.spans)
 
 
@@ -301,7 +302,7 @@ def test_tiny_reconstruct_marks_are_the_parents(tiny_scene):
     top = [s for s in req.spans if s.parent is None]
     assert marks[0][1] is top[0].start
     assert [ev for _, ev in marks[1:]] == [s.end for s in top]
-    assert _spans(req) == TINY_TREE and req.counts == {"host_syncs": TINY_SYNCS}
+    assert _spans(req) == TINY_TREE and req.counts == TINY_COUNTS
 
 
 def _refine_step(bilateral=False):
@@ -339,15 +340,15 @@ STEP_TREE = ([("render_forward", None, 0)]
 
 def test_tiny_refine_step_records_the_span_tree():
     """One refinement step: render.* once a camera inside render_forward,
-    the loss there too, then backward and optimizer; host syncs: the quat
-    order's index and each camera's depth scalar (the card's step adds the
-    absgrad scale: 6 at 4 cameras)."""
+    the loss there too, then backward and optimizer; host syncs: each
+    camera's depth scalar (the card's step adds the absgrad scale: 5 at 4
+    cameras); each camera's projection takes kernel K6's route."""
     step = _refine_step()
     with pprof.recording() as rec:
         step()
     (req,) = rec.resolve()
-    assert _spans(req) == [("render_forward", None, 1)] + STEP_TREE[1:]
-    assert req.counts == {"host_syncs": 3}
+    assert _spans(req) == STEP_TREE
+    assert req.counts == {"host_syncs": 2, "project_fused": 2}
 
 
 @pytest.mark.parametrize("bilateral,names", [

@@ -10,8 +10,9 @@ the check runs: those are sound runs, whose largest number sets a limit's
 lower reading. For each control seed the reference is put in the
 program's place one precision step lower (reference/precision.CONTROL: fp8
 trunk, TF32 heads and SSIM, bf16 render) and judged by the same check:
-its smallest number sets the upper reading. One JSON line a seed; the
-benchmark's own runs never run this.
+its smallest number sets the upper reading. One JSON line a seed, with
+the card's peak allocation over the check (a control seed: over the
+control and the check); the benchmark's own runs never run this.
 """
 
 import argparse
@@ -33,6 +34,8 @@ def program_numbers(parts, seed: int, device: str) -> dict:
     for i in cell.check_requests:
         cell.request(i, None)
     cell.close()
+    if device == "cuda":   # the peak printed beside the numbers is the check's own
+        torch.cuda.reset_peak_memory_stats()
     nums = cell.check()
     del cell
     return nums
@@ -59,10 +62,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         fn = program_numbers if side == "program" else control_numbers
         nums = fn(parts, seed, args.device)
-        print(json.dumps({"side": side, "seed": seed, "numbers": nums,
-                          "seconds": time.perf_counter() - t0}), flush=True)
+        line = {"side": side, "seed": seed, "numbers": nums,
+                "seconds": time.perf_counter() - t0}
         if args.device == "cuda":
+            line["check_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        print(json.dumps(line), flush=True)
     return 0
 
 

@@ -9,7 +9,7 @@ LAYER = "heads: models/dpt.py, camera_head.py"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

@@ -1,12 +1,14 @@
-"""The program's `heads` phase a request: the CUDA-event span that
-utils/profiling.mark records around it inside infer.reconstruct, the mean
+"""The program's `heads` phase a request: from the end of the program's
+span `trunk` to the end of its span `heads` (utils/profiling.span in
+models/worldmirror.py: the camera head and the four DPT heads), the CUDA
+events that profiling.request hands the harness's marks list; the mean
 over the traced run's window."""
 
 LAYER = "heads: models/dpt.py, camera_head.py"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

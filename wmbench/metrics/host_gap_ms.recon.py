@@ -6,7 +6,7 @@ LAYER = "entry: infer.reconstruct"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

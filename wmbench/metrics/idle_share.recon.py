@@ -5,7 +5,7 @@ LAYER = "device"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

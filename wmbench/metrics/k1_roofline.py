@@ -10,7 +10,7 @@ LAYER = "kernel K1: ops/attention.py, csrc/attention_fwd.cu"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

@@ -11,7 +11,7 @@ LAYER = "kernel K2: ops/rasterizer_flat.py, csrc/rasterize_flat_fwd.cu"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

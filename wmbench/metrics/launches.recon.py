@@ -5,7 +5,7 @@ LAYER = "host: the Python that enqueues the kernels and waits on the card"
 UNIT = "count"
 SOURCE = "device_trace"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

@@ -8,7 +8,7 @@ LAYER = "model step: models/worldmirror.py"
 UNIT = "%"
 SOURCE = "host_clock"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

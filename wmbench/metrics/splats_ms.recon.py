@@ -8,7 +8,7 @@ LAYER = "render: models/gaussians.py, ops/projection.py, ops/tiles.py, ops/raste
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

@@ -1,12 +1,13 @@
-"""The program's `trunk` phase a request: the CUDA-event span that
-utils/profiling.mark records around it inside infer.reconstruct, the mean
-over the traced run's window."""
+"""The program's `trunk` phase a request: from the end of the program's
+span `encoder` to the end of its span `trunk` (utils/profiling.span in
+models/aggregator.py), the CUDA events that profiling.request hands the
+harness's marks list; the mean over the traced run's window."""
 
 LAYER = "trunk: models/aggregator.py, block.py, rope.py"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "frames_per_s"
-WORKLOADS = ["recon.large.s4"]
+WORKLOADS = ["recon.large.s4", "recon.large.s32"]
 
 
 def read(run):

@@ -17,16 +17,18 @@ names); no module of the program is imported. Everything runs in float32
 with TF32 off; `prec` (reference/precision.py) rounds what enters each
 matrix product or convolution, identity for the reference and one step
 lower for the control. Attention is softmax(q k^T / sqrt(d)) v, computed
-a few heads at a time.
+a few heads and a block of query rows at a time, so that the global layers
+of many views fit beside the weights.
 """
 
+import functools
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .precision import REFERENCE, Precision
+from .precision import REFERENCE, Precision, fp8
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -52,15 +54,32 @@ def _deconv(sd, name, x, rnd, stride):
                               sd[f"{name}.bias"], stride)
 
 
-def attention(q, k, v, rnd, heads_at_once: int = 4):
-    """(B, N, H, D) q, k, v -> (B, N, H, D): softmax(q k^T / sqrt(D)) v."""
+def attention(q, k, v, rnd, heads_at_once: int = 4, block_bytes: int = 1 << 30):
+    """(B, N, H, D) q, k, v -> (B, N, H, D): softmax(q k^T / sqrt(D)) v.
+
+    `heads_at_once` heads at a time, each group's q, k and v rounded whole;
+    the query rows in blocks whose scores take at most `block_bytes`. Each
+    row's softmax runs over every key, so the blocks change no number. The
+    probabilities are rounded with one scale a group: fp8 takes the group's
+    largest from a first pass over the blocks."""
+    B, N = q.shape[:2]
     scale = q.shape[-1] ** -0.5
+    rows = max(1, block_bytes // (4 * B * heads_at_once * N))
+    starts = range(0, N, rows)
     outs = []
     for h in range(0, q.shape[2], heads_at_once):
-        qh, kh, vh = (t[:, :, h:h + heads_at_once].transpose(1, 2)
+        qh, kh, vh = (rnd(t[:, :, h:h + heads_at_once].transpose(1, 2))
                       for t in (q, k, v))
-        p = torch.softmax(torch.matmul(rnd(qh), rnd(kh).transpose(-1, -2)) * scale, -1)
-        outs.append(torch.matmul(rnd(p), rnd(vh)))
+        kt = kh.transpose(-1, -2)
+
+        def probs(i):
+            return torch.softmax(torch.matmul(qh[:, :, i:i + rows], kt) * scale, -1)
+
+        rnd_p = rnd
+        if rnd is fp8 and len(starts) > 1:
+            amax = torch.stack([probs(i).amax() for i in starts]).amax()
+            rnd_p = functools.partial(fp8, amax=amax)
+        outs.append(torch.cat([torch.matmul(rnd_p(probs(i)), vh) for i in starts], 2))
     return torch.cat(outs, dim=1).transpose(1, 2)
 
 

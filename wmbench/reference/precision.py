@@ -9,7 +9,7 @@ product, a convolution or the blend, so the control computes the same
 numbers on the CPU as on the card.
 """
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -18,9 +18,12 @@ def _same(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def fp8(x: torch.Tensor) -> torch.Tensor:
-    """Round to float8 e4m3 under one scale that maps |x|'s max to 448."""
-    s = torch.clamp_min(x.detach().abs().amax(), 1e-30) / 448.0
+def fp8(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Round to float8 e4m3 under one scale that maps `amax` to 448: |x|'s
+    max, or that of the whole tensor `x` is a block of."""
+    if amax is None:
+        amax = x.detach().abs().amax()
+    s = torch.clamp_min(amax, 1e-30) / 448.0
     return (x / s).to(torch.float8_e4m3fn).to(x.dtype) * s
 
 

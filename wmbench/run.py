@@ -164,7 +164,12 @@ def run_cell(parts: SimpleNamespace, seed: int, seconds: float, trace: bool,
     if work.get("n_isects"):
         log(f"intersections a camera: {work['n_isects']}")
     cell.close()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_check = time.perf_counter()
     checks = cell.check()
+    log(f"check {time.perf_counter() - t_check:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0:.3f} GB allocated")
 
     ctx = SimpleNamespace(cfg=parts.cfg, traffic=traffic,
                           units=len(lat) * cell.units_per_request, window_s=window_s,

@@ -33,9 +33,10 @@ def test_control_is_not_correct_tiny(seed):
 
 
 @pytest.mark.card
-def test_control_is_not_correct_on_the_card():
+@pytest.mark.parametrize("cell", ["recon.large.s4", "recon.large.s32"])
+def test_control_is_not_correct_on_the_card(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the control at the cell's own size")
-    parts = run.cell_parts(run.manifest(tiny.REPO), tiny.CELL)
+    parts = run.cell_parts(run.manifest(tiny.REPO), cell)
     for seed in (11, 12, 13):
         assert _fails(control.control_numbers(parts, seed, "cuda"), parts.limits)

@@ -2,12 +2,13 @@
 test imports both; the reference itself imports nothing of the program)."""
 
 import numpy as np
+import pytest
 import torch
 
 from wmbench.systems import worldmirror as wmb
 from wmbench.reference import model as ref_model
 from wmbench.reference import render as ref_render
-from wmbench.reference.precision import REFERENCE
+from wmbench.reference.precision import CONTROL, REFERENCE
 from wmbench.reference.weights import make_weights, param_spec
 from wmbench.tests import tiny
 from wmbench.traffic import scenes
@@ -81,3 +82,29 @@ def test_render_counts_what_it_blends():
     assert n == [c for c, _ in ref_render.count_isects(s, cams[0], 56, 56, p.cfg["render"])]
     assert col.shape == (2, 56, 56, 3) and float(alpha.max()) <= 1.0
     assert np.isfinite(dep.numpy()).all()
+
+
+def _whole_attention(q, k, v, rnd, heads_at_once=4):
+    """The whole score matrix of each group of heads at once."""
+    scale = q.shape[-1] ** -0.5
+    outs = []
+    for h in range(0, q.shape[2], heads_at_once):
+        qh, kh, vh = (t[:, :, h:h + heads_at_once].transpose(1, 2) for t in (q, k, v))
+        p = torch.softmax(torch.matmul(rnd(qh), rnd(kh).transpose(-1, -2)) * scale, -1)
+        outs.append(torch.matmul(rnd(p), rnd(vh)))
+    return torch.cat(outs, dim=1).transpose(1, 2)
+
+
+@pytest.mark.parametrize("prec", [REFERENCE, CONTROL], ids=["reference", "control"])
+@pytest.mark.parametrize("B", [1, 2])
+def test_blocked_attention_equals_the_whole_matrix(B, prec):
+    """Query blocks of 5 rows over N = 23 (a ragged last block of 3), 8
+    heads in groups of 4: the same as the whole score matrix, the control's
+    fp8 included (one scale a group of heads, from every block)."""
+    g = torch.Generator().manual_seed(B)
+    N, H, D = 23, 8, 16
+    q, k, v = (torch.randn(B, N, H, D, generator=g) * 2 for _ in range(3))
+    whole = _whole_attention(q, k, v, prec.trunk)
+    assert torch.equal(ref_model.attention(q, k, v, prec.trunk), whole)
+    blocked = ref_model.attention(q, k, v, prec.trunk, block_bytes=4 * B * 4 * N * 5)
+    assert float((blocked - whole).abs().max() / whole.abs().max()) < 1e-6

@@ -199,9 +199,10 @@ Phases (any failure exits non-zero before the last line is printed):
      CenterSnapConfig's defaults (512 px, depth condition) for 10 steps
      on one in-memory batch of 20: finite, the last loss below the first,
      4 K1 launches a step, median step and peak; (d) --arch res_fpn, the
-     same: no K1 launch; (e) patch_embed="dinov3_vits16" at 384 px: one
-     step with 16 K1 launches (12 encoder + 4 trunk), every gradient
-     finite; (f) a small CenterSnap (width 128, 64 px) on the card against
+     same: no K1 launch; (e) the published configuration (a frozen
+     dinov3_vits16, depth condition, 384 px): one step with 16 K1 launches
+     (12 encoder + 4 trunk) and 4 replays (the trunk's), every gradient
+     finite, the backbone unchanged; (f) a small CenterSnap (width 128, 64 px) on the card against
      the port on the CPU: the loss and each leaf's gradient norm;
  16. evaluation and the demo server (the decoders PIL and cv2 printed
      first): (a) the app twin (`python -m hunyuanworld_mirror_tpu_torch.app
@@ -3283,17 +3284,20 @@ def phase15_profile(batch):
 
 
 def phase15_dinov3(batch):
-    """(e) patch_embed="dinov3_vits16" at 384 px: one step, 12 encoder + 4
-    trunk K1 launches, every gradient finite."""
+    """(e) the fork's published configuration (patch_embed="dinov3_vits16",
+    depth condition, 384 px): one step; the frozen backbone's 12 K1
+    launches take the inference route, the trunk's 4 replay; every
+    gradient finite, no backbone leaf reached and none moved by the step."""
     from hunyuanworld_mirror_tpu_torch.models.centersnap import CenterSnapConfig
     from hunyuanworld_mirror_tpu_torch.training import losses as L
     from hunyuanworld_mirror_tpu_torch.training import trainer
     cfg = trainer.TrainConfig(model=CenterSnapConfig(img_size=384,
-                                                     patch_embed="dinov3_vits16",
-                                                     use_depth_condition=False))
+                                                     patch_embed="dinov3_vits16"))
     model = trainer.model_init(cfg, "cuda")
     opt = trainer.make_optimizer(cfg, model)
     b = trainer._prepare_batch(cfg, batch, "cuda")
+    backbone = {n: p.detach().clone() for n, p in
+                model.encoder.patch_embed.named_parameters()}
     before = k1_counts()
     loss, _ = L.centersnap_loss(trainer.model_forward(cfg, model, b), b)
     mid = k1_counts()
@@ -3304,14 +3308,19 @@ def phase15_dinov3(batch):
     bad = [leaf.name for leaf, p in zip(opt.leaves, opt.params)
            if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
     opt.step()
-    log(f"CenterSnap dinov3_vits16 384 px: loss {float(loss.detach()):.5f}; K1 launches forward "
-        f"{mid[0] - before[0]}, backward {after[0] - mid[0]}, replays {after[1] - mid[1]}; "
-        f"{len(reached)} of {len(opt.params)} leaves reached by the loss (the unused "
-        f"pos_embed steps on zeros)")
-    if (mid[0] - before[0], after[0] - mid[0], after[1] - mid[1]) != (16, 0, 16):
-        raise AssertionError("CenterSnap dinov3: want 16 K1 launches and 16 replays")
+    moved = [n for n, p in model.encoder.patch_embed.named_parameters()
+             if not torch.equal(p, backbone[n])]
+    log(f"CenterSnap dinov3_vits16 384 px, depth condition: loss "
+        f"{float(loss.detach()):.5f}; K1 launches forward {mid[0] - before[0]}, backward "
+        f"{after[0] - mid[0]}, replays {after[1] - mid[1]}; {len(reached)} of "
+        f"{len(opt.params)} leaves reached by the loss ({len(opt.trainable)} trainable; "
+        f"the frozen backbone's {len(backbone)} none)")
+    if (mid[0] - before[0], after[0] - mid[0], after[1] - mid[1]) != (16, 0, 4):
+        raise AssertionError("CenterSnap dinov3: want 16 K1 launches and 4 replays")
     if bad or not np.isfinite(float(loss.detach())):
         raise AssertionError(f"CenterSnap dinov3: non-finite gradients {bad[:5]}")
+    if moved or any(p.grad is not None for p in model.encoder.patch_embed.parameters()):
+        raise AssertionError(f"CenterSnap dinov3: the frozen backbone moved {moved[:5]}")
 
 
 def phase15_card_vs_cpu(batch):

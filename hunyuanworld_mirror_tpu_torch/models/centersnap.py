@@ -8,6 +8,14 @@ translation, bbox size) at 1 / `pose_down_ratio`. The trunk computes in
 bf16, so its softmax cores are kernel K1 on the card (forward, and the JAX
 VJP's einsum replay backward); the heads in f32.
 
+A DINO backbone (`patch_embed` naming a `dinov*` factory) is frozen, as
+the fork's wrapper (models/models/visual_transformer.py) always freezes
+it: its parameters take no gradient, so autograd saves nothing for it and
+its attention takes K1's inference route; only the trunk's layers replay.
+The JAX twin trains it; its checkpoint layout is kept (the frozen leaves
+are saved, with zero optimizer moments). The spans "heads.heatmap" and
+"heads.pose" time the two heads.
+
 The module names follow the JAX pytree (`encoder`, `heatmap_head`,
 `pose_head`); convert.to_jax_tree / from_jax_tree map the two.
 """
@@ -18,6 +26,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..utils import profiling
 from .aggregator import VGTConfig, VisualGeometryTransformer
 from .dpt import DPTConfig, DPTHead
 
@@ -68,6 +77,12 @@ class CenterSnap(nn.Module):
         self.encoder = VisualGeometryTransformer(cfg.vgt)
         self.heatmap_head = DPTHead(cfg.heatmap_head)
         self.pose_head = DPTHead(cfg.pose_head)
+        if self.backbone_frozen:
+            self.encoder.patch_embed.requires_grad_(False)
+
+    @property
+    def backbone_frozen(self) -> bool:
+        return self.cfg.patch_embed.startswith("dinov")
 
     def forward(self, rgb: torch.Tensor, depth: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
@@ -81,6 +96,8 @@ class CenterSnap(nn.Module):
         else:
             priors, cond = None, (0, 0, 0)
         tokens, start = self.encoder(imgs, priors=priors, cond_flags=cond)
-        heat, _ = self.heatmap_head(tokens, imgs, start)
-        pose, _ = self.pose_head(tokens, imgs, start)
+        with profiling.span("heads.heatmap"):
+            heat, _ = self.heatmap_head(tokens, imgs, start)
+        with profiling.span("heads.pose"):
+            pose, _ = self.pose_head(tokens, imgs, start)
         return {"heatmap": heat[:, 0], "pose_map": pose[:, 0]}

@@ -10,11 +10,23 @@ tools/train.py:
       --train-shards 'data/train-{000000..000009}.tar' \\
       --test-shards 'data/test-*.tar' --epochs 10
 
+plus `--backbone`, the fork's choice of patch encoder (default `conv`, the
+JAX CLI's). The fork's published configuration (train.py:161-167: a
+frozen DINOv3 ViT-S/16 under the depth-conditioned trunk, B=20, 384 px,
+AdamW 5e-5 / 0.05 under the cosine schedule) is
+
+  python -m hunyuanworld_mirror_tpu_torch.train --train-shards ... \\
+      --backbone dinov3_vits16 --depth-cond
+
 Runs on CUDA; `main(argv, device="cpu")` runs the plain path on the CPU.
 """
 
 import argparse
 from typing import Optional
+
+
+# --backbone -> CenterSnapConfig.patch_embed
+BACKBONES = ("conv", "dinov3_vits16")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -29,6 +41,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--patch-size", type=int, default=16)
     p.add_argument("--depth-cond", action="store_true",
                    help="condition the trunk on the depth channel")
+    p.add_argument("--backbone", choices=BACKBONES, default="conv",
+                   help="patch encoder: a conv patchify, or a frozen DINOv3 ViT-S/16")
     p.add_argument("--arch", choices=("transformer", "res_fpn"),
                    default="transformer",
                    help="res_fpn = the ResNet-FPN panoptic baseline")
@@ -40,7 +54,8 @@ def parser() -> argparse.ArgumentParser:
 
 
 def config(args):
-    """The TrainConfig tools/train.py builds from the same arguments."""
+    """The TrainConfig tools/train.py builds from the same arguments (and
+    --backbone, which it lacks, as the model's patch_embed)."""
     from .models import centersnap, panoptic
     from .training import trainer
     if args.arch == "res_fpn":
@@ -48,7 +63,7 @@ def config(args):
     else:
         model_cfg = centersnap.CenterSnapConfig(
             img_size=args.img_size, patch_size=args.patch_size,
-            use_depth_condition=args.depth_cond)
+            patch_embed=args.backbone, use_depth_condition=args.depth_cond)
     return trainer.TrainConfig(
         train_shards=args.train_shards, test_shards=args.test_shards,
         batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,

@@ -10,9 +10,16 @@ baseline models/panoptic.Panoptic.
 
 The optimizer is optax.adamw(optax.cosine_decay_schedule(lr, epochs *
 steps_per_epoch), weight_decay) as the JAX trainer builds it: every
-parameter decays (biases and norms too), a parameter the loss does not
-reach still steps on a zero gradient, and update t takes the rate
-lr * (1 + cos(pi * min(t, T) / T)) / 2.
+trainable parameter decays (biases and norms too), a parameter the loss
+does not reach still steps on a zero gradient, and update t takes the rate
+lr * (1 + cos(pi * min(t, T) / T)) / 2. A frozen parameter (requires_grad
+False: CenterSnap's DINO backbone) is neither stepped nor decayed, and its
+moments are saved as zeros.
+
+One iteration of the loop (`train_iteration`) is one request of
+utils/profiling: the batch's uploads (each a host sync, counted in
+`host_syncs`), then the step's spans forward (with `loss` inside it),
+backward and optimizer.
 """
 
 import math
@@ -80,18 +87,20 @@ def cosine_decay(init_value: float, decay_steps: int, count: int) -> float:
 
 class AdamWCosine:
     """optax.adamw(cosine_decay_schedule(lr, decay_steps), weight_decay)
-    over the parameters the JAX pytree holds (convert.jax_leaves), on
-    torch's AdamW (decoupled decay, eps outside the square root) with the
-    rate set before each update. decay_steps=None keeps the rate constant
-    (optax.adamw(lr, weight_decay=...))."""
+    over the parameters the JAX pytree holds (convert.jax_leaves) that
+    require grad, on torch's AdamW (decoupled decay, eps outside the square
+    root) with the rate set before each update. decay_steps=None keeps the
+    rate constant (optax.adamw(lr, weight_decay=...)). `params` lists every
+    leaf, frozen ones too, in `leaves`' order."""
 
     def __init__(self, model: torch.nn.Module, lr: float, decay_steps: Optional[int],
                  weight_decay: float):
         self.lr, self.decay_steps = lr, decay_steps
         self.leaves = convert.jax_leaves(model)
         self.params = [model.get_parameter(leaf.name) for leaf in self.leaves]
+        self.trainable = [p for p in self.params if p.requires_grad]
         self.count = 0
-        self.opt = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999),
+        self.opt = torch.optim.AdamW(self.trainable, lr=lr, betas=(0.9, 0.999),
                                      eps=1e-8, weight_decay=weight_decay)
 
     def learning_rate(self) -> float:
@@ -103,7 +112,7 @@ class AdamWCosine:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        for p in self.params:
+        for p in self.trainable:
             if p.grad is None:   # optax steps every leaf; its gradient is 0
                 p.grad = torch.zeros_like(p)
         for group in self.opt.param_groups:
@@ -113,7 +122,8 @@ class AdamWCosine:
 
     def export_state(self):
         """(Adam count, schedule count, first moments, second moments), the
-        moments by parameter name (zeros before the first update)."""
+        moments by parameter name (zeros before the first update, and for a
+        frozen parameter)."""
         mu, nu, adam_count = {}, {}, 0
         for leaf, p in zip(self.leaves, self.params):
             st = self.opt.state.get(p, {})
@@ -124,7 +134,11 @@ class AdamWCosine:
         return adam_count, self.count, mu, nu
 
     def import_state(self, adam_count: int, sched_count: int, mu, nu) -> None:
+        """The moments of the trainable parameters (a frozen one's, which a
+        JAX checkpoint may hold, are left out) and both counts."""
         for leaf, p in zip(self.leaves, self.params):
+            if not p.requires_grad:
+                continue
             self.opt.state[p] = {
                 "step": torch.tensor(float(adam_count)),
                 "exp_avg": mu[leaf.name].to(p.device, p.dtype).clone(),
@@ -141,15 +155,16 @@ def make_train_step(cfg: TrainConfig, model: torch.nn.Module,
                     opt: AdamWCosine) -> Callable:
     """step(batch, marks=None) -> (loss, logs), updating the model in
     place; a request of utils/profiling whose top-level spans are forward
-    (the loss included), backward and optimizer, their end events appended
-    to `marks`."""
+    (the loss included, its own span `loss`), backward and optimizer, their
+    end events appended to `marks`."""
 
     def train_step(batch, marks=None):
         with profiling.request(marks):
             with profiling.span("forward"):
                 opt.zero_grad()
                 preds = model_forward(cfg, model, batch)
-                loss, logs = losses.centersnap_loss(preds, batch)
+                with profiling.span("loss"):
+                    loss, logs = losses.centersnap_loss(preds, batch)
             with profiling.span("backward"):
                 loss.backward()
             with profiling.span("optimizer"):
@@ -171,21 +186,38 @@ def _prepare_batch(cfg: TrainConfig, batch: Dict[str, np.ndarray],
                    device) -> Dict[str, torch.Tensor]:
     """Loader batch -> model inputs on `device`: ImageNet-normalized RGB for
     res_fpn, depth normalized to [0, 1] over 25 m (zeros for res_fpn
-    without depth), pose maps stored channel-first moved to NHWC."""
+    without depth), pose maps stored channel-first moved to NHWC. Each
+    array is uploaded from pageable memory, which makes the host wait: one
+    `host_syncs` each."""
+
+    def upload(a):
+        profiling.count("host_syncs")
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
     rgb = np.asarray(batch["rgb"], np.float32)
     if cfg.arch == "res_fpn":
         rgb = (rgb - _IMAGENET_MEAN) / _IMAGENET_STD
-    out = {"rgb": torch.from_numpy(rgb).to(device),
-           "heatmap": torch.from_numpy(np.asarray(batch["heatmap"], np.float32)).to(device),
-           "pose_map": torch.from_numpy(np.asarray(batch["pose_map"], np.float32)).to(device)}
+    out = {"rgb": upload(rgb), "heatmap": upload(batch["heatmap"]),
+           "pose_map": upload(batch["pose_map"])}
     if "depth" in batch:
-        out["depth"] = normalize_depth_fixed(
-            torch.from_numpy(np.asarray(batch["depth"], np.float32)).to(device))
+        out["depth"] = normalize_depth_fixed(upload(batch["depth"]))
     elif cfg.arch == "res_fpn":
         out["depth"] = torch.zeros(out["rgb"].shape[:3], device=device)
     if out["pose_map"].dim() == 4 and out["pose_map"].shape[1] == 12:
         out["pose_map"] = out["pose_map"].permute(0, 2, 3, 1)
     return out
+
+
+def train_iteration(cfg: TrainConfig, train_step: Callable, host_batch: Dict,
+                    device, marks: Optional[list] = None):
+    """One iteration of `train`'s loop as one request of utils/profiling:
+    the loader's batch uploaded (_prepare_batch), then `train_step` ->
+    (loss, logs, the batch on `device`). `marks` receives a start event and
+    the step's top-level spans' end events."""
+    with profiling.request(marks, start=True):
+        batch = _prepare_batch(cfg, host_batch, device)
+        loss, logs = train_step(batch, marks)
+    return loss, logs, batch
 
 
 def _numpy(tree: Dict) -> Dict[str, np.ndarray]:
@@ -229,11 +261,9 @@ def train(cfg: TrainConfig, log_fn=print, tb_logdir: Optional[str] = None,
     start_epoch = step // max(cfg.steps_per_epoch, 1)
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
-        for batch in loader.epoch(epoch):
-            batch = _prepare_batch(cfg, batch, dev)
+        for host_batch in loader.epoch(epoch):
             marks = [] if (on_step is not None and dev.type == "cuda") else None
-            with profiling.request(marks, start=True):
-                loss, logs = train_step(batch, marks)
+            loss, logs, batch = train_iteration(cfg, train_step, host_batch, dev, marks)
             step += 1
             if on_step is not None:
                 on_step(step, loss, logs, marks)

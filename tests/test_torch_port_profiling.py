@@ -381,6 +381,69 @@ def test_tracing_off_makes_no_event_and_no_record_function(tiny_scene, monkeypat
     assert made == [] and pprof.marked.n_requests == before and pprof._recorder is None
 
 
+def _centersnap_iteration():
+    """One iteration of the 6D-pose trainer's loop (train_iteration) at a
+    tiny CenterSnap (the conv patch embed, 32 px, B=2, depth condition)."""
+    from hunyuanworld_mirror_tpu_torch.models import centersnap
+    from hunyuanworld_mirror_tpu_torch.training import trainer
+    cfg = trainer.TrainConfig(model=centersnap.CenterSnapConfig(
+        img_size=32, embed_dim=32, trunk_depth=2, trunk_heads=2, heatmap_features=16))
+    model = trainer.model_init(cfg, "cpu")
+    step = trainer.make_train_step(cfg, model, trainer.make_optimizer(cfg, model))
+    rng = np.random.default_rng(0)
+    host = {"rgb": rng.uniform(size=(2, 32, 32, 3)).astype(np.float32),
+            "depth": rng.uniform(0, 25, (2, 32, 32)).astype(np.float32),
+            "heatmap": rng.uniform(size=(2, 32, 32)).astype(np.float32),
+            "pose_map": rng.normal(size=(2, 16, 16, 12)).astype(np.float32)}
+    return lambda marks=None: trainer.train_iteration(cfg, step, host, "cpu", marks)
+
+
+CS_TREE = [("forward", None, 0), ("encoder", "forward", 2), ("trunk", "forward", 4),
+           ("heads.heatmap", "forward", 10), ("heads.pose", "forward", 10),
+           ("loss", "forward", 0), ("backward", None, 0), ("optimizer", None, 0)]
+
+
+def test_tiny_centersnap_step_records_the_span_tree():
+    """One training iteration: the encoder, the trunk, each head and the
+    loss inside forward, then backward and optimizer. Host syncs: the
+    batch's 4 pageable uploads (on the request, before any span), the
+    normalisation constants, the trunk's RoPE tables and each head's
+    position-embedding grids."""
+    step = _centersnap_iteration()
+    with pprof.recording() as rec:
+        step()
+    (req,) = rec.resolve()
+    assert _spans(req) == CS_TREE
+    assert req.counts == {"host_syncs": 4 + sum(n for _, _, n in CS_TREE)}
+
+
+def test_tiny_centersnap_marks_are_the_parents():
+    """train_iteration's marks: the start event, then the step's top-level
+    spans' end events; the request lands in `marked`."""
+    step = _centersnap_iteration()
+    marks = []
+    step(marks)
+    assert [n for n, _ in marks] == ["start", "forward", "backward", "optimizer"]
+    req = pprof.marked.requests[-1]
+    top = [s for s in req.spans if s.parent is None]
+    assert marks[0][1] is top[0].start
+    assert [ev for _, ev in marks[1:]] == [s.end for s in top]
+    assert _spans(req) == CS_TREE and req.counts["host_syncs"] == 30
+
+
+def test_tracing_off_centersnap_step_makes_no_event(monkeypatch):
+    """With tracing off, a training iteration creates no CUDA event, enters
+    no record_function and records nothing."""
+    step = _centersnap_iteration()
+    made = []
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: made.append("event"))
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: made.append("record_function"))
+    before = pprof.marked.n_requests
+    step()
+    assert made == [] and pprof.marked.n_requests == before and pprof._recorder is None
+
+
 @pytest.fixture(scope="module")
 def tiny_model_tokens():
     cfg = WorldMirrorConfig(img_size=56, **PRESETS["tiny"])

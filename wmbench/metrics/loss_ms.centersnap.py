@@ -1,0 +1,15 @@
+"""The 6D-pose loss a training step: the program's span loss around
+centersnap_loss inside the step's forward (100 MSE of the heatmap, the
+masked L1 of the pose map); the mean over the traced run's window."""
+
+from wmbench.program import mean_ms
+
+LAYER = "pose training step: training/trainer.py make_train_step and train_iteration, training/losses.py"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "train_steps_per_s"
+WORKLOADS = ["train.centersnap.b20"]
+
+
+def read(run):
+    return mean_ms(run, "loss")

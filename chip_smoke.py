@@ -26,8 +26,8 @@ Phases (any failure exits non-zero before the last line is printed):
      trunk, width 1024, 24 + 24 blocks, all five heads, the Gaussian render)
      at B=1, S=4, 518 px, random weights from a seed, fixed cameras: one
      `run` with the kernels' launch counts (88 attention launches, 24 of
-     them at N >= 4096, 4 rasterizer launches and 4 K6
-     forward launches) and the peak memory;
+     them at N >= 4096, 4 rasterizer launches, 4 K6 forward launches and 4
+     K7 launches) and the peak memory;
      then one model from `load_model`, one warm-up and 7 timed forwards
      through `reconstruct`, with the per-phase
      time; then, on the same model, one forward of 4 landscape images at
@@ -59,8 +59,8 @@ Phases (any failure exits non-zero before the last line is printed):
      `infer.export`, the trainer twin's `run()` for 2 iterations on that
      directory, then `optimize_splats` on the same splats, images and
      cameras for 30 iterations with refines at steps 19 and 29: every loss
-     finite, the last below the first, 4 K2, 4 K3 and 4 + 4 K6 launches per
-     step, the
+     finite, the last below the first, 4 K2, 4 K3, 4 + 4 K6 and 4 K7
+     launches per step, the
      slot count unchanged across the refines; the median step time split by
      CUDA events into render forward, backward, optimizer and refine, the
      peak memory, the live splats after each refine and n_dropped per camera;
@@ -82,6 +82,19 @@ Phases (any failure exits non-zero before the last line is printed):
      and backward timed against the plain projection and its autograd,
      with the bytes bound; a refine step's kernel launches (as the
      benchmark counts them) and K6's 4 + 4;
+ 8c. K7 (bin_flat_keys / bin_flat_emit, the flat binning of the live
+     slots): the ptxas report (fails on a stack frame or a spill); its
+     FlatBins against the plain binning's (tiles.bin_gaussians_packed_plain)
+     on every field, bit for bit: starts, counts, n_dropped, and the packed
+     rows and ids of the plain list's live prefix, whose length must be
+     K7's; then K2's render of both lists, equal. Cases: phase 5's 537,088
+     splats at 4 tiles a splat with the f16 payload in its 4 cameras, the
+     exact test off, and a cap of 64 a tile; phase 8's 1,074,176 slots at 9
+     tiles a splat with the f32 payload and ids in their 4 cameras, the
+     exact test off; a camera with no valid splat; 238,610,318 splats (N x 9
+     slots past 2^31) of which 20,000 valid, the last 64 among them, against
+     the plain binning of those alone. K7 and the plain binning timed a camera, with the bytes
+     bound;
   9. K2m (rasterize_flat_multi_fwd): `rasterize(camera_batch=True)` on
      phase 5's 537,088 splats and 4 cameras at 518 px with the render's caps
      (4096 per tile, 4 tiles per splat): one sort of all cameras' slots, 1
@@ -95,7 +108,9 @@ Phases (any failure exits non-zero before the last line is printed):
      per-camera inference route (f16 payload) with WM_RASTER_GROUP at 16, 8
      and 4: 4 K5 and 0 K2 launches a call, K5 against its plain version and
      bit for bit against K2 on each camera's clamped list, both timed,
-     extra_dropped; then optimize_splats for 3 steps on phase 8's
+     extra_dropped; the list K7's (the live rows), its clamped starts and
+     counts, extra_dropped and K5's image those of the plain binning's
+     N x 4 rows, bit for bit; then optimize_splats for 3 steps on phase 8's
      inputs with WM_RASTER_GROUP=4 against the same 3 steps with G=1: 4 K5,
      0 K2 and 4 K3 launches a step, the losses within 1e-5 relative,
      n_dropped equal (the window clamp cut nothing, so K3 read the same
@@ -116,9 +131,10 @@ Phases (any failure exits non-zero before the last line is printed):
      its render against the flat forward's (max, median, share past 1e-3),
      K4 against its plain version on each camera's dense bins (tight radii,
      4096 a tile, 4 tiles a splat), 7 timed forwards; (b) slot_fracs="auto"
-     (--fast-binning): one forward with 4 K2, sorted rows a camera against
-     the exact binning's, the render against the flat forward's, K2 against
-     its plain version on the 4 prefix lists, 7 timed forwards; (c) the
+     (--fast-binning): one forward with 4 K2, the render against the flat
+     forward's, each camera's list the exact route's on every field (K7's
+     live rows, no more than the prefixes would keep), K2 against its plain
+     version on the 4 lists, 7 timed forwards; (c) the
      --video trajectory through the 4 cameras (46 frames, 46 K2 launches),
      every frame finite and lit, ms a frame, K2 against its plain version on
      frame 0's list, then 3 frames with the spread effect (3 K2) and 3 on
@@ -424,7 +440,7 @@ def phase_build():
     t0 = time.time()
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
                             "rasterize_flat_bwd", "rasterize_binned_fwd", "project_fwd",
-                            "project_bwd"])
+                            "project_bwd", "bin_flat"])
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -881,7 +897,7 @@ def phase_main_path():
     from hunyuanworld_mirror_tpu_torch.infer import (PRESETS, load_model,
                                                      reconstruct, run)
     from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
-    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, rasterizer_flat
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, rasterizer_flat, tiles
     from hunyuanworld_mirror_tpu_torch.ops.attention import attention
 
     cfg = WorldMirrorConfig(**PRESETS["large"])
@@ -892,6 +908,7 @@ def phase_main_path():
     attention.launches = attention.flash_route_launches = attention.f32_launches = 0
     rasterizer_flat.rasterize_flat.launches = 0
     projection.project_fwd.launches = projection.project_bwd.launches = 0
+    tiles.bin_gaussians_packed.launches = 0
     t0 = time.time()
     preds = run(imgs, cfg, camera_params=cams)
     torch.cuda.synchronize()
@@ -901,16 +918,17 @@ def phase_main_path():
                 "attention_fwd_f32": attention.f32_launches,
                 "rasterize_flat_fwd": rasterizer_flat.rasterize_flat.launches,
                 "project_fwd": projection.project_fwd.launches,
-                "project_bwd": projection.project_bwd.launches}
+                "project_bwd": projection.project_bwd.launches,
+                "bin_flat": tiles.bin_gaussians_packed.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path run: {wall:.2f} s wall incl. model build and first use; "
         f"peak memory {peak_gb:.2f} GB; launches {launches}")
     if launches != {"attention_fwd": 88, "attention_fwd_flash_route": 24,
                     "attention_fwd_f32": K1C_PER_FWD, "rasterize_flat_fwd": 4,
-                    "project_fwd": 4, "project_bwd": 0}:
+                    "project_fwd": 4, "project_bwd": 0, "bin_flat": 4}:
         raise AssertionError(f"expected 88 attention launches (24 at N >= 4096, "
-                             f"{K1C_PER_FWD} f32), 4 rasterizer and 4 K6 forward launches "
-                             f"per forward, got {launches}")
+                             f"{K1C_PER_FWD} f32), 4 rasterizer, 4 K6 forward and 4 K7 "
+                             f"launches per forward, got {launches}")
 
     # timing: one model, so no forward pays for a model build
     model = load_model(cfg, device="cuda")
@@ -1277,6 +1295,7 @@ def phase_train(preds, imgs):
     from hunyuanworld_mirror_tpu_torch.io import ply as io_ply
     from hunyuanworld_mirror_tpu_torch.ops import projection as P
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
+    from hunyuanworld_mirror_tpu_torch.ops import tiles as T
     from hunyuanworld_mirror_tpu_torch.training import splat_opt
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1308,7 +1327,7 @@ def phase_train(preds, imgs):
         f"{cfg.max_per_tile}, 9 tiles per splat, f32 payload, SH degree 0")
 
     steps = []
-    prev = {"k2": 0, "k3": 0, "k6_fwd": 0, "k6_bwd": 0}
+    prev = {"k2": 0, "k3": 0, "k6_fwd": 0, "k6_bwd": 0, "k7": 0}
     # the slot states whose lists K3 is held on: the input of step 10, a step
     # of the median below, and the state after the refine at step 29
     snap_at = {9: "step 10", cfg.iters - 1: "after refine 29"}
@@ -1317,14 +1336,15 @@ def phase_train(preds, imgs):
     def on_step(info):
         k2, k3 = R.rasterize_flat.launches, R.rasterize_flat_bwd.launches
         k6f, k6b = P.project_fwd.launches, P.project_bwd.launches
+        k7 = T.bin_gaussians_packed.launches
         steps.append(dict(info, loss=float(info["loss"]), k2=k2 - prev["k2"],
                           k3=k3 - prev["k3"], k6_fwd=k6f - prev["k6_fwd"],
-                          k6_bwd=k6b - prev["k6_bwd"],
+                          k6_bwd=k6b - prev["k6_bwd"], k7=k7 - prev["k7"],
                           alive=int((info["raw"]["alive"] > 0.5).sum()),
                           slots=tuple(info["raw"]["means"].shape),
                           n_dropped=info["meta"]["n_dropped"].tolist(), raw=None,
                           meta=None))
-        prev.update(k2=k2, k3=k3, k6_fwd=k6f, k6_bwd=k6b)
+        prev.update(k2=k2, k3=k3, k6_fwd=k6f, k6_bwd=k6b, k7=k7)
         if info["it"] in snap_at:
             with torch.no_grad():
                 snaps[snap_at[info["it"]]] = [
@@ -1334,6 +1354,7 @@ def phase_train(preds, imgs):
     torch.cuda.reset_peak_memory_stats()
     R.rasterize_flat.launches = R.rasterize_flat_bwd.launches = 0
     P.project_fwd.launches = P.project_bwd.launches = 0
+    T.bin_gaussians_packed.launches = 0
     t0 = time.time()
     splat_opt.optimize_splats(splats, gt, c2w, Ks, cfg, depths=depths,
                               device="cuda", log_fn=log, on_step=on_step)
@@ -1362,12 +1383,15 @@ def phase_train(preds, imgs):
         log(f"training refine at step {it}: {ms:.2f} ms, {alive} live splats after")
     log(f"training n_dropped per camera: first step {steps[0]['n_dropped']}, "
         f"last step {steps[-1]['n_dropped']}; launches per step (K2, K3, K6 forward, "
-        f"K6 backward) {sorted({(s['k2'], s['k3'], s['k6_fwd'], s['k6_bwd']) for s in steps})}")
+        f"K6 backward, K7) "
+        f"{sorted({(s['k2'], s['k3'], s['k6_fwd'], s['k6_bwd'], s['k7']) for s in steps})}")
 
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"training: losses {losses}")
-    if any((s["k2"], s["k3"], s["k6_fwd"], s["k6_bwd"]) != (4, 4, 4, 4) for s in steps):
-        raise AssertionError("training: expected 4 K2, 4 K3 and 4 + 4 K6 launches per step")
+    if any((s["k2"], s["k3"], s["k6_fwd"], s["k6_bwd"], s["k7"]) != (4, 4, 4, 4, 4)
+           for s in steps):
+        raise AssertionError("training: expected 4 K2, 4 K3, 4 + 4 K6 and 4 K7 launches "
+                             "per step")
     if any(s["slots"] != (capacity, 3) for s in steps):
         raise AssertionError("training: the slot count changed")
     if [it for it, _, _ in refines] != [19, 29]:
@@ -1390,8 +1414,8 @@ def phase_train(preds, imgs):
     ref = {"median_ms": med_total, "loss0": losses[0],
            "dropped0": steps[0]["n_dropped"]}
     k6_launches = {"forward": steps[0]["k6_fwd"], "backward": steps[0]["k6_bwd"]}
-    return (steps[0]["k3"], k6_launches, k3["after refine 29"], (splats, gt, c2w, Ks, depths),
-            ref)
+    return (steps[0]["k3"], k6_launches, steps[0]["k7"], k3["after refine 29"],
+            (splats, gt, c2w, Ks, depths), ref)
 
 
 # --- K6: the pinhole projection --------------------------------------------------
@@ -1739,6 +1763,176 @@ def k6_modes(gen, n=1_074_176):
     return out
 
 
+# --- K7: the flat binning of the live slots -----------------------------------
+
+def k7_ptxas():
+    """K7's ptxas report: registers, and no stack frame or spill."""
+    from hunyuanworld_mirror_tpu_torch.ops import _build
+    report = (_build.BUILD_DIR / "bin_flat.ptxas.txt").read_text()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+    frames = [int(n) for n in re.findall(r"(\d+) bytes stack frame", report)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    log(f"K7 bin_flat ptxas: registers {regs}, stack frames {frames}, spills {spills}")
+    if any(frames) or any(spills) or not regs:
+        raise AssertionError("K7 bin_flat: ptxas reports a stack frame or a spill")
+
+
+def k7_check(label, s, hw, tpg, mpt, f16, with_ids, exact, timed=True):
+    """K7's FlatBins against the plain binning's on one camera's splats `s`
+    (rasterizer.CameraSplats) at hw x hw px, 16 px tiles: every field bit
+    for bit on the plain list's live prefix, which must be as long as K7's
+    list, then K2's render of both lists, equal; K7 and the plain binning
+    timed -> the numbers."""
+    from hunyuanworld_mirror_tpu_torch.ops import rasterizer, rasterizer_flat, tiles
+    tw = th = -(-hw // 16)
+    vals = rasterizer.payload_planes(s.means2d, s.conics, s.colors, s.opacities, f16)
+    ct = tiles.conic_test_planes(s.conics, s.opacities) if exact else None
+    args = (s.means2d, s.radii, s.depths, vals, 16, tw, th, tpg, mpt, ct, with_ids)
+    before = tiles.bin_gaussians_packed.launches
+    k7 = tiles.bin_gaussians_packed(*args)
+    plain = tiles.bin_gaussians_packed_plain(*args)
+    torch.cuda.synchronize()
+    db = tiles.depth_bits_for(tw * th)
+    key, _, _ = tiles._isect_keys(s.means2d, s.radii, s.depths, 16, tw, th, tpg, db, ct)
+    n_live, n = k7.packed.shape[1], s.means2d.shape[0]
+    bits = k7.packed.view(torch.int32)
+    ok = {"launches": tiles.bin_gaussians_packed.launches == before + 1,
+          "n_live": n_live == int(((key >> db) < tw * th).sum()),
+          "starts": torch.equal(k7.starts, plain.starts),
+          "counts": torch.equal(k7.counts, plain.counts),
+          "n_dropped": torch.equal(k7.n_dropped, plain.n_dropped),
+          "packed": torch.equal(bits, plain.packed[:, :n_live].view(torch.int32)),
+          "ids": (torch.equal(k7.gauss_ids, plain.gauss_ids[:n_live]) if with_ids
+                  else k7.gauss_ids is None)}
+    d_col = s.colors.shape[-1]
+    img, alpha = rasterizer_flat.rasterize_flat(k7.packed, k7.starts, k7.counts, hw, hw,
+                                                16, d_col, f16)
+    img_p, alpha_p = rasterizer_flat.rasterize_flat(plain.packed, plain.starts,
+                                                    plain.counts, hw, hw, 16, d_col, f16)
+    ok["render"] = torch.equal(img, img_p) and torch.equal(alpha, alpha_p)
+    out = {"ok": ok, "n": n, "n_live": n_live, "rows_plain": plain.packed.shape[1],
+           "n_dropped": int(k7.n_dropped), "max_count": int(k7.counts.max())}
+    if timed:
+        V = len(vals)
+        by = (n * (2 * 8 + 2 * 4 + (16 if exact else 0) + 4 * V)
+              + n_live * 4 * (V + int(with_ids)) + 8 * tw * th)
+        out.update(ms=cuda_ms(lambda: tiles.bin_gaussians_packed(*args)),
+                   plain_ms=cuda_ms(lambda: tiles.bin_gaussians_packed_plain(*args),
+                                    reps=3, warmup=1),
+                   bound_ms=by / 3.35e12 * 1e3)
+    log(f"K7 {label}: {n} splats, {n_live} live rows of the plain {out['rows_plain']}, "
+        f"n_dropped {out['n_dropped']}, largest count {out['max_count']}; "
+        + ", ".join(f"{k} {v}" for k, v in ok.items())
+        + (f"; K7 {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound "
+           f"{out['bound_ms']:.4f} ms (bytes)" if timed else ""))
+    if not all(ok.values()):
+        raise AssertionError(f"K7 {label}: differs from the plain binning: {ok}")
+    return out
+
+
+def k7_beyond_int32(gen, n=2 ** 31 // 9 + 1024, n_valid=20_000, tpg=9):
+    """K7 on n splats, n x tpg slots past 2^31, of which n_valid are valid
+    (the rest culled): spread over the indices, and the last 64, whose 9th
+    slots' indices pass 2^31. Its list against the plain binning of the
+    valid splats alone, whose slots keep the same order (k, splat), with
+    the ids mapped back -> the numbers."""
+    from hunyuanworld_mirror_tpu_torch.ops import tiles
+    tw = th = 33
+    idx = torch.cat([
+        torch.sort(torch.randperm(n - 64, generator=gen, device="cuda")[:n_valid - 64]).values,
+        torch.arange(n - 64, n, device="cuda")])
+    m2d = torch.zeros(n, 2, device="cuda")
+    rad = torch.zeros(n, 2, dtype=torch.int32, device="cuda")
+    dep = torch.zeros(n, device="cuda")
+    m2d[idx] = torch.rand(n_valid, 2, generator=gen, device="cuda") * 318.0 + 100.0
+    rad[idx] = torch.randint(1, 40, (n_valid, 2), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    rad[-64:] = 40                      # 9 tiles or more
+    dep[idx] = torch.rand(n_valid, generator=gen, device="cuda") * 10.0 + 0.1
+    ar = torch.arange(n, device="cuda")
+    vals = [((ar * (j + 1)) % (1 << 24)).float() for j in range(7)]
+    del ar
+    k7 = tiles.bin_gaussians_packed(m2d, rad, dep, vals, 16, tw, th, tpg, 4096,
+                                    with_ids=True)
+    del vals
+    sub = tiles.bin_gaussians_packed_plain(
+        m2d[idx], rad[idx], dep[idx],
+        [((idx * (j + 1)) % (1 << 24)).float() for j in range(7)], 16, tw, th, tpg, 4096,
+        with_ids=True)
+    torch.cuda.synchronize()
+    n_live = k7.packed.shape[1]
+    ok = {"starts": torch.equal(k7.starts, sub.starts),
+          "counts": torch.equal(k7.counts, sub.counts),
+          "n_dropped": torch.equal(k7.n_dropped, sub.n_dropped),
+          "packed": torch.equal(k7.packed, sub.packed[:, :n_live]),
+          "ids": torch.equal(k7.gauss_ids.long(), idx[sub.gauss_ids[:n_live].long()])}
+    log(f"K7 {n} splats ({n * tpg} slots, {n_valid} valid): {n_live} live rows; "
+        + ", ".join(f"{k} {v}" for k, v in ok.items()))
+    if not all(ok.values()):
+        raise AssertionError(f"K7 past 2^31 slots: differs from the plain binning: {ok}")
+    return {"n": n, "slots": n * tpg, "n_live": n_live, "ok": ok}
+
+
+def phase_k7(preds, train_inputs):
+    """K7 against the plain binning (see k7_check) on phase 5's splats and
+    phase 8's slots in their 4 cameras each, then the cases the scenes
+    leave out -> {case: numbers}."""
+    from hunyuanworld_mirror_tpu_torch.ops import projection as P, rasterizer
+    from hunyuanworld_mirror_tpu_torch.training import splat_opt
+    from hunyuanworld_mirror_tpu_torch.utils import camera as cam_utils
+    from hunyuanworld_mirror_tpu_torch.utils.scenes import RENDER_MPT, RENDER_TPG
+    k7_ptxas()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = {}
+    with torch.no_grad():
+        means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+        covars = P.quat_scale_to_covar_planes(quats, scales)
+        mpt = rasterizer._capped(RENDER_MPT, means.shape[0], RENDER_TPG)
+        main = [rasterizer.prepare_camera(means, covars, opac, sh, w2c[c], Ks[c], HW, HW)
+                for c in range(w2c.shape[0])]
+        for c, s in enumerate(main):
+            out[f"main_{c}"] = k7_check(f"phase 5's splats, camera {c}, f16", s, HW,
+                                        RENDER_TPG, mpt, True, False, True)
+        out["main_no_test"] = k7_check("phase 5's splats, camera 0, no exact test",
+                                       main[0], HW, RENDER_TPG, mpt, True, False, False)
+        capped = k7_check("phase 5's splats, camera 0, 64 a tile", main[0], HW,
+                          RENDER_TPG, 64, True, False, True, timed=False)
+        if capped["max_count"] != 64 or capped["n_dropped"] <= out["main_0"]["n_dropped"]:
+            raise AssertionError("K7: the cap of 64 a tile cut nothing")
+        out["main_capped"] = capped
+        del main, covars
+
+        splats, _, c2w, Ks8, _ = train_inputs
+        cfg = splat_opt.SplatOptConfig()
+        raw = splat_opt._raw_from_splats(
+            {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device="cuda")
+             for k, v in splats.items()}, int(len(splats["means"]) * cfg.capacity_factor))
+        slots = [x.contiguous() for x in splat_opt._activate(raw)]
+        del raw
+        w2c8 = cam_utils.se3_inverse(torch.as_tensor(np.asarray(c2w), dtype=torch.float32,
+                                                     device="cuda"))
+        Ks8 = torch.as_tensor(np.asarray(Ks8), dtype=torch.float32, device="cuda")
+        cam = P.Pinhole(HW, HW, "RGB+ED", quat_order="wxyz")
+        mpt = rasterizer._capped(cfg.max_per_tile, slots[0].shape[0], 9)
+        train = [rasterizer.CameraSplats(*P.project_pinhole(*slots, w2c8[c], Ks8[c], cam))
+                 for c in range(w2c8.shape[0])]
+        for c, s in enumerate(train):
+            out[f"slots_{c}"] = k7_check(f"phase 8's slots, camera {c}, f32 + ids", s, HW,
+                                         9, mpt, False, True, True)
+        out["slots_no_test"] = k7_check("phase 8's slots, camera 0, no exact test",
+                                        train[0], HW, 9, mpt, False, True, False)
+        empty = train[0]._replace(radii=torch.zeros_like(train[0].radii))
+        out["no_valid_splat"] = k7_check("a camera with no valid splat", empty, HW, 9, mpt,
+                                         False, True, True, timed=False)
+        if out["no_valid_splat"]["n_live"] != 0:
+            raise AssertionError("K7: a camera with no valid splat has live rows")
+        del slots, train, empty
+    torch.cuda.empty_cache()
+    out["beyond_int32"] = k7_beyond_int32(gen)
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- the rasterizer variants: K2m, K5, K4 -------------------------------------
 
 def totals(label, rows):
@@ -1822,9 +2016,11 @@ def phase_k5(preds, train_inputs):
 
 
 def k5_render(preds, group):
-    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, tiles
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer_flat as R
     means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
+    covars = projection.quat_scale_to_covar_planes(quats, scales)
+    tw = -(-HW // 16)
     R.rasterize_flat.launches = R.rasterize_flat_grouped.launches = 0
     out, _, meta = rasterizer.rasterize(means, quats, scales, opac, sh, w2c, Ks, HW,
                                         HW, max_per_tile=RENDER_MPT,
@@ -1850,13 +2046,34 @@ def k5_render(preds, group):
         if not (torch.equal(img, img2) and torch.equal(alpha, alpha2)):
             raise AssertionError(f"K5 G={group} camera {c}: differs from K2 on the same "
                                  f"clamped list by {vs_k2}")
+        # the plain binning's N*TPG rows: the same windows and image as K7's list
+        s = rasterizer.prepare_camera(means, covars, opac, sh, w2c[c], Ks[c], HW, HW)
+        plain = tiles.bin_gaussians_packed_plain(
+            s.means2d, s.radii, s.depths,
+            rasterizer.payload_planes(s.means2d, s.conics, s.colors, s.opacities, True),
+            16, tw, tw, RENDER_TPG,
+            rasterizer._capped(RENDER_MPT, means.shape[0], RENDER_TPG),
+            tiles.conic_test_planes(s.conics, s.opacities))
+        windows = R.group_windows(plain.starts, plain.counts, group, RENDER_MPT,
+                                  plain.packed.shape[1])
+        img3, alpha3 = R.rasterize_flat_grouped(plain.packed, *windows[:2], HW, HW, 16, 4,
+                                                True, group)
+        same = [torch.equal(a, b) for a, b in zip(windows + (img3, alpha3),
+                                                  (starts, counts, extra, img, alpha))]
+        if not all(same):
+            raise AssertionError(f"K5 G={group} camera {c}: the plain list's windows or "
+                                 f"image differ from K7's list's (starts, counts, extra, "
+                                 f"image, alpha) {same}")
+        del plain, s
         ms = cuda_ms(lambda: R.rasterize_flat_grouped(*args, group))
         k2_ms = cuda_ms(lambda: R.rasterize_flat(*args))
         plain_ms = cuda_ms(lambda: R.rasterize_flat_grouped_plain(*args), reps=2,
                            warmup=1)
         bound, by, _, _, _ = blend_bound(bins.packed, starts, counts, HW, HW, 4, True)
         log(f"K5 G={group:2d} camera {c}: extra_dropped {int(extra)}  max|d| vs plain "
-            f"{err:.3e}, vs K2 on the same list {vs_k2:.3e}  kernel {ms:.4f} ms  "
+            f"{err:.3e}, vs K2 on the same list {vs_k2:.3e}, K7's list {bins.packed.shape[1]} "
+            f"rows: windows and image those of the plain list's {means.shape[0] * RENDER_TPG} rows  "
+            f"kernel {ms:.4f} ms  "
             f"K2 {k2_ms:.4f} ms  plain {plain_ms:.2f} ms  bound {bound:.4f} ms ({by})")
         rows.append((err, ms, plain_ms, bound, by))
         k2_total += k2_ms
@@ -2140,40 +2357,46 @@ def cli_jax_route(model, imgs, cams, flat):
 
 
 def cli_prefix_route(model, imgs, cams, flat):
-    """(b): one forward with slot_fracs="auto" (4 K2), the sorted rows a
-    camera against the exact binning's, its render against the exact
-    route's, and K2 against its plain version on the 4 prefix lists."""
+    """(b): one forward with slot_fracs="auto" (4 K2), its render against
+    the exact route's, and a camera at a time its list against the exact
+    route's: on the card slot_fracs bins through K7 (rasterizer.bin_splats),
+    whose live rows are fewer than the prefixes keep (tiles._auto_slot_fracs'
+    N sum(fracs)), so the two lists are one, every field bit for bit; K2
+    against its plain version on the 4 lists."""
     from hunyuanworld_mirror_tpu_torch.ops import rasterizer
+    from hunyuanworld_mirror_tpu_torch.ops.tiles import _auto_slot_fracs
     preds = counted_forward("slot_fracs=auto", model, imgs, cams, (88, 24, 4, 0))
     diff = render_diff("slot_fracs=auto", preds, flat)
     means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
-    rows, sorted_rows = [], []
+    prefix_rows = int(means.shape[0] * sum(_auto_slot_fracs(RENDER_TPG)))
+    rows, sorted_rows, same = [], [], []
     for c in range(w2c.shape[0]):
         kw = (means, quats, scales, opac, sh, w2c[c], Ks[c], HW, HW, 16, RENDER_MPT,
               RENDER_TPG, True)
         exact = rasterizer.bin_camera(*kw)
         bins = rasterizer.bin_camera(*kw, slot_fracs="auto")
         sorted_rows.append((bins.packed.shape[1], exact.packed.shape[1]))
+        same.append(all((a is None and b is None) or torch.equal(a, b)
+                        for a, b in zip(bins, exact)))
         if c == 0:
             bin_ms = (cuda_ms(lambda: rasterizer.bin_camera(*kw, slot_fracs="auto"),
                               reps=5, warmup=1),
                       cuda_ms(lambda: rasterizer.bin_camera(*kw), reps=5, warmup=1))
-        if not torch.equal(bins.counts, exact.counts) and int(bins.n_dropped) == int(
-                exact.n_dropped):
-            raise AssertionError(f"prefix camera {c}: counts differ, none dropped")
-        err, ms, plain_ms, bound, by, _ = k2_check(f"prefix camera {c}", bins, HW, HW,
-                                                   4, True)
+        err, ms, plain_ms, bound, by, _ = k2_check(f"slot_fracs=auto camera {c}", bins,
+                                                   HW, HW, 4, True)
         rows.append((err, ms, plain_ms, bound, by))
         del exact, bins
-    log(f"slot_fracs=auto: sorted rows a camera (prefix, exact) {sorted_rows}, "
-        f"ratio {np.mean([a / b for a, b in sorted_rows]):.4f}; render_n_dropped "
-        f"{preds['render_n_dropped'].tolist()}; camera 0's projection and binning "
-        f"(bin_camera) {bin_ms[0]:.3f} ms with the prefixes, {bin_ms[1]:.3f} ms exact")
-    if not all(a < b for a, b in sorted_rows):
-        raise AssertionError(f"prefix binning sorted no fewer rows: {sorted_rows}")
+    log(f"slot_fracs=auto: sorted rows a camera (this route, exact) {sorted_rows}, "
+        f"the exact list's on every field {same}; the prefixes would keep {prefix_rows}; "
+        f"render_n_dropped {preds['render_n_dropped'].tolist()}; camera 0's projection "
+        f"and binning (bin_camera) {bin_ms[0]:.3f} ms with slot_fracs, {bin_ms[1]:.3f} ms "
+        f"exact")
+    if not (all(same) and all(a <= prefix_rows for a, _ in sorted_rows)):
+        raise AssertionError(f"slot_fracs=auto: not the exact list {same}, or more rows "
+                             f"{sorted_rows} than the prefixes' {prefix_rows}")
     del preds
     return (totals("K2 per forward on the --fast-binning path", rows), diff,
-            dict(sorted_rows=sorted_rows, bin_camera_ms=bin_ms))
+            dict(sorted_rows=sorted_rows, prefix_rows=prefix_rows, bin_camera_ms=bin_ms))
 
 
 def frames_ok(label, frames, n):
@@ -4346,8 +4569,9 @@ def phase_render_tools():
     if not (rp["stages_equal"] and rp["dm_delta"]["median"] < 1e-3):
         failed.append(f"render_profile: stages equal {rp['stages_equal']}, "
                       f"camera-batched |d| {rp['dm_delta']}")
-    if not out["bin_ab"]["composed_equal"]:
-        failed.append("bin_ab: the pieces differ from bin_gaussians_packed")
+    if not (out["bin_ab"]["composed_equal"] and out["bin_ab"]["fused_equal"]):
+        failed.append("bin_ab: the pieces differ from bin_gaussians_packed_plain, or "
+                      "the fused list from its live prefix")
     if not all(v["equal"] for r in out["sort_ab2"]["ab"].values() for v in r.values()):
         failed.append("sort_ab2: a permutation differs from the shipped one")
     for c, (cnt, n, drop) in enumerate(zip(st["per_camera"], st["render_n_isects"],
@@ -4398,9 +4622,10 @@ def main():
     launches, k2, preds, imgs = timed("main path", phase_main_path)
     timed("card vs CPU", phase_cpu_reference)
     timed("K3", phase_k3, preds)
-    k3_launches, k6_train_launches, k3, train_inputs, train_ref = timed(
+    k3_launches, k6_train_launches, k7_train_launches, k3, train_inputs, train_ref = timed(
         "training", phase_train, preds, imgs)
     k6 = timed("K6", phase_k6, preds, train_inputs)
+    k7 = timed("K7", phase_k7, preds, train_inputs)
     k2m_launches, k2m = timed("K2m", phase_k2m, preds)
     k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
     k4_launches, k4 = timed("K4", phase_k4, preds)
@@ -4460,6 +4685,22 @@ def main():
          "plain_ms": {"forward": kt["plain_fwd_ms"], "forward_and_autograd": kt["plain_step_ms"]},
          "bound_ms": {"forward": kt["fwd_bound_ms"], "backward": kt["bwd_bound_ms"]},
          "bound_by": "bytes", "library_ms": None, "refine_step": k6["step"]})
+    k7_cams = [k7[f"{scene}_{c}"] for scene in ("main", "slots") for c in range(4)]
+    kernels.append(
+        {"name": "bin_flat_keys + bin_flat_emit (K7)", "route": "cuda",
+         "source": "hunyuanworld_mirror_tpu_torch/csrc/bin_flat.cu",
+         "replaces": "none (plain XLA: hunyuanworld_mirror_tpu/ops/tiles.py)",
+         "launches": {"recon_forward": launches["bin_flat"],
+                      "refine_step": k7_train_launches},
+         "bit_for_bit": all(all(r["ok"].values()) for r in k7.values()),
+         "cases": {k: {f: v for f, v in r.items() if f != "ok"} for k, r in k7.items()},
+         "ms": {"main_4_cameras": sum(r["ms"] for r in k7_cams[:4]),
+                "slots_4_cameras": sum(r["ms"] for r in k7_cams[4:])},
+         "plain_ms": {"main_4_cameras": sum(r["plain_ms"] for r in k7_cams[:4]),
+                      "slots_4_cameras": sum(r["plain_ms"] for r in k7_cams[4:])},
+         "bound_ms": {"main_4_cameras": sum(r["bound_ms"] for r in k7_cams[:4]),
+                      "slots_4_cameras": sum(r["bound_ms"] for r in k7_cams[4:])},
+         "bound_by": "bytes", "library_ms": None})
     for kernel, source, replaces, count, row in (
             ("rasterize_flat_multi_fwd", "rasterize_flat_fwd.cu", 771, k2m_launches, k2m),
             ("rasterize_flat_grouped (K2's entry on the clamped lists)",
@@ -4478,7 +4719,7 @@ def main():
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["by"]}
 
-    # the phase-12 paths: K2 on the --fast-binning forward's prefix lists and
+    # the phase-12 paths: K2 on the --fast-binning forward's lists and
     # on one --video frame, K4 on the --rasterizer jax forward
     kernels[2]["fast_binning_forward"] = sub(cli["k2_prefix"], 4)
     kernels[2]["video_frame"] = {**sub(cli["video"]["k2_frame"], 1),

@@ -4,16 +4,21 @@
         [--tpg 4] [--iters 5] [--seed 0]
     python -m hunyuanworld_mirror_tpu_torch.bin_ab --device cpu --n 4096 --cams 2
 
-The port's twin of tools/bin_ab.py. It times `ops/tiles.bin_gaussians_packed`
-cumulatively by its own pieces, in ms a camera over --cams cameras:
+The port's twin of tools/bin_ab.py. It times the plain flat binning,
+`ops/tiles.bin_gaussians_packed_plain`, cumulatively by its own pieces, and
+kernel K7's route beside it, in ms a camera over --cams cameras:
   keys              _isect_keys (tile boxes, slot tiles, quantized depth);
   keys+sort         + _sort_slots (one torch.sort of the packed 64-bit key
                     key32 << 32 | flat slot index);
   keys+sort+edges   + _segments (the tiles' segments by searchsorted);
-  full_bin          bin_gaussians_packed itself, whose last piece is
-                    _gather (the payload planes by the sorted slots).
-The pieces composed are checked against bin_gaussians_packed bit for bit
-(every field of the FlatBins; the tool raises otherwise). The inputs are
+  full_bin          bin_gaussians_packed_plain itself, whose last piece is
+                    _gather (the payload planes by the sorted slots);
+  fused             bin_gaussians_packed: on the card kernel K7, the live
+                    slots alone (its plain version on the CPU).
+The pieces composed are checked against bin_gaussians_packed_plain bit for
+bit (every field of the FlatBins), and the fused list against the plain
+one's live prefix (starts, counts, n_dropped and the rows of its length);
+the tool raises otherwise. The inputs are
 the JAX tool's synthetic ones, drawn from --seed with numpy: N splat
 centres uniform over a 518 px image, integer radii 1-12 px, depths
 uniform in [0.1, 10.1], 5 payload planes, tile 16, no ellipse test, a
@@ -86,14 +91,26 @@ def pieces(tpg: int, mpt: int = RENDER_MPT):
             out["clamped"] + tiles._lost_to_tpg(out["n_cover"], out["valid"], tpg))
 
     def full_bin(m2d, rad, dep, *vals):
+        return tiles.bin_gaussians_packed_plain(m2d, rad, dep, vals, TILE, tw, th, tpg,
+                                                mpt)
+
+    def fused(m2d, rad, dep, *vals):
         return tiles.bin_gaussians_packed(m2d, rad, dep, vals, TILE, tw, th, tpg, mpt)
 
     return {"keys": keys, "keys+sort": keys_sort, "keys+sort+edges": keys_sort_edges,
-            "full_bin": full_bin}, composed
+            "full_bin": full_bin, "fused": fused}, composed
 
 
 def bins_equal(a: tiles.FlatBins, b: tiles.FlatBins) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+
+
+def live_prefix_equal(fused: tiles.FlatBins, plain: tiles.FlatBins) -> bool:
+    """The fused list against the plain one's first rows, as many as it
+    has: the payload's bits, the segments and the drops."""
+    n = fused.packed.shape[1]
+    return (bins_equal(fused[1:4], plain[1:4]) and torch.equal(
+        fused.packed.view(torch.int32), plain.packed[:, :n].view(torch.int32)))
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
@@ -110,14 +127,18 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     rng = np.random.default_rng(args.seed)
     cams = [synthetic_camera(args.n, rng, run.device) for _ in range(args.cams)]
     steps, composed = pieces(args.tpg)
-    equal = all(bins_equal(composed(*c), steps["full_bin"](*c)) for c in cams)
-    if not equal:
-        raise AssertionError("bin_ab: the pieces composed differ from "
-                             "bin_gaussians_packed")
+    plain = [steps["full_bin"](*c) for c in cams]
+    equal = all(bins_equal(composed(*c), p) for c, p in zip(cams, plain))
+    fused = [steps["fused"](*c) for c in cams]
+    fused_equal = all(live_prefix_equal(f, p) for f, p in zip(fused, plain))
+    if not (equal and fused_equal):
+        raise AssertionError(f"bin_ab: the pieces composed equal bin_gaussians_packed_plain: "
+                             f"{equal}; the fused list its live prefix: {fused_equal}")
     rows = args.n * args.tpg
+    live = sum(f.packed.shape[1] for f in fused) / args.cams
     run.log(f"rows a camera {rows / 1e6:.2f}M ({args.n} splats x {args.tpg} slots), "
-            f"{args.cams} cameras; pieces composed equal bin_gaussians_packed bit "
-            f"for bit: {equal}")
+            f"{live / 1e6:.2f}M of them live, {args.cams} cameras; pieces composed equal "
+            f"bin_gaussians_packed_plain and the fused list its live prefix, bit for bit")
     ms = {}
     with torch.no_grad():
         for name, fn in steps.items():
@@ -125,7 +146,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             ms[name] = None if total is None else total / args.cams
             run.log(f"{name:16s}: {fmt_ms(ms[name])} ms a camera")
     return run.finish("bin_ab", {"n": args.n, "cams": args.cams, "tpg": args.tpg,
-                                 "rows_per_camera": rows, "composed_equal": equal,
+                                 "rows_per_camera": rows, "live_rows_per_camera": live,
+                                 "composed_equal": equal, "fused_equal": fused_equal,
                                  "ms_per_camera": ms})
 
 

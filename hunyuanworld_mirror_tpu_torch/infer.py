@@ -14,7 +14,8 @@ render's route: pallas, the flat lists blended by kernel K2 (the default),
 or jax, the dense per-tile bins blended by kernel K4; --fast-binning bins
 the flat route through coverage-scheduled prefixes ("auto"), which may drop
 intersections on scenes heavier than the 518 px calibration (counted in
-render_n_dropped). --ba refines the predicted cameras by bundle adjustment
+render_n_dropped), on the CPU; on the card kernel K7 bins only the live
+slots, fewer rows than the prefixes keep, so the flag bins exactly there. --ba refines the predicted cameras by bundle adjustment
 (refine/ba.py, --ba-iters LM steps) before the exports, which then carry
 the refined poses. Writes points.ply, depth_XXX.png / .npy, normal_XXX.png,
 camera_params.json, gaussians.ply and gaussians.splat, with --glb a GLB
@@ -219,7 +220,8 @@ def main(argv: Optional[List[str]] = None, device=None):
     ap.add_argument("--fast-binning", action="store_true",
                     help="coverage-scheduled isect binning (pallas route): "
                          "fewer sorted rows, may drop intersections on scenes "
-                         "heavier than the 518px calibration")
+                         "heavier than the 518px calibration (CPU; the card's "
+                         "exact binning already sorts fewer)")
     ap.add_argument("--video", action="store_true",
                     help="render a slerp-interpolated novel-view video")
     ap.add_argument("--ba", action="store_true",

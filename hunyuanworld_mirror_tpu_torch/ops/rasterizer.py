@@ -36,6 +36,7 @@ from .. import resolve_device
 from ..utils import profiling
 from ..utils.rotation import quat_to_rotmat
 from . import cameras, projection, tiles
+from ._launch import check_device
 from .projection import RENDER_MODES, mode_channels
 from .rasterizer_binned import (RasterizeBinned, dense_weights, group_entries,
                                 rasterize_binned_world, tile_pixels)
@@ -56,34 +57,41 @@ def normalize_mode(colors: torch.Tensor, alphas: torch.Tensor,
     return depth_by_alpha(colors, alphas) if render_mode in ("ED", "RGB+ED") else colors
 
 
+def payload_planes(means2d, conics, colors, opacities, payload_f16: bool):
+    """The V payload planes (each (N,)) the flat list carries: [mx, my, ca,
+    cb, cc, op, colours...] in f32, or with `payload_f16` [mx, my, ca|cb,
+    cc|op, colour pairs...] as f16 pairs."""
+    d = colors.shape[-1]
+    if not payload_f16:
+        return ([means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1],
+                 conics[:, 2], opacities] + [colors[:, i] for i in range(d)])
+    cols = [colors[:, i] for i in range(d)]
+    if d % 2:
+        cols.append(torch.zeros_like(cols[0]))
+    return ([means2d[:, 0], means2d[:, 1], pack_f16_pairs(conics[:, 0], conics[:, 1]),
+             pack_f16_pairs(conics[:, 2], opacities)]
+            + [pack_f16_pairs(cols[j], cols[j + 1]) for j in range(0, len(cols), 2)])
+
+
 def bin_splats(means2d, conics, colors, opacities, radii, depths,
                tile_size: int, tile_width: int, tile_height: int,
                max_tiles_per_gauss: int, max_per_tile: int,
                payload_f16: bool, with_ids: bool = False, slot_fracs=None,
                exact_test: bool = True) -> tiles.FlatBins:
     """One camera's projected splats -> the sorted flat list kernel K2
-    blends: payload [mx, my, ca, cb, cc, op, colours...] in f32, or with
-    `payload_f16` [mx, my, ca|cb, cc|op, colour pairs...] as f16 pairs.
-    `slot_fracs` ("auto" or one fraction a slot plane) bins through the
-    coverage-scheduled prefixes (tiles.bin_gaussians_packed_prefix, no
-    ids); `exact_test=False` drops the ellipse-tile test."""
-    d = colors.shape[-1]
-    if payload_f16:
-        cols = [colors[:, i] for i in range(d)]
-        if d % 2:
-            cols.append(torch.zeros_like(cols[0]))
-        values = ([means2d[:, 0], means2d[:, 1],
-                   pack_f16_pairs(conics[:, 0], conics[:, 1]),
-                   pack_f16_pairs(conics[:, 2], opacities)]
-                  + [pack_f16_pairs(cols[j], cols[j + 1])
-                     for j in range(0, len(cols), 2)])
-    else:
-        values = ([means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1],
-                   conics[:, 2], opacities] + [colors[:, i] for i in range(d)])
+    blends, its payload_planes gathered in blend order (on the card kernel
+    K7's list of the live rows, tiles.bin_gaussians_packed).
+    `exact_test=False` drops the ellipse-tile test. `slot_fracs` ("auto"
+    or one fraction a slot plane; no ids) bins a CPU tensor through the
+    coverage-scheduled prefixes (tiles.bin_gaussians_packed_prefix, the
+    JAX function's fewer sorted rows); on the card K7 already sorts only
+    the live rows, fewer than the prefixes keep, so the exact list
+    serves."""
+    if slot_fracs is not None and with_ids:
+        raise ValueError("prefix binning (slot_fracs) returns no entry ids")
+    values = payload_planes(means2d, conics, colors, opacities, payload_f16)
     conic_test = tiles.conic_test_planes(conics, opacities) if exact_test else None
-    if slot_fracs is not None:
-        if with_ids:
-            raise ValueError("prefix binning (slot_fracs) returns no entry ids")
+    if slot_fracs is not None and check_device(means2d, "bin_splats"):
         return tiles.bin_gaussians_packed_prefix(
             means2d, radii, depths, values, tile_size, tile_width, tile_height,
             max_tiles_per_gauss, max_per_tile, slot_fracs=slot_fracs,
@@ -195,13 +203,14 @@ class RasterizeFlat(torch.autograd.Function):
     the JAX VJP.
 
     forward SAVES its sorted list and entry -> splat ids for backward
-    instead of re-binning as the JAX VJP does: it spends memory (about
-    (6 + D) f32 rows plus one int32 id per entry, 0.39 GB per camera at 9.67M
-    entries) to save backward a second sort of the whole list. With
-    WM_RASTER_GROUP > 1 the forward is K5 and the saved starts and counts
-    are the window-clamped ones, so K3 differentiates what K5 blended; the
-    JAX backward re-bins with the unclamped counts, so the two agree only
-    where no group overflows its window.
+    instead of re-binning as the JAX VJP does: it spends memory ((6 + D)
+    f32 rows plus one int32 id an entry: on the card kernel K7's list holds
+    only the live entries, ~25 MB a camera at refine's ~0.6M, where the
+    plain list's 9.67M slots held 0.39 GB) to save backward a second
+    sort. With WM_RASTER_GROUP > 1 the forward is K5 and the saved starts
+    and counts are the window-clamped ones, so K3 differentiates what K5
+    blended; the JAX backward re-bins with the unclamped counts, so the
+    two agree only where no group overflows its window.
 
     K2 (and K5, by the clamped counts) sorts the tiles by falling count and
     its blocks take them in that order; forward saves the order, and K3's
@@ -436,10 +445,12 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     impl="pallas" (the default) is the flat route: a sorted flat list per
     camera blended by kernel K2 (K5 with WM_RASTER_GROUP > 1), its backward
     kernel K3. `slot_fracs` ("auto", or a sequence of one fraction a slot
-    plane) bins the forward through coverage-scheduled prefixes
-    (tiles.bin_gaussians_packed_prefix): fewer sorted rows, the slots a
-    prefix cuts counted in n_dropped; the training path ignores it and bins
-    exactly, as the JAX VJP re-bins. impl="jax" is the JAX package's
+    plane) bins the forward of a CPU tensor through coverage-scheduled
+    prefixes (tiles.bin_gaussians_packed_prefix): fewer sorted rows, the
+    slots a prefix cuts counted in n_dropped; on the card K7's exact list
+    of the live rows is shorter still, so slot_fracs bins exactly there
+    (bin_splats); the training path ignores it and bins exactly, as the JAX
+    VJP re-bins. impl="jax" is the JAX package's
     dense-bin route: the per-tile id table (tiles.bin_gaussians) blended by
     kernel K4, the backward the plain version under autograd; it ignores
     payload_f16 and slot_fracs, as JAX does, and takes no abs_tap.

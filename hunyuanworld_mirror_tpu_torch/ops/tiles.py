@@ -10,14 +10,31 @@ exactly: the i32 key `tile_id << depth_bits | depth_q` (depth quantized
 against the live [min, max]) with the flat slot index breaking ties. Here
 the two ride one int64 sort key, `key32 << 32 | flat_idx`, and the payload
 is gathered by the sorted index instead of riding the sort.
+
+One camera's flat list has two routes. The plain code
+(bin_gaussians_packed_plain, the JAX function's steps) sorts every one of
+the N*TPG slots, the dead ones to the sentinel tile after the live ones,
+so its list holds M = N*TPG rows. On the card, bin_gaussians_packed runs
+kernel K7 (csrc/bin_flat.cu): it emits only the n_live slots that hold an
+intersection, sorts them, and gathers them into a list of M = n_live rows,
+the plain list's live prefix bit for bit (starts, counts, n_dropped and
+every row the tiles' segments hold). The blend and its backward read only
+[starts[t], starts[t] + counts[t]) and take M as a plane stride, so the
+two lists render the same. The camera batch and the dense table keep the
+plain code; the coverage-scheduled prefixes (bin_gaussians_packed_prefix)
+are the CPU's, since on the card K7's live rows are fewer than the
+prefixes keep and rasterizer.bin_splats sends slot_fracs to K7.
 """
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from ..utils import profiling
+from . import _build
+from ._launch import check_device, launch
 
 DEPTH_BITS = 20
 _CONIC_TEST_EPS = 1e-3
@@ -30,11 +47,11 @@ class TileBins(NamedTuple):
 
 
 class FlatBins(NamedTuple):
-    packed: torch.Tensor     # (V, N*TPG) f32 payload, sorted
+    packed: torch.Tensor     # (V, M) f32 payload, sorted (M: see the module)
     starts: torch.Tensor     # (n_tiles,) int32
     counts: torch.Tensor     # (n_tiles,) int32, clamped to max_per_tile
     n_dropped: torch.Tensor  # () int64 - intersections beyond the caps
-    gauss_ids: Optional[torch.Tensor] = None  # (N*TPG,) int32 entry -> splat
+    gauss_ids: Optional[torch.Tensor] = None  # (M,) int32 entry -> splat
 
 
 def opacity_tight_radii(radii: torch.Tensor, opacities: torch.Tensor,
@@ -204,16 +221,17 @@ def _gather(values: Sequence[torch.Tensor], index: torch.Tensor) -> torch.Tensor
     return planes.view(torch.int32)[:, index].view(torch.float32)
 
 
-def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
-                         depths: torch.Tensor, values: Sequence[torch.Tensor],
-                         tile_size: int, tile_width: int, tile_height: int,
-                         max_tiles_per_gauss: int = 9,
-                         max_per_tile: int = 1024,
-                         conic_test=None, with_ids: bool = False) -> FlatBins:
+def bin_gaussians_packed_plain(means2d: torch.Tensor, radii: torch.Tensor,
+                               depths: torch.Tensor, values: Sequence[torch.Tensor],
+                               tile_size: int, tile_width: int, tile_height: int,
+                               max_tiles_per_gauss: int = 9,
+                               max_per_tile: int = 1024,
+                               conic_test=None, with_ids: bool = False) -> FlatBins:
     """Bin one camera's N projected splats into the sorted flat list; the V
     payload planes `values` (each (N,), f32 or f16-pair bit patterns) come
-    out gathered in blend order as packed (V, N*TPG). `with_ids` also
-    returns the entry -> splat map the backward scatters by."""
+    out gathered in blend order as packed (V, N*TPG), the dead slots last.
+    `with_ids` also returns the entry -> splat map the backward scatters
+    by."""
     N = means2d.shape[0]
     n_tiles = tile_width * tile_height
     TPG = max_tiles_per_gauss
@@ -229,6 +247,117 @@ def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
     return FlatBins(_gather(values, gauss), starts.to(torch.int32),
                     counts.to(torch.int32), n_dropped,
                     gauss.to(torch.int32) if with_ids else None)
+
+
+def bin_gaussians_packed(means2d: torch.Tensor, radii: torch.Tensor,
+                         depths: torch.Tensor, values: Sequence[torch.Tensor],
+                         tile_size: int, tile_width: int, tile_height: int,
+                         max_tiles_per_gauss: int = 9,
+                         max_per_tile: int = 1024,
+                         conic_test=None, with_ids: bool = False) -> FlatBins:
+    """bin_gaussians_packed_plain's list, counted in profiling's counters
+    "bin_fused" (once a camera) and "bin_rows" (the rows sorted). A CPU
+    tensor runs the plain code (N*TPG rows); a CUDA tensor runs kernel K7
+    (counted in `bin_gaussians_packed.launches`), whose list holds only the
+    n_live live rows: the plain list's live prefix, bit for bit. Reading
+    n_live back is the camera's one host sync."""
+    profiling.count("bin_fused")
+    if check_device(means2d, "bin_gaussians_packed"):
+        bins = bin_gaussians_packed_plain(means2d, radii, depths, values, tile_size,
+                                          tile_width, tile_height, max_tiles_per_gauss,
+                                          max_per_tile, conic_test, with_ids)
+        profiling.count("bin_rows", bins.packed.shape[1])
+        return bins
+    return _bin_flat(means2d, radii, depths, values, tile_size, tile_width, tile_height,
+                     max_tiles_per_gauss, max_per_tile, conic_test, with_ids)
+
+
+bin_gaussians_packed.launches = 0
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each C entry's arguments before the trailing stream
+_KEYS_ARGS = [_P] * 7 + [_LL] * 4 + [_P, _P, _LL] + [_I] * 7
+_EMIT_ARGS = [_P] * 3 + [_LL, _I] + [_P] * 7 + [_LL, _LL] + [_I] * 5
+# the depth range's blocks (two a streaming multiprocessor); each block of
+# bin_keys reduces their (min, max) pairs
+_RANGE_BLOCKS = 264
+# the payload planes bin_flat_emit reads where they lie
+_MAX_PLANES = 16
+
+
+def _sort_bytes(n: int, end_bit: int) -> int:
+    """The scratch bytes (at least 1) of bin_flat_emit's sort of n keys."""
+    f = _build.load("bin_flat").bin_flat_sort_bytes
+    f.restype, f.argtypes = _LL, [_LL, _I]
+    bytes_ = f(n, end_bit)
+    if bytes_ < 0:
+        raise RuntimeError(f"cub's radix sort refused {n} keys of {end_bit} bits")
+    return max(bytes_, 1)
+
+
+def _f32_planes(planes, N, what):
+    if any(p.dim() != 1 or p.shape[0] != N or p.dtype != torch.float32 for p in planes):
+        raise ValueError(f"{what} must be f32 (N,) planes, N = {N}")
+
+
+def _bin_flat(means2d, radii, depths, values, tile_size, tile_width, tile_height,
+              TPG, max_per_tile, conic_test, with_ids) -> FlatBins:
+    """Kernel K7's route of bin_gaussians_packed (csrc/bin_flat.cu): the
+    live slots' keys, their count read back, their sort, the gather and
+    the tiles' segments. The key is (tile << db | depth_q) << sb | slot
+    with sb the bits of N*TPG - 1: the plain key's order, sorted over
+    fewer bits."""
+    N, dev = means2d.shape[0], means2d.device
+    n_tiles = tile_width * tile_height
+    db = depth_bits_for(n_tiles)
+    if n_tiles >= (1 << (31 - db)):
+        raise ValueError("tile id overflows the packed key")
+    if N * TPG > 1 << 32:
+        raise ValueError(f"{N} splats x {TPG} slots overflow the key's 32-bit slot index")
+    if (radii.dtype != torch.int32 or means2d.dtype != torch.float32
+            or tuple(means2d.shape) != (N, 2) or tuple(radii.shape) != (N, 2)):
+        raise ValueError(f"means2d must be f32 (N, 2) and radii int32 (N, 2), got "
+                         f"{means2d.dtype} {tuple(means2d.shape)}, {radii.dtype} "
+                         f"{tuple(radii.shape)}")
+    ct = [None] * 4 if conic_test is None else list(conic_test)
+    _f32_planes([p for p in ct if p is not None], N, "the conic test planes")
+    _f32_planes(values, N, "the payload planes")
+    V = len(values)
+    if V > _MAX_PLANES:
+        raise ValueError(f"K7 gathers at most {_MAX_PLANES} payload planes, got {V}")
+    sb = max(N * TPG - 1, 0).bit_length()
+    end_bit = sb + ((n_tiles << db) - 1).bit_length()
+    n_part = max(1, min(_RANGE_BLOCKS, -(-N // 256)))
+    # the live count, the drop count, the depth range's (min, max) pairs
+    aux = torch.empty(2 + n_part, dtype=torch.int64, device=dev)
+    keys = torch.empty(N * TPG, dtype=torch.int64, device=dev)
+    m2d, rad, dep = (t.contiguous() for t in (means2d, radii, depths))
+    launch("bin_flat", "bin_flat_keys", _KEYS_ARGS, dev, m2d.data_ptr(), rad.data_ptr(),
+           dep.data_ptr(), *(None if p is None else p.data_ptr() for p in ct),
+           *(0 if p is None else p.stride(0) for p in ct), keys.data_ptr(),
+           aux.data_ptr(), N, n_part, tile_size, tile_width, tile_height, TPG, db, sb)
+    profiling.count("host_syncs")       # the live count's readback
+    n_live = int(aux[0])
+    profiling.count("bin_rows", n_live)
+    packed = torch.empty(V, n_live, dtype=torch.int32, device=dev)
+    ids = torch.empty(n_live, dtype=torch.int32, device=dev) if with_ids else None
+    starts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    if n_live:
+        temp = torch.empty(_sort_bytes(n_live, end_bit), dtype=torch.uint8, device=dev)
+        sorted_keys = torch.empty_like(keys[:n_live])
+        launch("bin_flat", "bin_flat_emit", _EMIT_ARGS, dev, keys.data_ptr(),
+               sorted_keys.data_ptr(), temp.data_ptr(), temp.numel(),
+               end_bit, (_P * V)(*(v.data_ptr() for v in values)),
+               (_LL * V)(*(v.stride(0) for v in values)), packed.data_ptr(),
+               None if ids is None else ids.data_ptr(), starts.data_ptr(),
+               counts.data_ptr(), aux.data_ptr(), n_live, N, V, db, sb, n_tiles,
+               max_per_tile)
+    else:                               # no intersection: every tile empty
+        starts.zero_()
+        counts.zero_()
+    bin_gaussians_packed.launches += 1
+    return FlatBins(packed.view(torch.float32), starts, counts, aux[1], ids)
 
 
 def multi_camera_depth_bits(n_cams: int, n_tiles: int) -> int:

@@ -13,7 +13,8 @@ and its intersections a camera. The knobs the card has (KNOBS):
   group       WM_RASTER_GROUP 1 / 4 / 8 / 16 (G > 1: kernel K5);
   tile        GSRendererConfig.tile_size 16 / 8 (the kernels build 8 and
               16 only: ops/rasterizer_flat.KERNEL_TILE_SIZES);
-  binning     slot_fracs None (exact) / "auto" (--fast-binning);
+  binning     slot_fracs None (exact) / "auto" (--fast-binning; on the
+              card both bin exactly through kernel K7, rasterizer.bin_splats);
   exact_tile  exact_tile_test on / off;
   payload     payload_f16 on / off;
   impl        rasterizer_impl "pallas" (K2) / "jax" (the dense bins, K4).

@@ -255,7 +255,8 @@ def test_spans_are_nested_user_annotations_under_the_profiler(tmp_path):
 
 # The spans a tiny reconstruct (S=2, fixed cameras) records: render.* once a
 # camera, and where the host syncs land (55 on the card's S=4 request, two
-# cameras more); each camera's projection takes kernel K6's route.
+# cameras more); each camera's projection takes kernel K6's route, and its
+# binning K7's, whose plain version sorts the 3,584 splats x 4 slots.
 TINY_TREE = (
     [("encoder", None, 2), ("trunk", None, 4), ("heads", None, 1),
      ("heads.depth", "heads", 10), ("heads.pts", "heads", 10),
@@ -264,7 +265,8 @@ TINY_TREE = (
     + [("render.project", "gs_render", 0), ("render.bin", "gs_render", 1),
        ("render.blend", "gs_render", 0)] * 2)
 TINY_SYNCS = 53      # the tree's 52 and the images' upload
-TINY_COUNTS = {"host_syncs": TINY_SYNCS, "project_fused": 2}
+TINY_COUNTS = {"host_syncs": TINY_SYNCS, "project_fused": 2, "bin_fused": 2,
+               "bin_rows": 2 * 3584 * 4}
 
 
 @pytest.fixture(scope="module")
@@ -342,13 +344,15 @@ def test_tiny_refine_step_records_the_span_tree():
     """One refinement step: render.* once a camera inside render_forward,
     the loss there too, then backward and optimizer; host syncs: each
     camera's depth scalar (the card's step adds the absgrad scale: 5 at 4
-    cameras); each camera's projection takes kernel K6's route."""
+    cameras); each camera's projection takes kernel K6's route, and its
+    binning K7's, whose plain version sorts the 64 slots x 9."""
     step = _refine_step()
     with pprof.recording() as rec:
         step()
     (req,) = rec.resolve()
     assert _spans(req) == STEP_TREE
-    assert req.counts == {"host_syncs": 2, "project_fused": 2}
+    assert req.counts == {"host_syncs": 2, "project_fused": 2, "bin_fused": 2,
+                          "bin_rows": 2 * 64 * 9}
 
 
 @pytest.mark.parametrize("bilateral,names", [

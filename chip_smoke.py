@@ -130,11 +130,7 @@ Phases (any failure exits non-zero before the last line is printed):
      (--rasterizer jax): one forward with 88 K1, 0 K2 and 4 K4 launches,
      its render against the flat forward's (max, median, share past 1e-3),
      K4 against its plain version on each camera's dense bins (tight radii,
-     4096 a tile, 4 tiles a splat), 7 timed forwards; (b) slot_fracs="auto"
-     (--fast-binning): one forward with 4 K2, the render against the flat
-     forward's, each camera's list the exact route's on every field (K7's
-     live rows, no more than the prefixes would keep), K2 against its plain
-     version on the 4 lists, 7 timed forwards; (c) the
+     4096 a tile, 4 tiles a splat), 7 timed forwards; (c) the
      --video trajectory through the 4 cameras (46 frames, 46 K2 launches),
      every frame finite and lit, ms a frame, K2 against its plain version on
      frame 0's list, then 3 frames with the spread effect (3 K2) and 3 on
@@ -145,8 +141,9 @@ Phases (any failure exits non-zero before the last line is printed):
      with 1% noise unprojected through its cameras), where the cost must
      fall; (e)
      the CLI's main() on a .npy of the images with --glb --glb-mesh
-     --mask-sky --ba --ba-iters 4 --fast-binning: 88 K1 and 4 K2 launches,
-     every file written, scene.glb a valid glTF header;
+     --mask-sky --ba --ba-iters 4 --fast-binning (which binds nothing: the
+     port always bins exactly): 88 K1 and 4 K2 launches, every file
+     written, scene.glb a valid glTF header;
  13. the trainer's remaining flags, on phase 8's training inputs (510,964
      splats in 1,021,928 slots, 4 cameras at 518 px, 4096 a tile), each run
      with the (K2, K3, K4) counts set to 0 just before it: first one
@@ -280,7 +277,7 @@ Phases (any failure exits non-zero before the last line is printed):
      staging and the ranks sharing one card, not multi-GPU scaling;
  18. the measuring tools: (a) the bench twin's headline row (`python -m
      hunyuanworld_mirror_tpu_torch.bench --row '{"stage": "headline"}'`, its
-     own process: large, S=4, 518 px, gs_slot_fracs="auto", the model's own
+     own process: large, S=4, 518 px, the exact binning, the model's own
      cameras): rc 0, every key of bench.HEADLINE_KEYS, value > 0, 0 < mfu
      <= 1.05, e2e_sol_fraction <= 1.05, render_n_dropped >= 0, its line
      logged; (b) K2 (`rasterize`, the flat route) and K4 (impl="jax")
@@ -339,9 +336,8 @@ K4 are per call of their route over the 4 cameras: `launches` is the
 count of that call, the times and bounds totals over its cameras. K4's
 bytes are the id table's live slots and one read of each live slot's
 splat row, its operations those of the same blend replayed as a flat list.
-Phase 12's paths add keys to two entries: K2's `fast_binning_forward`
-(per forward over the 4 prefix lists) and `video_frame` (`launches` for the
-46-frame trajectory, the times on frame 0's list), K4's
+Phase 12's paths add keys to two entries: K2's `video_frame` (`launches`
+for the 46-frame trajectory, the times on frame 0's list), K4's
 `rasterizer_jax_forward` (per forward of the --rasterizer jax path).
 Phase 13's add two more: K3's `mcmc_step` (launches and the median MCMC
 step's ms) and K4's `training_step` (the kernel numbers on step 0's 4
@@ -2294,10 +2290,10 @@ def phase_cli_flags(imgs):
     """Phase 12: the CLI's remaining flags on one model of phase 5's
     configuration and weights (`large`, seed 0), phase 5's images and fixed
     cameras. The render's route is switched on the model's renderer config
-    between forwards. (a) rasterizer_impl="jax" (--rasterizer jax), (b)
-    slot_fracs="auto" (--fast-binning), (c) the novel-view trajectory of
-    --video, (d) bundle adjustment (--ba), (e) the CLI's main() with the GLB
-    flags, --ba and --fast-binning -> the numbers for the kernels line."""
+    between forwards. (a) rasterizer_impl="jax" (--rasterizer jax), (c) the
+    novel-view trajectory of --video, (d) bundle adjustment (--ba), (e) the
+    CLI's main() with the GLB flags, --ba and --fast-binning -> the numbers
+    for the kernels line."""
     from dataclasses import replace
     from hunyuanworld_mirror_tpu_torch.infer import PRESETS, load_model, reconstruct
     from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
@@ -2315,12 +2311,6 @@ def phase_cli_flags(imgs):
     out["k4_forward"], out["diff_jax"] = cli_jax_route(model, imgs, cams, flat)
     out["gs_render_ms"]["jax"], out["total_ms"]["jax"] = gs_render_ms(
         "rasterizer_impl=jax", model, imgs, cams)
-
-    model.gs_renderer.cfg = replace(base, slot_fracs="auto")
-    out["k2_prefix"], out["diff_auto"], out["rows"] = cli_prefix_route(
-        model, imgs, cams, flat)
-    out["gs_render_ms"]["auto"], out["total_ms"]["auto"] = gs_render_ms(
-        "slot_fracs=auto", model, imgs, cams)
     model.gs_renderer.cfg = base
     log(f"gs_render median ms over 7 forwards: {json.dumps(out['gs_render_ms'])}; "
         f"forward total median ms: {json.dumps(out['total_ms'])}")
@@ -2354,49 +2344,6 @@ def cli_jax_route(model, imgs, cams, flat):
         del bins
     del preds
     return totals("K4 per forward on the --rasterizer jax path", rows), diff
-
-
-def cli_prefix_route(model, imgs, cams, flat):
-    """(b): one forward with slot_fracs="auto" (4 K2), its render against
-    the exact route's, and a camera at a time its list against the exact
-    route's: on the card slot_fracs bins through K7 (rasterizer.bin_splats),
-    whose live rows are fewer than the prefixes keep (tiles._auto_slot_fracs'
-    N sum(fracs)), so the two lists are one, every field bit for bit; K2
-    against its plain version on the 4 lists."""
-    from hunyuanworld_mirror_tpu_torch.ops import rasterizer
-    from hunyuanworld_mirror_tpu_torch.ops.tiles import _auto_slot_fracs
-    preds = counted_forward("slot_fracs=auto", model, imgs, cams, (88, 24, 4, 0))
-    diff = render_diff("slot_fracs=auto", preds, flat)
-    means, quats, scales, opac, sh, w2c, Ks, HW = main_path_scene(preds)
-    prefix_rows = int(means.shape[0] * sum(_auto_slot_fracs(RENDER_TPG)))
-    rows, sorted_rows, same = [], [], []
-    for c in range(w2c.shape[0]):
-        kw = (means, quats, scales, opac, sh, w2c[c], Ks[c], HW, HW, 16, RENDER_MPT,
-              RENDER_TPG, True)
-        exact = rasterizer.bin_camera(*kw)
-        bins = rasterizer.bin_camera(*kw, slot_fracs="auto")
-        sorted_rows.append((bins.packed.shape[1], exact.packed.shape[1]))
-        same.append(all((a is None and b is None) or torch.equal(a, b)
-                        for a, b in zip(bins, exact)))
-        if c == 0:
-            bin_ms = (cuda_ms(lambda: rasterizer.bin_camera(*kw, slot_fracs="auto"),
-                              reps=5, warmup=1),
-                      cuda_ms(lambda: rasterizer.bin_camera(*kw), reps=5, warmup=1))
-        err, ms, plain_ms, bound, by, _ = k2_check(f"slot_fracs=auto camera {c}", bins,
-                                                   HW, HW, 4, True)
-        rows.append((err, ms, plain_ms, bound, by))
-        del exact, bins
-    log(f"slot_fracs=auto: sorted rows a camera (this route, exact) {sorted_rows}, "
-        f"the exact list's on every field {same}; the prefixes would keep {prefix_rows}; "
-        f"render_n_dropped {preds['render_n_dropped'].tolist()}; camera 0's projection "
-        f"and binning (bin_camera) {bin_ms[0]:.3f} ms with slot_fracs, {bin_ms[1]:.3f} ms "
-        f"exact")
-    if not (all(same) and all(a <= prefix_rows for a, _ in sorted_rows)):
-        raise AssertionError(f"slot_fracs=auto: not the exact list {same}, or more rows "
-                             f"{sorted_rows} than the prefixes' {prefix_rows}")
-    del preds
-    return (totals("K2 per forward on the --fast-binning path", rows), diff,
-            dict(sorted_rows=sorted_rows, prefix_rows=prefix_rows, bin_camera_ms=bin_ms))
 
 
 def frames_ok(label, frames, n):
@@ -2535,7 +2482,8 @@ def cli_main(imgs):
     """(e): the CLI's main() on a .npy of the images with --glb --glb-mesh
     --mask-sky --ba --ba-iters 4 --fast-binning (the large preset, 518 px):
     every file written, scene.glb a valid glTF header, and the forward's
-    launches as in (b). Its files go to build/smoke_cli/ of this checkout."""
+    launches the flat route's (88 K1, 4 K2: --fast-binning binds nothing).
+    Its files go to build/smoke_cli/ of this checkout."""
     import shutil
     from pathlib import Path
     from hunyuanworld_mirror_tpu_torch import infer
@@ -4719,9 +4667,8 @@ def main():
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["by"]}
 
-    # the phase-12 paths: K2 on the --fast-binning forward's lists and
-    # on one --video frame, K4 on the --rasterizer jax forward
-    kernels[2]["fast_binning_forward"] = sub(cli["k2_prefix"], 4)
+    # the phase-12 paths: K2 on one --video frame, K4 on the --rasterizer
+    # jax forward
     kernels[2]["video_frame"] = {**sub(cli["video"]["k2_frame"], 1),
                                  "launches": cli["video"]["launches"],
                                  "frames": cli["video"]["frames"]}

@@ -19,9 +19,8 @@ failed.
 
 Rows:
 - headline: the `large` model, B=1, S=4, 518 px, bf16 parameters, bf16
-  trunk, f32 heads, the Gaussian render on the flat route with the
-  coverage-scheduled binning (gs_slot_fracs="auto"), the cameras the model's
-  own predictions. One warm-up, then N_TIMED forwards through
+  trunk, f32 heads, the Gaussian render on the flat route (each camera's
+  exact list of the live slots), the cameras the model's own predictions. One warm-up, then N_TIMED forwards through
   `infer.reconstruct`: `value` is S over the median host-clock time of a
   forward ending in torch.cuda.synchronize (e2e_wall_ms), `e2e_device_ms`
   the same forwards' median between the CUDA events the model records
@@ -32,9 +31,8 @@ Rows:
   trunk at the bf16 peak, the heads at the f32 peak: they run in f32 with
   TF32 off) and of the render (render_work_model's bytes at the HBM rate),
   and their sum's share of the wall time. `render_n_isects` (per camera)
-  shows the render's load; `prefix_vs_exact_max_delta` holds the render
-  against a forward of the same weights and images that bins exactly, and
-  `exact_repeat_max_delta` two exact forwards against each other (the
+  shows the render's load; `exact_repeat_max_delta` holds the last timed
+  render against one more forward of the same weights and images (the
   voxel merge sums with float atomics on the card).
 - long_seq (S=32) and long_seq64 (S=64), each a `fwd` row (no render),
   a `render` row (with render_n_dropped) and a `ba` row
@@ -46,8 +44,9 @@ Rows:
 Departures from the root bench.py: the trunk's FLOPs count the 7 special
 tokens it runs with under enable_cond (the root counts 5); the render's
 bytes count each sort operand read once and written once (the root counts
-the stages of a TPU bitonic sort) and the blend's staged rows from this
-run's intersections (the root: 1024 a tile); no configuration ladder and
+the stages of a TPU bitonic sort), each camera's intersection sort over its
+live rows (the root: a coverage pre-sort and the prefix rows) and the
+blend's staged rows from this run's intersections (the root: 1024 a tile); no configuration ladder and
 no head_chunk retries; the JAX in-jit repeat harness (repeat_jit, _leaf_tap)
 and the relay floor (measure_floor) are not ported, since eager PyTorch on
 a local card has neither XLA's dead-code elimination nor a relay;
@@ -91,7 +90,7 @@ HEADLINE_KEYS = ("metric", "value", "unit", "config", "chip", "power_limit_w",
                  "e2e_wall_ms", "e2e_device_ms", "e2e_device_min_ms",
                  "e2e_device_max_ms", "n_forwards", "phases_ms", "phases_sum_ms",
                  "peak_memory_gb", "render_n_isects", "render_n_dropped",
-                 "prefix_vs_exact_max_delta", "exact_repeat_max_delta", "sol")
+                 "exact_repeat_max_delta", "sol")
 
 
 # ---------------------------------------------------------------------------
@@ -195,16 +194,15 @@ def comm_report(S: int, H: int, W: int, n_view_shards: int, C: int = 1024,
 
 
 def render_work_model(S: int, H: int, W: int, n_isects, compact_fraction: float = 0.5,
-                      tpg: int = 4, tile_size: int = 16, d_channels: int = 4) -> dict:
+                      tile_size: int = 16, d_channels: int = 4) -> dict:
     """The bytes the render phase must move (it is bound by bytes, not
-    FLOPs), at the root bench's phases and row counts: the voxel-prune sort
-    (18 operands over S*H*W rows), the compaction sort (13), each camera's
-    coverage pre-sort (10 over the compacted rows) and intersection sort (8
-    over the coverage-scheduled prefix rows, tiles._auto_slot_fracs), each
-    operand read once and written once; the blend's staged rows and written
-    pixels (utils/profiling.rasterizer_bytes) for `n_isects`, this run's
-    intersections a camera; the projection (9 values in, 8 out a splat)."""
-    from .ops.tiles import _auto_slot_fracs
+    FLOPs), at the root bench's phases: the voxel-prune sort
+    (18 operands over S*H*W rows), the compaction sort (13) and each
+    camera's intersection sort (8 over its live rows, `n_isects`, this
+    run's intersections a camera), each operand read once and written once;
+    the blend's staged rows and written pixels
+    (utils/profiling.rasterizer_bytes) for those intersections; the
+    projection (9 values in, 8 out a splat)."""
     from .utils.profiling import rasterizer_bytes
 
     def sort_bytes(rows, n_ops):
@@ -215,8 +213,7 @@ def render_work_model(S: int, H: int, W: int, n_isects, compact_fraction: float 
     n_tiles = math.ceil(W / tile_size) * math.ceil(H / tile_size)
     prune = sort_bytes(N0, 18)
     compact = sort_bytes(N0, 13)
-    prefix_rows = int(N * sum(_auto_slot_fracs(tpg)))
-    isect = S * (sort_bytes(N, 10) + sort_bytes(prefix_rows, 8))
+    isect = sum(sort_bytes(k, 8) for k in n_isects)
     blend = sum(rasterizer_bytes(N, H * W, k / n_tiles, n_tiles, d_channels)
                 for k in n_isects)
     proj = S * N * (9 + 8) * 4.0
@@ -242,7 +239,7 @@ def _build(args, dev, S, **cfg_kw):
     from .infer import PRESETS, load_model
     from .models.worldmirror import WorldMirrorConfig
     cfg = WorldMirrorConfig(img_size=args.img, rasterizer_impl="pallas",
-                            gs_slot_fracs="auto", **{**PRESETS[args.preset], **cfg_kw})
+                            **{**PRESETS[args.preset], **cfg_kw})
     model = load_model(cfg, device=dev)
     imgs = np.random.default_rng(args.seed).uniform(
         size=(1, S, args.img, args.img, 3)).astype(np.float32)
@@ -293,7 +290,6 @@ def _timed(dev, fn, n):
 
 
 def row_headline(args) -> dict:
-    import dataclasses
     from .infer import reconstruct
     dev, card, watts, spec = _device(args)
     S = 4
@@ -304,27 +300,22 @@ def row_headline(args) -> dict:
     wall_med = float(np.median(wall))
     n_isects = [int(v) for v in preds["render_n_isects"][0].tolist()]
     n_dropped = int(preds["render_n_dropped"].sum())
-    prefix = preds["rendered_colors"].float()
+    exact = preds["rendered_colors"].float()
     del preds
-    base = model.gs_renderer.cfg
-    model.gs_renderer.cfg = dataclasses.replace(base, slot_fracs=None)
-    exact = reconstruct(model, imgs)["rendered_colors"].float()
     exact2 = reconstruct(model, imgs)["rendered_colors"].float()
-    model.gs_renderer.cfg = base
 
     out = {"metric": METRIC, "value": None, "unit": UNIT, "chip": card,
            "power_limit_w": watts,
            "config": {"preset": args.preset, "batch": 1, "views": S, "img": args.img,
                       "param_dtype": "bfloat16", "trunk_dtype": "bfloat16",
                       "head_dtype": cfg.head_dtype, "rasterizer_impl": cfg.rasterizer_impl,
-                      "gs_slot_fracs": cfg.gs_slot_fracs, "head_chunk": cfg.head_chunk,
+                      "head_chunk": cfg.head_chunk,
                       "seed": args.seed, "device": dev},
            "model_tflops_per_frame": None, "achieved_tflops_per_s": None, "mfu": None,
            "e2e_wall_ms": wall_med, "e2e_device_ms": None, "e2e_device_min_ms": None,
            "e2e_device_max_ms": None, "n_forwards": len(wall), "phases_ms": None,
            "phases_sum_ms": None, "peak_memory_gb": peak,
            "render_n_isects": n_isects, "render_n_dropped": n_dropped,
-           "prefix_vs_exact_max_delta": float((prefix - exact).abs().max()),
            "exact_repeat_max_delta": float((exact2 - exact).abs().max()),
            "sol": None}
     fl = None
@@ -346,7 +337,7 @@ def row_headline(args) -> dict:
             out["achieved_tflops_per_s"] = fl["total"] / dt / 1e12
             out["mfu"] = fl["total"] / dt / spec.peak_flops_bf16
             rw = render_work_model(S, args.img, args.img, n_isects,
-                                   tpg=base.max_tiles_per_gauss, tile_size=base.tile_size)
+                                   tile_size=model.gs_renderer.cfg.tile_size)
             head_peak = (spec.peak_flops_f32 if cfg.head_dtype == "float32"
                          else spec.peak_flops_bf16)
             t_mm = (fl["encoder"] + fl["trunk"]) / spec.peak_flops_bf16 + fl["heads"] / head_peak

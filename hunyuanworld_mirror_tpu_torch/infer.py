@@ -11,11 +11,10 @@ with --no-gs), the Gaussians rendered back into the input views, bf16
 parameters (as the JAX CLI casts them), bf16 trunk and f32 heads. A video
 file is sampled at --fps frames a second (cv2). --rasterizer picks the
 render's route: pallas, the flat lists blended by kernel K2 (the default),
-or jax, the dense per-tile bins blended by kernel K4; --fast-binning bins
-the flat route through coverage-scheduled prefixes ("auto"), which may drop
-intersections on scenes heavier than the 518 px calibration (counted in
-render_n_dropped), on the CPU; on the card kernel K7 bins only the live
-slots, fewer rows than the prefixes keep, so the flag bins exactly there. --ba refines the predicted cameras by bundle adjustment
+or jax, the dense per-tile bins blended by kernel K4. --fast-binning is
+accepted and changes nothing: the port always bins exactly, since kernel K7
+sorts only the live slots, fewer rows than the coverage-scheduled prefixes
+of the JAX CLI kept. --ba refines the predicted cameras by bundle adjustment
 (refine/ba.py, --ba-iters LM steps) before the exports, which then carry
 the refined poses. Writes points.ply, depth_XXX.png / .npy, normal_XXX.png,
 camera_params.json, gaussians.ply and gaussians.splat, with --glb a GLB
@@ -218,10 +217,9 @@ def main(argv: Optional[List[str]] = None, device=None):
                     help="render route: pallas = flat lists (kernel K2), "
                          "jax = dense per-tile bins (kernel K4)")
     ap.add_argument("--fast-binning", action="store_true",
-                    help="coverage-scheduled isect binning (pallas route): "
-                         "fewer sorted rows, may drop intersections on scenes "
-                         "heavier than the 518px calibration (CPU; the card's "
-                         "exact binning already sorts fewer)")
+                    help="accepted for the JAX CLI's flags; the port always "
+                         "bins exactly, since kernel K7 sorts only the live "
+                         "slots, fewer than the prefixes kept")
     ap.add_argument("--video", action="store_true",
                     help="render a slerp-interpolated novel-view video")
     ap.add_argument("--ba", action="store_true",
@@ -247,7 +245,6 @@ def main(argv: Optional[List[str]] = None, device=None):
     S, H, W = imgs.shape[1:4]
     cfg = WorldMirrorConfig(img_size=args.size, enable_gs=not args.no_gs,
                             rasterizer_impl=args.rasterizer,
-                            gs_slot_fracs="auto" if args.fast_binning else None,
                             **PRESETS[args.preset])
     params = load_npz(args.ckpt) if args.ckpt else None
     if params is None:

@@ -20,8 +20,8 @@ splats:
             (tiles._conic_slot_mask: f32, a margin of 1e-3 on the level).
 Exact semantics in each: the blend masks every pixel outside the level
 set. The exact-cover histogram (ellipse cells a splat, 11 for 11 or more)
-and the fraction of splats needing slot >= k are what size
-tiles.AUTO_SLOT_FRACS (`_auto_slot_fracs`), printed beside them.
+and the fraction of splats needing slot >= k say how many of each
+splat's max_tiles_per_gauss slots the scene fills.
 
 Beside the counts it renders the same splats (gaussians.rasterize_splats:
 the flat route, max_tiles_per_gauss 4, max_per_tile 4096) and prints the
@@ -150,13 +150,12 @@ def main(argv: Optional[List[str]] = None, scene=None) -> Dict:
     run.log("exact-cover histogram (cover k: fraction): " + " ".join(
         f"{k}:{f:.4f}" for k, f in enumerate(frac) if f > 0))
     run.log("fraction needing slot >= k: " + " ".join(
-        f"{k}:{tail[k]:.4f}" for k in range(1, 10))
-            + f"  (AUTO_SLOT_FRACS {tiles.AUTO_SLOT_FRACS})")
+        f"{k}:{tail[k]:.4f}" for k in range(1, 10)))
     return run.finish("isect_stats", {
         "views": S, "img": W, "tile": ts, "cameras": args.cameras, "splats": N,
         "per_camera": per_cam, "mean": mean, "render_n_isects": n_isects,
         "render_n_dropped": n_dropped, "hist": hist.tolist(),
-        "slot_tail": tail[1:10].tolist(), "auto_slot_fracs": list(tiles.AUTO_SLOT_FRACS)})
+        "slot_tail": tail[1:10].tolist()})
 
 
 if __name__ == "__main__":

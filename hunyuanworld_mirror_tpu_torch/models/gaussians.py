@@ -65,10 +65,6 @@ class GSRendererConfig:
     # f16-pair payload on the flat route (an inference speed knob, ~1e-3
     # render delta)
     payload_f16: bool = True
-    # coverage-scheduled binning on the flat route: "auto", one fraction a
-    # slot plane, or None (exact). An inference-only approximation: the
-    # slots a prefix cuts are counted in render_n_dropped
-    slot_fracs: Optional[object] = None
     # the exact ellipse-tile test in binning (EXACT semantics, fewer
     # entries); the environment's WM_EXACT_TILE=0 also turns it off
     exact_tile_test: bool = True
@@ -318,7 +314,7 @@ def rasterize_splats(cfg: GSRendererConfig, splats: Dict, w2c: torch.Tensor,
         max_per_tile=cfg.max_per_tile,
         max_tiles_per_gauss=cfg.max_tiles_per_gauss, quat_order="wxyz",
         payload_f16=cfg.payload_f16, impl=cfg.rasterizer_impl,
-        slot_fracs=cfg.slot_fracs, exact_tile_test=exact_tile_test(cfg),
+        exact_tile_test=exact_tile_test(cfg),
         device=device)
 
 

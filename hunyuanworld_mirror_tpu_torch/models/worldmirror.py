@@ -54,8 +54,9 @@ class WorldMirrorConfig:
     # dataclass defaults to "jax" because its "pallas" falls back to "jax"
     # off the TPU; the port's default is the route the CLI selects
     rasterizer_impl: str = "pallas"
-    # coverage-scheduled binning, an inference-only approximation
-    # (gaussians.GSRendererConfig.slot_fracs); None bins exactly
+    # the JAX package's coverage-scheduled binning; accepted for its
+    # configs and read nowhere: the port always bins exactly, since kernel
+    # K7 sorts only the live slots, fewer than the prefixes kept
     gs_slot_fracs: Optional[object] = None
     # splat-mean source (gaussians.GSRendererConfig.position_from)
     gs_position_from: str = "gsdepth+predcamera"
@@ -119,8 +120,7 @@ class WorldMirrorConfig:
         return gaussians.GSRendererConfig(
             feature_dim=self.gs_dim, sh_degree=self.sh_degree,
             voxel_size=self.voxel_size, position_from=self.gs_position_from,
-            enable_compact=self.gs_compact, rasterizer_impl=self.rasterizer_impl,
-            slot_fracs=self.gs_slot_fracs)
+            enable_compact=self.gs_compact, rasterizer_impl=self.rasterizer_impl)
 
 
 def frame_chunks(cfg: WorldMirrorConfig, S: int) -> Optional[int]:

@@ -8,8 +8,8 @@ f-theta, orthographic, OpenCV distortion and rolling shutters) ->
 opacities times the anti-aliasing compensation
 (`calc_compensations`) -> opacity-tight radii -> SH colours and the render
 mode's channels (RGB, D, ED, RGB+D, RGB+ED) -> flat binning with the exact
-ellipse-tile test (ops/tiles.py, f32 or f16-pair payload, exact or
-coverage-scheduled prefixes) -> the flat blend (ops/rasterizer_flat.py:
+ellipse-tile test (ops/tiles.py, f32 or f16-pair payload; kernel K7 on
+the card) -> the flat blend (ops/rasterizer_flat.py:
 kernel K2, or K5 when WM_RASTER_GROUP > 1) -> expected depth normalized by
 alpha in the ED modes. `impl="jax"` takes the JAX package's dense-bin
 route instead: the per-tile id table (tiles.bin_gaussians) blended by
@@ -36,7 +36,6 @@ from .. import resolve_device
 from ..utils import profiling
 from ..utils.rotation import quat_to_rotmat
 from . import cameras, projection, tiles
-from ._launch import check_device
 from .projection import RENDER_MODES, mode_channels
 from .rasterizer_binned import (RasterizeBinned, dense_weights, group_entries,
                                 rasterize_binned_world, tile_pixels)
@@ -76,26 +75,14 @@ def payload_planes(means2d, conics, colors, opacities, payload_f16: bool):
 def bin_splats(means2d, conics, colors, opacities, radii, depths,
                tile_size: int, tile_width: int, tile_height: int,
                max_tiles_per_gauss: int, max_per_tile: int,
-               payload_f16: bool, with_ids: bool = False, slot_fracs=None,
+               payload_f16: bool, with_ids: bool = False,
                exact_test: bool = True) -> tiles.FlatBins:
     """One camera's projected splats -> the sorted flat list kernel K2
     blends, its payload_planes gathered in blend order (on the card kernel
     K7's list of the live rows, tiles.bin_gaussians_packed).
-    `exact_test=False` drops the ellipse-tile test. `slot_fracs` ("auto"
-    or one fraction a slot plane; no ids) bins a CPU tensor through the
-    coverage-scheduled prefixes (tiles.bin_gaussians_packed_prefix, the
-    JAX function's fewer sorted rows); on the card K7 already sorts only
-    the live rows, fewer than the prefixes keep, so the exact list
-    serves."""
-    if slot_fracs is not None and with_ids:
-        raise ValueError("prefix binning (slot_fracs) returns no entry ids")
+    `exact_test=False` drops the ellipse-tile test."""
     values = payload_planes(means2d, conics, colors, opacities, payload_f16)
     conic_test = tiles.conic_test_planes(conics, opacities) if exact_test else None
-    if slot_fracs is not None and check_device(means2d, "bin_splats"):
-        return tiles.bin_gaussians_packed_prefix(
-            means2d, radii, depths, values, tile_size, tile_width, tile_height,
-            max_tiles_per_gauss, max_per_tile, slot_fracs=slot_fracs,
-            conic_test=conic_test)
     return tiles.bin_gaussians_packed(
         means2d, radii, depths, values, tile_size, tile_width, tile_height,
         max_tiles_per_gauss, max_per_tile, conic_test=conic_test,
@@ -154,7 +141,7 @@ def project_camera(means, covars, opacities, colors, viewmat, K, width: int,
 def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
                width: int, height: int, tile_size: int, max_per_tile: int,
                max_tiles_per_gauss: int, payload_f16: bool,
-               with_ids: bool = False, slot_fracs=None) -> tiles.FlatBins:
+               with_ids: bool = False) -> tiles.FlatBins:
     """Project, colour (RGB + depth) and bin one pinhole camera (viewmat
     (4, 4) world->cam, K (3, 3)) as the flat route does; the list's colour
     width is colors.shape[-1] + 1."""
@@ -166,7 +153,7 @@ def bin_camera(means, quats_xyzw, scales, opacities, colors, viewmat, K,
     return bin_splats(m2d, con, col, opacities, rad, dep, tile_size, tw, th,
                       max_tiles_per_gauss,
                       _capped(max_per_tile, means.shape[0], max_tiles_per_gauss),
-                      payload_f16, with_ids, slot_fracs)
+                      payload_f16, with_ids)
 
 
 def blend_flat(bins: tiles.FlatBins, width: int, height: int, tile_size: int,
@@ -415,7 +402,7 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
               rolling_shutter: str = cameras.SHUTTER_GLOBAL, viewmats_rs=None,
               ut_params: Optional[cameras.UTParams] = None,
               radius_clip: float = 0.0, abs_tap=None, camera_batch: bool = False,
-              payload_f16: bool = False, slot_fracs=None, tight_radius: bool = True,
+              payload_f16: bool = False, tight_radius: bool = True,
               exact_tile_test: bool = True, device=None):
     """Render N splats into C cameras (gsplat.rasterization's dense
     single-batch form; the JAX function's signature and defaults).
@@ -444,16 +431,10 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
 
     impl="pallas" (the default) is the flat route: a sorted flat list per
     camera blended by kernel K2 (K5 with WM_RASTER_GROUP > 1), its backward
-    kernel K3. `slot_fracs` ("auto", or a sequence of one fraction a slot
-    plane) bins the forward of a CPU tensor through coverage-scheduled
-    prefixes (tiles.bin_gaussians_packed_prefix): fewer sorted rows, the
-    slots a prefix cuts counted in n_dropped; on the card K7's exact list
-    of the live rows is shorter still, so slot_fracs bins exactly there
-    (bin_splats); the training path ignores it and bins exactly, as the JAX
-    VJP re-bins. impl="jax" is the JAX package's
+    kernel K3. impl="jax" is the JAX package's
     dense-bin route: the per-tile id table (tiles.bin_gaussians) blended by
     kernel K4, the backward the plain version under autograd; it ignores
-    payload_f16 and slot_fracs, as JAX does, and takes no abs_tap.
+    payload_f16, as JAX does, and takes no abs_tap.
     `exact_tile_test=False` drops the ellipse-tile test on both routes.
 
     `camera_batch=True` renders all pinhole cameras through one sort and
@@ -473,8 +454,6 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"unknown impl {impl!r}")
     if render_mode not in RENDER_MODES:
         raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
-    if slot_fracs is not None and not isinstance(slot_fracs, str):
-        slot_fracs = tuple(slot_fracs)
     dev = resolve_device(device)
     means, quats, scales, opacities, colors, viewmats, Ks = (
         torch.as_tensor(t, dtype=torch.float32, device=dev)
@@ -494,7 +473,7 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     if impl == "jax":
         if camera_batch:
             raise ValueError("camera_batch=True takes only impl='pallas'")
-        payload_f16, slot_fracs = False, None
+        payload_f16 = False
     if train and payload_f16:
         raise ValueError("the rasterizer's backward takes only the f32 payload")
     use_ut = (camera_model != cameras.PINHOLE or radial_coeffs is not None
@@ -560,8 +539,7 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
             with profiling.span("render.bin"):
                 bins = bin_splats(s.means2d, s.conics, s.colors, s.opacities, s.radii,
                                   s.depths, tile_size, tw, th, max_tiles_per_gauss,
-                                  max_per_tile, payload_f16, slot_fracs=slot_fracs,
-                                  exact_test=exact_tile_test)
+                                  max_per_tile, payload_f16, exact_test=exact_tile_test)
             with profiling.span("render.blend"):
                 (img, alpha), _, counts, n_drop = blend_flat(
                     bins, width, height, tile_size, s.colors.shape[-1], payload_f16,

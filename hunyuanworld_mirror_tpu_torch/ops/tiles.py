@@ -20,10 +20,9 @@ intersection, sorts them, and gathers them into a list of M = n_live rows,
 the plain list's live prefix bit for bit (starts, counts, n_dropped and
 every row the tiles' segments hold). The blend and its backward read only
 [starts[t], starts[t] + counts[t]) and take M as a plane stride, so the
-two lists render the same. The camera batch and the dense table keep the
-plain code; the coverage-scheduled prefixes (bin_gaussians_packed_prefix)
-are the CPU's, since on the card K7's live rows are fewer than the
-prefixes keep and rasterizer.bin_splats sends slot_fracs to K7.
+two lists render the same. The camera batch (bin_gaussians_packed_multi,
+all cameras in one sort) and the dense table (bin_gaussians) run the plain
+code on every device.
 """
 
 import ctypes
@@ -440,92 +439,3 @@ def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor,
     return TileBins((slot % N).to(torch.int32)[idx], counts.to(torch.int32),
                     clamped + _lost_to_tpg(n_cover, valid, TPG))
 
-
-# Per-slot-plane prefix fractions for coverage-scheduled binning ("auto"):
-# after a descending pre-sort by tile coverage, slot plane k enumerates only
-# the first ceil(frac_k N) splats, each prefix rounded up to `align` rows.
-# The JAX package's calibration (518 px scenes: mean cover 1.67 tiles).
-AUTO_SLOT_FRACS = (1.0, 0.75, 0.25, 0.25, 0.125, 0.0625, 0.0625,
-                   0.03125, 0.03125)
-
-
-def _auto_slot_fracs(TPG: int):
-    if TPG <= len(AUTO_SLOT_FRACS):
-        return AUTO_SLOT_FRACS[:TPG]
-    return AUTO_SLOT_FRACS + (AUTO_SLOT_FRACS[-1],) * (TPG - len(AUTO_SLOT_FRACS))
-
-
-def bin_gaussians_packed_prefix(means2d: torch.Tensor, radii: torch.Tensor,
-                                depths: torch.Tensor,
-                                values: Sequence[torch.Tensor], tile_size: int,
-                                tile_width: int, tile_height: int,
-                                max_tiles_per_gauss: int = 9,
-                                max_per_tile: int = 1024, slot_fracs="auto",
-                                align: int = 512, conic_test=None) -> FlatBins:
-    """Coverage-scheduled bin_gaussians_packed (inference only): fewer
-    sorted rows than N*TPG, the same FlatBins without gauss_ids.
-
-    The splats are pre-sorted by clamped tile coverage, descending (ties by
-    splat id), and slot plane k enumerates only the first P_k =
-    ceil(N slot_fracs[k] / align) align rows of that order. Splats that need
-    a k-th slot form a prefix of it, so a plane loses slots only where
-    #(cover > k) > P_k; those are counted in n_dropped, as are the per-tile
-    cap and the coverage past TPG. The rows are sorted on the classic key
-    and the classic flat index k N + splat id, so within the surviving
-    prefixes the blend order is bin_gaussians_packed's, bit for bit. The
-    conic test reads its own f32 planes (u, v, conic, level) through the
-    pre-sort: `values` may hold f16 pairs. The row count is padded to a
-    multiple of `align` with sentinel keys (zero payload) that sort last.
-    """
-    N = means2d.shape[0]
-    n_tiles = tile_width * tile_height
-    TPG = max_tiles_per_gauss
-    if slot_fracs == "auto":
-        slot_fracs = _auto_slot_fracs(TPG)
-    if len(slot_fracs) != TPG:
-        raise ValueError(f"slot_fracs has {len(slot_fracs)} entries, need "
-                         f"max_tiles_per_gauss={TPG}")
-    db = depth_bits_for(n_tiles)
-    txmin, tymin, bw, n_cover, valid = _tile_boxes(means2d, radii, tile_size,
-                                                   tile_width, tile_height)
-    n_cover = torch.where(valid, n_cover, torch.zeros_like(n_cover))
-    dq = _depth_q(depths, valid, db)
-
-    # the coverage pre-sort: descending clamped cover, ties by splat id
-    order = torch.sort(-torch.clamp_max(n_cover, TPG), stable=True).indices
-    cover_s = n_cover[order]
-    u_s, v_s = means2d[order, 0], means2d[order, 1]
-    ct_s = None if conic_test is None else tuple(p[order] for p in conic_test)
-    txm, tym, bws, dq_s = txmin[order], tymin[order], bw[order], dq[order]
-
-    P = [min(N, -(-int(N * f) // align) * align) for f in slot_fracs]
-    keys, rows = [], []
-    for k in range(TPG):
-        pk = P[k]
-        if pk <= 0:
-            continue
-        tile = _slot_tiles(k, txm[:pk], tym[:pk], bws[:pk], cover_s[:pk],
-                           tile_width, n_tiles, u_s[:pk], v_s[:pk], tile_size,
-                           None if ct_s is None else tuple(p[:pk] for p in ct_s))
-        key32 = ((tile << db) | dq_s[:pk]).to(torch.int64)
-        # the classic flat index k N + splat id breaks depth ties
-        keys.append((key32 << 32) | (k * N + order[:pk]))
-        rows.append(order[:pk])
-    sort_key, perm = torch.sort(torch.cat(keys))
-    gauss = torch.cat(rows)[perm]
-    key32 = sort_key >> 32
-    cells = torch.arange(n_tiles + 1, dtype=torch.int64, device=means2d.device)
-    starts, counts, clamped = _segments(key32, cells, db, max_per_tile)
-
-    # drops: the per-tile cap, coverage past TPG, and the prefix exclusions
-    # (#(cover > k) beyond P_k, exact since cover_s falls)
-    n_dropped = clamped + torch.sum(torch.clamp_min(n_cover - TPG, 0))
-    for k in range(TPG):
-        if P[k] < N:
-            n_dropped = n_dropped + torch.sum(cover_s[P[k]:] > k)
-    packed = _gather(values, gauss)
-    pad = (-packed.shape[1]) % align
-    if pad:
-        packed = torch.nn.functional.pad(packed, (0, pad))
-    return FlatBins(packed, starts.to(torch.int32), counts.to(torch.int32),
-                    n_dropped)

@@ -16,8 +16,8 @@ S views, bf16 parameters, the fixed cameras by default) it times
      f16 payload, 4096 a tile, 4 tiles a splat);
 and inside D, over all cameras:
   D1 projection (the covariance planes, rasterizer.prepare_camera);
-  D2 binning (rasterizer.bin_splats: tiles.bin_gaussians_packed, or
-     bin_gaussians_packed_prefix under slot_fracs);
+  D2 binning (rasterizer.bin_splats: tiles.bin_gaussians_packed, kernel
+     K7 on the card);
   D3 the blend alone (rasterizer.blend_flat: kernel K2, or K5 with
      WM_RASTER_GROUP > 1). The JAX tool has no D3.
 D1 -> D2 -> D3 composed must equal D bit for bit (the tool raises
@@ -101,7 +101,6 @@ def camera_stages(cfg: gaussians.GSRendererConfig, splats: Dict, w2c, Ks,
     def bin_all(cams):
         return [rasterizer.bin_splats(s.means2d, s.conics, s.colors, s.opacities,
                                       s.radii, s.depths, ts, tw, th, tpg, mpt, f16,
-                                      slot_fracs=cfg.slot_fracs,
                                       exact_test=gaussians.exact_tile_test(cfg))
                 for s in cams]
 

@@ -13,8 +13,6 @@ and its intersections a camera. The knobs the card has (KNOBS):
   group       WM_RASTER_GROUP 1 / 4 / 8 / 16 (G > 1: kernel K5);
   tile        GSRendererConfig.tile_size 16 / 8 (the kernels build 8 and
               16 only: ops/rasterizer_flat.KERNEL_TILE_SIZES);
-  binning     slot_fracs None (exact) / "auto" (--fast-binning; on the
-              card both bin exactly through kernel K7, rasterizer.bin_splats);
   exact_tile  exact_tile_test on / off;
   payload     payload_f16 on / off;
   impl        rasterizer_impl "pallas" (K2) / "jax" (the dense bins, K4).
@@ -53,8 +51,6 @@ KNOBS = {
     "group": [(f"WM_RASTER_GROUP={g}", {"WM_RASTER_GROUP": str(g)}, {})
               for g in (1, 4, 8, 16)],
     "tile": [(f"tile_size={t}", {}, {"tile_size": t}) for t in (16, 8)],
-    "binning": [("slot_fracs=None", {}, {"slot_fracs": None}),
-                ("slot_fracs=auto", {}, {"slot_fracs": "auto"})],
     "exact_tile": [(f"exact_tile_test={on}", {}, {"exact_tile_test": on})
                    for on in (True, False)],
     "payload": [(f"payload_f16={on}", {}, {"payload_f16": on}) for on in (True, False)],

@@ -53,18 +53,18 @@ def test_model_flops_counts_the_trunks_seven_special_tokens(B, S, H, W):
 
 
 def test_render_work_model_hand_count():
-    # S=2 cameras at 32 x 32: N0 = 2048 rows, N = 1024 compacted, 4 tiles,
-    # TPG 4 -> prefix rows int(1024 * (1 + 0.75 + 0.25 + 0.25)) = 2304
+    # S=2 cameras at 32 x 32: N0 = 2048 rows, N = 1024 compacted, 4 tiles;
+    # each camera sorts its live rows, 10 and 20
     rw = bench.render_work_model(2, 32, 32, n_isects=[10, 20])
     prune = 2 * 2048 * 18 * 4                             # 294,912
     compact = 2 * 2048 * 13 * 4                           # 212,992
-    isect = 2 * (2 * 1024 * 10 * 4 + 2 * 2304 * 8 * 4)   # 458,752
+    isect = 2 * 10 * 8 * 4 + 2 * 20 * 8 * 4               # 1,920
     blend = (10 + 20) * 40 + 2 * 1024 * 5 * 4             # rows of 40 B; 5 f32 a pixel
     proj = 2 * 1024 * 17 * 4                              # 139,264
     assert rw["bytes_prune_compact"] == prune + compact
     assert rw["bytes_isect_sorts"] == isect
     assert rw["bytes_blend"] == pytest.approx(blend, rel=1e-12)
-    assert rw["bytes_total"] == pytest.approx(1148080, rel=1e-12)
+    assert rw["bytes_total"] == pytest.approx(691248, rel=1e-12)
     assert rw["n_splats_compact"] == 1024
 
 
@@ -146,7 +146,10 @@ def test_headline_row_rehearsed_on_the_cpu(capsys):
     assert row["e2e_wall_ms"] > 0 and row["n_forwards"] == bench.N_TIMED
     assert row["config"]["views"] == 4 and row["config"]["img"] == 56
     assert len(row["render_n_isects"]) == 4 and row["render_n_dropped"] >= 0
-    assert row["prefix_vs_exact_max_delta"] >= 0
+    assert row["exact_repeat_max_delta"] >= 0
+    assert set(row["config"]) == {"preset", "batch", "views", "img", "param_dtype",
+                                  "trunk_dtype", "head_dtype", "rasterizer_impl",
+                                  "head_chunk", "seed", "device"}
 
 
 def test_spawned_row_runs_in_its_own_process(monkeypatch):

@@ -8,8 +8,7 @@ segments, and so do K5's group windows (WM_RASTER_GROUP > 1). On the CPU
 bin_gaussians_packed takes the plain code and counts the route. K7's
 wrapper hands its C entries their arguments (a stand-in launch that
 emulates them through their pointers), and its list is the plain list's
-live prefix; slot_fracs on the card takes K7 too. The benchmark's readers
-of the route's counters read them."""
+live prefix. The benchmark's readers of the route's counters read them."""
 
 import ctypes
 import importlib.util
@@ -143,28 +142,6 @@ def test_the_k5_route_blends_the_live_rows_as_the_whole_list(monkeypatch, group)
     assert any(moved)
 
 
-def test_fast_binning_on_the_card_is_k7s_exact_list(monkeypatch):
-    """slot_fracs on a card tensor (the kernels' device check answering
-    "not the CPU", K7's entries through the stand-in) bins through K7: the
-    plain exact list's live prefix, not the coverage-scheduled prefixes; on
-    the CPU it keeps the prefixes, and it gives no ids on either."""
-    m2d, con, col, op, rad, dep = scene = _scene()
-    prefix = prast.bin_splats(m2d, con, col, op, rad, dep, TILE, TW, TH, 4, 1024, True,
-                              slot_fracs="auto")
-    calls = _k7_standin(monkeypatch)
-    k7 = prast.bin_splats(m2d, con, col, op, rad, dep, TILE, TW, TH, 4, 1024, True,
-                          slot_fracs="auto")
-    args = _args(scene, True, False, 4, 1024, True)
-    n = _n_live(args)
-    for a, b in zip(k7, _cut(ptiles.bin_gaussians_packed_plain(*args), n)):
-        assert (a is None and b is None) or torch.equal(a, b)
-    assert calls == ["bin_flat_keys", "bin_flat_emit"]
-    assert prefix.packed.shape[1] > n and prefix.gauss_ids is None
-    with pytest.raises(ValueError, match="slot_fracs"):
-        prast.bin_splats(m2d, con, col, op, rad, dep, TILE, TW, TH, 4, 1024, True,
-                         with_ids=True, slot_fracs="auto")
-
-
 # --- K7's wrapper through a stand-in launch ------------------------------------
 
 _CTYPES = {torch.int64: ctypes.c_int64, torch.int32: ctypes.c_int32,
@@ -232,7 +209,6 @@ def _k7_standin(monkeypatch):
             (_keys_entry if fn == "bin_flat_keys" else _emit_entry)(*a)
 
     monkeypatch.setattr(ptiles, "check_device", lambda x, fn: False)
-    monkeypatch.setattr(prast, "check_device", lambda x, fn: False)
     monkeypatch.setattr(ptiles, "launch", standin)
     monkeypatch.setattr(ptiles, "_sort_bytes", lambda n, end_bit: 8 * n)
     return calls

@@ -2,8 +2,10 @@
 flag at once on a .npy stack writes scene.glb, rendered.mp4 and the
 exports, and its scene.glb is byte for byte what the JAX package's
 predictions_to_glb writes from the port's own (BA-refined) predictions;
---rasterizer jax with --video on an mp4 input sampled at --fps renders
-through the dense-bin route; --help lists every flag of the JAX CLI."""
+--fast-binning builds the default's config and renders its bits (the port
+always bins exactly); --rasterizer jax with --video on an mp4 input sampled
+at --fps renders through the dense-bin route; --help lists every flag of
+the JAX CLI."""
 
 import os
 import subprocess
@@ -65,6 +67,30 @@ def test_cli_every_new_flag(tmp_path, monkeypatch, capsys):
     assert glb[:4] == b"glTF" and int.from_bytes(glb[8:12], "little") == len(glb)
 
 
+def test_cli_fast_binning_renders_the_default(tmp_path, monkeypatch):
+    """--fast-binning binds nothing: the same WorldMirrorConfig and the same
+    render, bit for bit, as the default flags."""
+    np.save(tmp_path / "views.npy", uniform(32, (2, 56, 56, 3)))
+    runs = []
+    forward = pwm.WorldMirror.forward
+
+    def spy(self, views, **kw):
+        preds = forward(self, views, **kw)
+        runs.append((self.cfg, {k: np_(preds[k]) for k in (
+            "rendered_colors", "rendered_alphas", "render_n_isects", "render_n_dropped")}))
+        return preds
+
+    monkeypatch.setattr(pwm.WorldMirror, "forward", spy)
+    for name, extra in (("default", []), ("fast", ["--fast-binning"])):
+        infer.main([str(tmp_path / "views.npy"), "-o", str(tmp_path / name),
+                    "--preset", "tiny", "--size", "56"] + extra, device="cpu")
+    (cfg, ref), (cfg_fast, got) = runs
+    assert cfg_fast == cfg
+    assert float(ref["rendered_alphas"].max()) > 0
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k].view(np.uint8), v.view(np.uint8), err_msg=k)
+
+
 def test_cli_jax_route_video_input(tmp_path, monkeypatch):
     clip = tmp_path / "clip.mp4"
     _write_video(clip, n=6, fps=6)
@@ -73,8 +99,7 @@ def test_cli_jax_route_video_input(tmp_path, monkeypatch):
     apply = pbin.RasterizeBinned.apply
 
     def spy(self, views, **kw):
-        seen.update(impl=self.cfg.rasterizer_impl, slots=self.cfg.gs_slot_fracs,
-                    shape=tuple(views["img"].shape))
+        seen.update(impl=self.cfg.rasterizer_impl, shape=tuple(views["img"].shape))
         return forward(self, views, **kw)
 
     def count(*a):
@@ -87,7 +112,7 @@ def test_cli_jax_route_video_input(tmp_path, monkeypatch):
     infer.main([str(clip), "-o", str(out), "--preset", "tiny", "--size", "56",
                 "--fps", "2", "--rasterizer", "jax", "--video"], device="cpu")
     # 6 frames at 6 fps sampled at 2 fps: frames 0 and 3, 56 x 42 crops
-    assert seen == dict(impl="jax", slots=None, shape=(1, 2, 42, 56, 3))
+    assert seen == dict(impl="jax", shape=(1, 2, 42, 56, 3))
     # the forward's render (2 cameras) and the 16 video frames, one a call
     assert len(calls) == 2 + 16
     assert _frame_count(str(out / "rendered.mp4")) == 16

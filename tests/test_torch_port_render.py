@@ -1,7 +1,10 @@
 """Port vs JAX on the render path: EWA projection, flat tile binning (exact:
-starts, counts, n_dropped and every packed row equal), the plain version of
-kernel K2 against the Pallas flat kernel in interpret mode (f32 and f16-pair
-payloads, atol 1e-4), and the whole per-camera `rasterize` (atol 1e-4)."""
+starts, counts, n_dropped and every packed row equal; f32 and f16-pair
+payloads, the ellipse test on and off, 400 splats and 1,200 under a per-tile
+cap that overflows), the plain version of kernel K2 against the Pallas flat
+kernel in interpret mode (f32 and f16-pair payloads, atol 1e-4; the capped
+scene among them: lists whose tiles lost entries), and the whole per-camera
+`rasterize` (atol 1e-4)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -72,23 +75,36 @@ def test_pack_f16_pairs_bits():
         np.asarray(jpack(jnp.asarray(a), jnp.asarray(b))).view(np.int32))
 
 
-@pytest.mark.parametrize("payload_f16", [False, True])
-def test_bin_gaussians_packed_exact(payload_f16):
-    s = _project(400)
+# (splats, max_per_tile): 1,200 splats overflow a 256 cap on the busiest
+# tiles with the ellipse test on or off
+LOADS = {"scene": (400, 1024), "capped": (1200, 256)}
+# the first two cases keep the names they had before the other loads came
+BIN_CASES = [pytest.param(load, conic, f16, id=str(f16) if (load, conic) == ("scene", True)
+                          else f"{load}-{'conic' if conic else 'aabb'}-{f16}")
+             for load in LOADS for conic in (True, False) for f16 in (False, True)]
+
+
+@pytest.mark.parametrize("load,conic,payload_f16", BIN_CASES)
+def test_bin_gaussians_packed_exact(load, conic, payload_f16):
+    n, mpt = LOADS[load]
+    s = _project(n)
     values = _value_planes(s, payload_f16)
     bins = ptiles.bin_gaussians_packed(
         t(s["m2d"]), torch.tensor(s["rad"]), t(s["dep"]), values, TILE, TW, TH,
-        4, 1024, conic_test=ptiles.conic_test_planes(t(s["con"]), t(s["op"])))
+        4, mpt,
+        conic_test=ptiles.conic_test_planes(t(s["con"]), t(s["op"])) if conic else None)
     ref = jtiles.bin_gaussians_packed(
         jnp.asarray(s["m2d"]), jnp.asarray(s["rad"]), jnp.asarray(s["dep"]),
-        [jnp.asarray(np_(v)) for v in values], TILE, TW, TH, 4, 1024,
-        conic_test=jtiles.conic_test_planes(jnp.asarray(s["con"]),
-                                            jnp.asarray(s["op"])))
+        [jnp.asarray(np_(v)) for v in values], TILE, TW, TH, 4, mpt,
+        conic_test=(jtiles.conic_test_planes(jnp.asarray(s["con"]), jnp.asarray(s["op"]))
+                    if conic else None))
     np.testing.assert_array_equal(np_(bins.starts), np.asarray(ref.starts))
     np.testing.assert_array_equal(np_(bins.counts), np.asarray(ref.counts))
     assert int(bins.n_dropped) == int(ref.n_dropped)
     np.testing.assert_array_equal(np_(bins.packed).view(np.int32),
                                   np.asarray(ref.packed).view(np.int32))
+    if load == "capped":
+        assert int(np_(bins.counts).max()) == mpt and int(bins.n_dropped) > 0
 
 
 def _opaque_stack():
@@ -104,12 +120,14 @@ def _opaque_stack():
 
 
 @pytest.mark.parametrize("payload_f16", [False, True])
-@pytest.mark.parametrize("case", ["scene", "multi_chunk", "opaque"])
+@pytest.mark.parametrize("case", ["scene", "multi_chunk", "opaque", "capped"])
 def test_plain_k2_matches_pallas_interpret(case, payload_f16):
+    """`capped`: K2 on lists whose busiest tiles lost entries to the cap."""
     if case == "opaque":
         s, (w, h), mpt = _opaque_stack(), (32, 32), 1024
     else:
-        n, mpt = (150, 512) if case == "scene" else (400, 1024)
+        n, mpt = {"scene": (150, 512), "multi_chunk": (400, 1024),
+                  "capped": LOADS["capped"]}[case]
         s, (w, h) = _project(n), (W, H)
     tw, th = (w + TILE - 1) // TILE, (h + TILE - 1) // TILE
     bins = prast.bin_splats(t(s["m2d"]), t(s["con"]), t(s["col"]), t(s["op"]),
@@ -126,6 +144,8 @@ def test_plain_k2_matches_pallas_interpret(case, payload_f16):
     close(alpha, a_j, 1e-4)
     if case == "opaque":
         assert 0.999 < float(alpha.max()) <= 1.0
+    if case == "capped":
+        assert int(np_(bins.counts).max()) == mpt
 
 
 @pytest.mark.parametrize("sh", [False, True])

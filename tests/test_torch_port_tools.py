@@ -38,7 +38,7 @@ def scene():
 
 # --- (a) render_profile ------------------------------------------------------
 
-@pytest.mark.parametrize("fields", [{}, {"slot_fracs": "auto", "payload_f16": False}])
+@pytest.mark.parametrize("fields", [{}, {"payload_f16": False}])
 def test_render_profile_stages_compose_to_the_render(scene, fields):
     from dataclasses import replace
     renderer = scene.model.gs_renderer
@@ -200,7 +200,7 @@ def test_render_sweep_refuses_tpu_knobs(knob, capsys):
 
 
 WANT = {"group": ("WM_RASTER_GROUP", ["1", "4", "8", "16"]),
-        "tile": ("tile_size", [16, 8]), "binning": ("slot_fracs", [None, "auto"]),
+        "tile": ("tile_size", [16, 8]),
         "exact_tile": ("exact_tile_test", [True, False]),
         "payload": ("payload_f16", [True, False]),
         "impl": ("rasterizer_impl", ["pallas", "jax"])}

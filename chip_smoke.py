@@ -26,8 +26,8 @@ Phases (any failure exits non-zero before the last line is printed):
      trunk, width 1024, 24 + 24 blocks, all five heads, the Gaussian render)
      at B=1, S=4, 518 px, random weights from a seed, fixed cameras: one
      `run` with the kernels' launch counts (88 attention launches, 24 of
-     them at N >= 4096, 4 rasterizer launches, 4 K6 forward launches and 4
-     K7 launches) and the peak memory;
+     them at N >= 4096, 4 rasterizer launches, 4 K6 forward launches, 4
+     K7 launches and 48 K8 launches) and the peak memory;
      then one model from `load_model`, one warm-up and 7 timed forwards
      through `reconstruct`, with the per-phase
      time; then, on the same model, one forward of 4 landscape images at
@@ -95,6 +95,22 @@ Phases (any failure exits non-zero before the last line is printed):
      slots past 2^31) of which 20,000 valid, the last 64 among them, against
      the plain binning of those alone. K7 and the plain binning timed a camera, with the bytes
      bound;
+ 8d. K8 (qk_norm_rope, the trunk's q/k normalisation): the ptxas report
+     (fails on a stack frame or a spill); the LayerNorm route
+     (ops/trunk_norm.layer_norm: PyTorch's bf16 LayerNorm, one launch) on
+     bf16 rows with bf16 parameters against the plain LayerNorm (f32
+     F.layer_norm between casts), bit for bit and with no K8 launch, at
+     the trunk's and the encoder's rows at S = 4 and 32 (eps 1e-5 / 1e-6),
+     rows at a wider stride, 64 and 2048 wide; qk_norm_rope against the
+     plain chain on the fused qkv's views at the trunk's frame and global
+     shapes at S = 4 and 32 (per-frame and tiled tables), CenterSnap's
+     trunk (f32 affine), DINOv3's rope-only route, the norm-only route and
+     the tiny presets' 16-wide heads: the share of differing elements and
+     the largest difference in bf16 ulps, and its norm stage's in ulps at
+     the affine's scale (at most 1: K8's f32 statistics sum in another
+     order than PyTorch's); the RoPE stage on the plain chain's own normed
+     q and k, bit for bit; each timed against the plain chain (a call, and
+     the device's time) with the bytes bound;
   9. K2m (rasterize_flat_multi_fwd): `rasterize(camera_batch=True)` on
      phase 5's 537,088 splats and 4 cameras at 518 px with the render's caps
      (4096 per tile, 4 tiles per splat): one sort of all cameras' slots, 1
@@ -256,8 +272,9 @@ Phases (any failure exits non-zero before the last line is printed):
      through the host), 3 forwards on the host clock between barriers,
      the peak memory; the gathered depth, points, normals, camera head
      prediction and render held against the one-device forward of the
-     same weights: the relative L2 of each no more than that of the
-     one-device bf16 forward against its f32-trunk forward; (b) the same
+     same weights: the relative L2 of each no more than sqrt(2) times that
+     of the one-device bf16 forward against its f32-trunk forward (see
+     MULTI_BAND); (b) the same
      at (1,2,2) (4 ranks, heads and MLP split over 2); (c)
      rasterize_distributed on phase 5's splats and 4 cameras at V = 2 and
      4 against rasterize(impl="jax") on one device (atol 2e-5, rtol 1e-4),
@@ -436,7 +453,7 @@ def phase_build():
     t0 = time.time()
     seconds = _build.build(["attention_fwd", "rasterize_flat_fwd",
                             "rasterize_flat_bwd", "rasterize_binned_fwd", "project_fwd",
-                            "project_bwd", "bin_flat"])
+                            "project_bwd", "bin_flat", "trunk_norm"])
     log(f"build: {time.time() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for name in seconds:
@@ -893,7 +910,8 @@ def phase_main_path():
     from hunyuanworld_mirror_tpu_torch.infer import (PRESETS, load_model,
                                                      reconstruct, run)
     from hunyuanworld_mirror_tpu_torch.models.worldmirror import WorldMirrorConfig
-    from hunyuanworld_mirror_tpu_torch.ops import projection, rasterizer, rasterizer_flat, tiles
+    from hunyuanworld_mirror_tpu_torch.ops import (projection, rasterizer, rasterizer_flat,
+                                                   tiles, trunk_norm)
     from hunyuanworld_mirror_tpu_torch.ops.attention import attention
 
     cfg = WorldMirrorConfig(**PRESETS["large"])
@@ -905,6 +923,7 @@ def phase_main_path():
     rasterizer_flat.rasterize_flat.launches = 0
     projection.project_fwd.launches = projection.project_bwd.launches = 0
     tiles.bin_gaussians_packed.launches = 0
+    trunk_norm.qk_norm_rope.launches = 0
     t0 = time.time()
     preds = run(imgs, cfg, camera_params=cams)
     torch.cuda.synchronize()
@@ -915,16 +934,18 @@ def phase_main_path():
                 "rasterize_flat_fwd": rasterizer_flat.rasterize_flat.launches,
                 "project_fwd": projection.project_fwd.launches,
                 "project_bwd": projection.project_bwd.launches,
-                "bin_flat": tiles.bin_gaussians_packed.launches}
+                "bin_flat": tiles.bin_gaussians_packed.launches,
+                "trunk_norm": trunk_norm.qk_norm_rope.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path run: {wall:.2f} s wall incl. model build and first use; "
         f"peak memory {peak_gb:.2f} GB; launches {launches}")
     if launches != {"attention_fwd": 88, "attention_fwd_flash_route": 24,
                     "attention_fwd_f32": K1C_PER_FWD, "rasterize_flat_fwd": 4,
-                    "project_fwd": 4, "project_bwd": 0, "bin_flat": 4}:
+                    "project_fwd": 4, "project_bwd": 0, "bin_flat": 4,
+                    "trunk_norm": K8_PER_FWD}:
         raise AssertionError(f"expected 88 attention launches (24 at N >= 4096, "
-                             f"{K1C_PER_FWD} f32), 4 rasterizer, 4 K6 forward and 4 K7 "
-                             f"launches per forward, got {launches}")
+                             f"{K1C_PER_FWD} f32), 4 rasterizer, 4 K6 forward, 4 K7 and "
+                             f"{K8_PER_FWD} K8 launches per forward, got {launches}")
 
     # timing: one model, so no forward pays for a model build
     model = load_model(cfg, device="cuda")
@@ -1926,6 +1947,197 @@ def phase_k7(preds, train_inputs):
     torch.cuda.empty_cache()
     out["beyond_int32"] = k7_beyond_int32(gen)
     torch.cuda.empty_cache()
+    return out
+
+
+# --- K8: the trunk's normalisation ---------------------------------------------
+
+# K8 launches a `large` forward: the 48 trunk blocks' q/k norm and RoPE
+K8_PER_FWD = 48
+# (label, rows, width, eps, row stride or None), bf16 parameters: the
+# trunk's and the encoder's rows at S = 4 and 32 (N = 1376 and 1374 tokens
+# a frame), a wider stride, the narrowest and widest rows
+LN_ROUTE = [
+    ("trunk s4", 4 * 1376, 1024, 1e-5, None),
+    ("trunk s32", 32 * 1376, 1024, 1e-5, None),
+    ("encoder s4", 4 * 1374, 1024, 1e-6, None),
+    ("encoder s32", 32 * 1374, 1024, 1e-6, None),
+    ("stride 1088", 4 * 1376, 1024, 1e-5, 1088),
+    ("width 64", 5000, 64, 1e-5, None),
+    ("width 2048", 5000, 2048, 1e-5, None),
+]
+# (label, (B, N, H, D), patch grid side, norm, rope, frames tiled, affine
+# dtype): the trunk's frame and global layers at S = 4 and 32, CenterSnap's
+# trunk, DINOv3's rope-only route, the norm-only route, the tiny presets'
+# 16-wide heads
+K8_QK = [
+    ("trunk frame s4", (4, 1376, 16, 64), 37, True, True, 1, torch.bfloat16),
+    ("trunk global s4", (1, 4 * 1376, 16, 64), 37, True, True, 4, torch.bfloat16),
+    ("trunk frame s32", (32, 1376, 16, 64), 37, True, True, 1, torch.bfloat16),
+    ("trunk global s32", (1, 32 * 1376, 16, 64), 37, True, True, 32, torch.bfloat16),
+    ("centersnap trunk", (20, 581, 6, 64), 24, True, True, 1, torch.float32),
+    ("dinov3 rope only", (20, 581, 6, 64), 24, False, True, 1, torch.float32),
+    ("norm only", (4, 1376, 16, 64), 37, True, False, 1, torch.bfloat16),
+    ("tiny d16", (2, 104, 4, 16), 10, True, True, 1, torch.bfloat16),
+]
+
+
+def k8_ptxas():
+    """K8's ptxas report: registers, and no stack frame or spill."""
+    from hunyuanworld_mirror_tpu_torch.ops import _build
+    report = (_build.BUILD_DIR / "trunk_norm.ptxas.txt").read_text()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+    frames = [int(n) for n in re.findall(r"(\d+) bytes stack frame", report)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    log(f"K8 trunk_norm ptxas: registers {regs}, stack frames {frames}, spills {spills}")
+    if any(frames) or any(spills) or not regs:
+        raise AssertionError("K8 trunk_norm: ptxas reports a stack frame or a spill")
+    return {"registers": regs, "spill_bytes": sum(spills)}
+
+
+def bf16_ulps(a, b):
+    """(the largest distance in bf16 ulps between two bf16 tensors of one
+    shape, the share of elements that differ at all)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return (int(d.max()) if d.numel() else 0), float((d != 0).float().mean())
+
+
+def bf16_ulps_at(a, b, scale):
+    """The largest |a - b| in bf16 ulps of max(|b|, scale) elementwise: a
+    LayerNorm's affine x w + b cancels where the output is small against
+    the bias, and f32 rounding there moves the output by ulps of the
+    bias's size, not of its own."""
+    m = torch.maximum(b.float().abs(), scale.float().abs()).clamp_min(2.0 ** -126)
+    _, e = torch.frexp(m)
+    ulp = torch.ldexp(torch.ones_like(m), e - 8)
+    return float(((a.float() - b.float()).abs() / ulp).max())
+
+
+def k8_affine(C, dtype, gen):
+    w = (1 + 0.2 * torch.randn(C, device="cuda", generator=gen)).to(dtype)
+    b = (0.2 * torch.randn(C, device="cuda", generator=gen)).to(dtype)
+    return w, b
+
+
+def k8_times(fn, plain, by):
+    """K8's and the plain chain's ms a call (CUDA events over a loop: the
+    host's pace where it is slower), their device ms a call (the profiler's
+    kernel time), and the bytes bound."""
+    dev, _ = device_ms_per_call(fn, reps=20)
+    plain_dev, _ = device_ms_per_call(plain, reps=20)
+    return {"ms": cuda_ms(fn, reps=20), "plain_ms": cuda_ms(plain, reps=20),
+            "device_ms": dev, "plain_device_ms": plain_dev, "bound_ms": by / 3.35e12 * 1e3}
+
+
+def k8_time_line(out):
+    dev = ("" if out["device_ms"] is None else
+           f" (device {out['device_ms']:.4f} ms, plain {out['plain_device_ms']:.4f} ms)")
+    return (f"K8 {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms a call{dev}, "
+            f"bound {out['bound_ms']:.4f} ms (bytes)")
+
+
+def ln_route_case(label, n, C, eps, stride, gen):
+    """The LayerNorm route on bf16 rows with bf16 parameters (PyTorch's bf16
+    LayerNorm, one launch, no K8) against the plain chain: bit for bit ->
+    its times beside the chain's and the bytes bound."""
+    from hunyuanworld_mirror_tpu_torch.ops import trunk_norm as tn
+    wide = (2 * torch.randn(n, stride or C, device="cuda", generator=gen) + 0.3
+            ).to(torch.bfloat16)
+    x = wide[:, :C]
+    w, b = k8_affine(C, torch.bfloat16, gen)
+    before = tn.qk_norm_rope.launches
+    y = tn.layer_norm(x, w, b, eps)
+    ref = tn.layer_norm_plain(x, w, b, eps)
+    torch.cuda.synchronize()
+    ulps, share = bf16_ulps(y, ref)
+    out = {"ulps": ulps, "share": share, "k8_launches": tn.qk_norm_rope.launches - before}
+    out.update(k8_times(lambda: tn.layer_norm(x, w, b, eps),
+                        lambda: tn.layer_norm_plain(x, w, b, eps), 4 * n * C + 4 * C))
+    log(f"LayerNorm route {label}: ({n}, {C}) eps {eps:g} bf16 affine"
+        f"{'' if stride is None else f', row stride {stride}'}: {ulps} ulp at most, "
+        f"{100 * share:.4f}% differ; " + k8_time_line(out).replace("K8 ", "route ", 1))
+    if ulps or out["k8_launches"] or not y.is_contiguous():
+        raise AssertionError(f"LayerNorm route {label}: {out}")
+    return out
+
+
+def k8_qk_case(label, shape, side, norm, rope, tiled, dtype, gen):
+    """qk_norm_rope against the plain chain on the views of a fused qkv: the
+    bf16 ulps and share that differ; its norm stage alone (the norm-only
+    route) against the plain LayerNorm, within 1 ulp at the affine's scale;
+    its RoPE stage alone on the plain chain's own normed q and k, bit for
+    bit -> the numbers."""
+    from hunyuanworld_mirror_tpu_torch.models.rope import (grid_positions, make_rope_tables,
+                                                           tile_tables)
+    from hunyuanworld_mirror_tpu_torch.ops import trunk_norm as tn
+    B, N, H, D = shape
+    qkv = torch.randn(B, N, 3 * H * D, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, _ = qkv.view(B, N, 3, H, D).unbind(2)
+    tabs = None
+    if rope:
+        n_frame = N // tiled
+        tabs = make_rope_tables(grid_positions(side, side, n_frame - side * side), D,
+                                device="cuda")
+        tabs = tile_tables(tabs, tiled) if tiled > 1 else tabs
+    norms = (None, None)
+    if norm:
+        norms = tuple((*k8_affine(D, dtype, gen), 1e-5) for _ in range(2))
+    before = tn.qk_norm_rope.launches
+    got = tn.qk_norm_rope(q, k, *norms, tabs)
+    ref = tn.qk_norm_rope_plain(q, k, *norms, tabs)
+    torch.cuda.synchronize()
+    (uq, sq), (uk, sk) = (bf16_ulps(a, r) for a, r in zip(got, ref))
+    out = {"ulps": max(uq, uk), "share": (sq + sk) / 2,
+           "launches": tn.qk_norm_rope.launches - before}
+    if norm:
+        nq, nk = (tn.layer_norm_plain(t, *n) for t, n in zip((q, k), norms))
+        stage = tn.qk_norm_rope(q, k, *norms, None)
+        torch.cuda.synchronize()
+        out["norm_stage_ulps_at_affine"] = max(
+            bf16_ulps_at(a, r, n[1]) for a, r, n in zip(stage, (nq, nk), norms))
+    if rope:
+        # the RoPE stage on one normed input: the plain chain's own
+        src = (nq, nk) if norm else (q, k)
+        stage = tn.qk_norm_rope(*src, None, None, tabs)
+        stage_ref = tn.qk_norm_rope_plain(*src, None, None, tabs)
+        torch.cuda.synchronize()
+        out["rope_stage_bitwise"] = all(torch.equal(a, r) for a, r in zip(stage, stage_ref))
+    by = 2 * 2 * 2 * B * N * H * D + (4 * N * D if rope else 0)
+    out.update(k8_times(lambda: tn.qk_norm_rope(q, k, *norms, tabs),
+                        lambda: tn.qk_norm_rope_plain(q, k, *norms, tabs), by))
+    log(f"K8 qk_norm_rope {label}: {shape} norm {norm} ({str(dtype)[6:]} affine) rope {rope}"
+        f"{f' tiled x{tiled}' if tiled > 1 else ''}: {out['ulps']} ulp at most, "
+        f"{100 * out['share']:.4f}% differ; norm stage "
+        f"{out.get('norm_stage_ulps_at_affine', float('nan')):.3f} ulp at the affine's "
+        f"scale, RoPE stage bit for bit {out.get('rope_stage_bitwise')}; "
+        + k8_time_line(out))
+    if (out["launches"] != 1 or out.get("rope_stage_bitwise") is False
+            or out.get("norm_stage_ulps_at_affine", 0) > 1
+            or (not norm and out["ulps"] != 0)
+            or not all(t.is_contiguous() for t in got)):
+        raise AssertionError(f"K8 qk_norm_rope {label}: {out}")
+    return out
+
+
+def phase_k8():
+    """K8 against the plain chain (see k8_qk_case) -> {case: numbers}, with
+    the ptxas report under "ptxas" and the LayerNorm route's cases (see
+    ln_route_case) under "ln_route"."""
+    out = {"ptxas": k8_ptxas(), "ln_route": {}}
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    with torch.no_grad():
+        for label, n, C, eps, stride in LN_ROUTE:
+            out["ln_route"][label] = ln_route_case(label, n, C, eps, stride, gen)
+            torch.cuda.empty_cache()
+        for label, shape, side, norm, rope, tiled, dtype in K8_QK:
+            out[f"qk {label}"] = k8_qk_case(label, shape, side, norm, rope, tiled, dtype, gen)
+            torch.cuda.empty_cache()
+    worst = max(r["ulps"] for k, r in out.items() if k not in ("ptxas", "ln_route"))
+    log(f"K8: the largest difference from the plain chain {worst} bf16 ulp")
     return out
 
 
@@ -3939,6 +4151,15 @@ def phase_app_eval(preds, imgs):
 
 # the outputs phase 17 holds against the one-device forward
 MULTI_KEYS = ("depth", "pts3d", "normals", "camera_params_pred", "rendered_colors")
+# (a), (b): the sharded forward's relative L2 from the one-device bf16
+# forward may reach this many times the one-device bf16 forward's from its
+# f32-trunk forward. Two bf16 forwards whose roundings are independent, each
+# as far from the f32 trunk as the other, lie sqrt(2) times that apart. The
+# camera head's prediction read 0.70-1.38 times it over 12 image draws with
+# the plain q/k chain and 0.77-1.28 with kernel K8 (H100), so a factor of 1
+# failed 15 of those 24 forwards by chance; depth, points and normals read
+# about 0.05
+MULTI_BAND = math.sqrt(2)
 # the distributed render's caps: the JAX function's tiles a splat, the
 # render's per-tile cap
 DIST_MPT, DIST_TPG = 4096, 9
@@ -4208,9 +4429,10 @@ def phase_multichip(preds, imgs):
         for k in MULTI_KEYS:
             err = rel_l2(ours[k], ref["bf16"][k])
             log(f"({tag}) {k:18s} rel L2 against the one-device bf16 forward {err:.3e}; "
-                f"bf16 against f32 trunk {band[k]:.3e}")
-            if not (np.isfinite(ours[k]).all() and err <= band[k]):
-                raise AssertionError(f"({tag}) {k}: {err} > {band[k]}")
+                f"bf16 against f32 trunk {band[k]:.3e} (ratio {err / band[k]:.3f}, "
+                f"limit {MULTI_BAND:.3f})")
+            if not (np.isfinite(ours[k]).all() and err <= MULTI_BAND * band[k]):
+                raise AssertionError(f"({tag}) {k}: {err} > {MULTI_BAND} x {band[k]}")
         res[tag] = {"launches": fwd[0]["counts"], "f32_launches": fwd[0]["f32_launches"],
                     "forward_ms": float(np.median(
             [t for f in fwd for t in f["ms"]])), "peak_gb": max(f["peak_gb"] for f in fwd),
@@ -4574,6 +4796,7 @@ def main():
         "training", phase_train, preds, imgs)
     k6 = timed("K6", phase_k6, preds, train_inputs)
     k7 = timed("K7", phase_k7, preds, train_inputs)
+    k8 = timed("K8", phase_k8)
     k2m_launches, k2m = timed("K2m", phase_k2m, preds)
     k5_launches, k5 = timed("K5", phase_k5, preds, train_inputs)
     k4_launches, k4 = timed("K4", phase_k4, preds)
@@ -4649,6 +4872,23 @@ def main():
          "bound_ms": {"main_4_cameras": sum(r["bound_ms"] for r in k7_cams[:4]),
                       "slots_4_cameras": sum(r["bound_ms"] for r in k7_cams[4:])},
          "bound_by": "bytes", "library_ms": None})
+    k8_cases = {k: r for k, r in k8.items() if k not in ("ptxas", "ln_route")}
+    kernels.append(
+        {"name": "qk_norm_rope (K8)", "route": "cuda",
+         "source": "hunyuanworld_mirror_tpu_torch/csrc/trunk_norm.cu",
+         "replaces": "none (plain XLA: hunyuanworld_mirror_tpu/models/nn.py layer_norm, "
+                     "models/rope.py apply_rope2d)",
+         "launches": {"recon_forward": launches["trunk_norm"]},
+         "max_bf16_ulps": max(r["ulps"] for r in k8_cases.values()),
+         "max_share_differing": max(r["share"] for r in k8_cases.values()),
+         "max_norm_stage_ulps_at_affine_scale": max(
+             r.get("norm_stage_ulps_at_affine", 0) for r in k8_cases.values()),
+         "ptxas": k8["ptxas"], "cases": k8_cases,
+         "ms": {k: r["ms"] for k, r in k8_cases.items()},
+         "plain_ms": {k: r["plain_ms"] for k, r in k8_cases.items()},
+         "bound_ms": {k: r["bound_ms"] for k, r in k8_cases.items()},
+         "bound_by": "bytes", "library_ms": None,
+         "layer_norm_route": k8["ln_route"]})
     for kernel, source, replaces, count, row in (
             ("rasterize_flat_multi_fwd", "rasterize_flat_fwd.cu", 771, k2m_launches, k2m),
             ("rasterize_flat_grouped (K2's entry on the clamped lists)",

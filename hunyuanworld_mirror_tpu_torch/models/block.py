@@ -3,8 +3,10 @@
 Port of hunyuanworld_mirror_tpu/models/block.py. The softmax core goes
 through one seam, ops.attention.attention(q, k, v, scale), in the JAX
 package's (B, N, H, D) layout: kernel K1 on the card, its plain version on
-the CPU. The LayerNorm eps is the call site's: 1e-5 for the trunk and
-camera-head blocks, 1e-6 inside DINOv2.
+the CPU. The QK-norm and RoPE go through ops.trunk_norm.qk_norm_rope, one
+launch of kernel K8 for a bf16 q and k on the card. The LayerNorm eps is
+the call site's: 1e-5 for the trunk and camera-head blocks, 1e-6 inside
+DINOv2.
 """
 
 from typing import Optional
@@ -12,11 +14,17 @@ from typing import Optional
 from torch import nn
 
 from ..ops.attention import attention, attention_replay
+from ..ops.trunk_norm import qk_norm_rope
 from ..parallel import comm
 from ..parallel.ring import ring_self_attention
 from .nn import (LayerNorm, LayerScale, Linear, Mlp, SwiGLUFFN, row_parallel,
                  swiglu_hidden_fused)
-from .rope import RopeTables, apply_rope2d
+from .rope import RopeTables
+
+
+def _norm(m: Optional[LayerNorm]):
+    """A LayerNorm's (weight, bias, eps), None without one."""
+    return None if m is None else (m.weight, m.bias, m.eps)
 
 
 class Attention(nn.Module):
@@ -41,10 +49,8 @@ class Attention(nn.Module):
             x = comm.copy_to_tp(x, self.tp)
         qkv = self.qkv(x).reshape(B, N, 3, H, D)
         q, k, v = qkv.unbind(2)                    # (B, N, H, D) views
-        if self.q_norm is not None:
-            q, k = self.q_norm(q), self.k_norm(k)
-        if rope is not None:
-            q, k = apply_rope2d(q, rope), apply_rope2d(k, rope)
+        if self.q_norm is not None or rope is not None:
+            q, k = qk_norm_rope(q, k, _norm(self.q_norm), _norm(self.k_norm), rope)
         scale = D ** -0.5
         if mesh is not None:
             out = ring_self_attention(q, k, v, mesh, scale)

@@ -2,7 +2,9 @@
 
 Port of hunyuanworld_mirror_tpu/models/rope.py: frequency base 100, head dim
 split into y/x halves, each half rotated 1-D; special tokens pinned at
-(0, 0), patch grid shifted by +1.
+(0, 0), patch grid shifted by +1. The rotation itself, apply_rope2d, is
+the plain version of kernel K8's RoPE stage and lives beside it in
+ops/trunk_norm.py; it is re-exported here.
 """
 
 from typing import NamedTuple
@@ -10,6 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.trunk_norm import apply_rope2d  # noqa: F401
 from ..utils import profiling
 
 
@@ -45,26 +48,6 @@ def make_rope_tables(positions: np.ndarray, head_dim: int,
     cos_y, sin_y = tables(positions[:, 0])
     cos_x, sin_x = tables(positions[:, 1])
     return RopeTables(cos_y, sin_y, cos_x, sin_x)
-
-
-def apply_rope2d(x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
-    """Rotate (B, N, heads, head_dim) features by their 2D token position.
-
-    (a, b) -> (a cos - b sin, b cos + a sin) on each quarter pair; the
-    tables are cast to x's dtype first, as the JAX package does.
-    """
-    dtype = x.dtype
-    half = x.shape[-1] // 2
-    q = half // 2
-
-    def rot(t, cos, sin):
-        c = cos[None, :, None, :q].to(dtype)
-        s = sin[None, :, None, :q].to(dtype)
-        a, b = t[..., :q], t[..., q:]
-        return torch.cat([a * c - b * s, b * c + a * s], dim=-1)
-
-    return torch.cat([rot(x[..., :half], tables.cos_y, tables.sin_y),
-                      rot(x[..., half:], tables.cos_x, tables.sin_x)], dim=-1)
 
 
 def tile_tables(tables: RopeTables, reps: int) -> RopeTables:

@@ -256,7 +256,9 @@ def test_spans_are_nested_user_annotations_under_the_profiler(tmp_path):
 # The spans a tiny reconstruct (S=2, fixed cameras) records: render.* once a
 # camera, and where the host syncs land (55 on the card's S=4 request, two
 # cameras more); each camera's projection takes kernel K6's route, and its
-# binning K7's, whose plain version sorts the 3,584 splats x 4 slots.
+# binning K7's, whose plain version sorts the 3,584 splats x 4 slots; each
+# of the 4 frame and 4 global blocks counts K8's route once (its q/k norm
+# and RoPE).
 TINY_TREE = (
     [("encoder", None, 2), ("trunk", None, 4), ("heads", None, 1),
      ("heads.depth", "heads", 10), ("heads.pts", "heads", 10),
@@ -266,7 +268,7 @@ TINY_TREE = (
        ("render.blend", "gs_render", 0)] * 2)
 TINY_SYNCS = 53      # the tree's 52 and the images' upload
 TINY_COUNTS = {"host_syncs": TINY_SYNCS, "project_fused": 2, "bin_fused": 2,
-               "bin_rows": 2 * 3584 * 4}
+               "bin_rows": 2 * 3584 * 4, "norm_fused": 4 * 2}
 
 
 @pytest.fixture(scope="module")
@@ -418,7 +420,8 @@ def test_tiny_centersnap_step_records_the_span_tree():
         step()
     (req,) = rec.resolve()
     assert _spans(req) == CS_TREE
-    assert req.counts == {"host_syncs": 4 + sum(n for _, _, n in CS_TREE)}
+    assert req.counts == {"host_syncs": 4 + sum(n for _, _, n in CS_TREE),
+                          "norm_fused": 2}
 
 
 def test_tiny_centersnap_marks_are_the_parents():
